@@ -1,0 +1,93 @@
+"""Carry configurations and cache state over from the JAX package.
+
+The JAX package's objects arrive as plain data: dataclasses as the dicts
+``dataclasses.asdict`` makes of them, arrays as NumPy arrays.  The
+functions here build the port's objects from them, so both packages can
+compute on the same configuration and the same state — a carry produced
+by ``repro.core.engine.init_batch_carry`` / ``run_batch_segment`` can be
+continued by :func:`repro_torch.core.engine.run_batch_segment`.  This
+module imports neither JAX nor `repro`; callers do the JAX side.
+
+A placement policy is identified by its class name, since ``asdict``
+drops it: ``policy("ZNuma", {"cxl_fraction": 0.5})``.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import numa, spec
+from repro_torch.core.cache import CacheParams
+from repro_torch.core.machine import CPUModel
+from repro_torch.core.simulator import SimConfig
+from repro_torch.core.timing import (CXLTiming, DramTiming, QueueModel,
+                                     SSDTiming, TimingConfig)
+
+POLICIES = {cls.__name__: cls for cls in (numa.ZNuma, numa.FlatMode,
+                                          numa.WeightedInterleave,
+                                          numa.ExplicitPageMap)}
+
+
+def cache_params(d: Mapping[str, Any]) -> CacheParams:
+    return CacheParams(**d)
+
+
+def cpu_model(d: Mapping[str, Any]) -> CPUModel:
+    return CPUModel(**d)
+
+
+def queue_model(d: Mapping[str, Any]) -> QueueModel:
+    return QueueModel(**d)
+
+
+def dram_timing(d: Mapping[str, Any]) -> DramTiming:
+    return DramTiming(**d)
+
+
+def cxl_timing(d: Mapping[str, Any]) -> CXLTiming:
+    # the CXL version is an IntEnum on both sides: carry it by value
+    return CXLTiming(**{**d, "version": spec.CXLVersion(int(d["version"]))})
+
+
+def ssd_timing(d: Mapping[str, Any]) -> SSDTiming:
+    return SSDTiming(**d)
+
+
+def timing_config(d: Mapping[str, Any]) -> TimingConfig:
+    return TimingConfig(dram=dram_timing(d["dram"]), cxl=cxl_timing(d["cxl"]),
+                        ssd=ssd_timing(d["ssd"]))
+
+
+def policy(kind: str, fields: Mapping[str, Any]) -> numa.Policy:
+    """The placement policy of class `kind` (``type(p).__name__``)."""
+    if kind not in POLICIES:
+        raise ValueError(f"unknown policy {kind!r}; one of {sorted(POLICIES)}")
+    if kind == "ExplicitPageMap":
+        return numa.ExplicitPageMap(tuple(fields["page_tiers"]))
+    return POLICIES[kind](**fields)
+
+
+def sim_config(d: Mapping[str, Any]) -> SimConfig:
+    return SimConfig(dram_gib=d["dram_gib"],
+                     expander_gib=tuple(d["expander_gib"]),
+                     n_cores=d["n_cores"], cache=cache_params(d["cache"]),
+                     timing=timing_config(d["timing"]),
+                     cpu=cpu_model(d["cpu"]))
+
+
+def carry_from_numpy(l1p, l2p, stats, t, device=None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The packed batch carry ``(l1p, l2p, stats, t)`` as int32 tensors.
+
+    Shapes are those of ``init_batch_carry``: (B, cores, s1, w1, 3),
+    (B, s2, w2, 5), (B, nstats) and (B,).
+    """
+    return tuple(torch.from_numpy(np.array(x, dtype=np.int32, copy=True))
+                 .to(device) for x in (l1p, l2p, stats, t))
+
+
+def carry_to_numpy(carry) -> Tuple[np.ndarray, ...]:
+    """The carry as host int32 NumPy arrays (what JAX accepts back)."""
+    return tuple(x.cpu().numpy().astype(np.int32) for x in carry)

@@ -1,0 +1,21 @@
+"""CXLRAMSim core on PyTorch: the paper's contribution, with the cache
+simulation on a CUDA card (or the CPU, when asked).
+
+Layers (bottom-up): spec -> packet -> registers -> hdm -> topology ->
+timing -> switch -> numa -> cache -> stream -> machine -> engine ->
+simulator.  The engine calls the kernels of :mod:`repro_torch.kernels`,
+which build on :mod:`.cache`; so the entry points below are resolved on
+first use rather than imported here, which would close that cycle.
+"""
+import importlib
+
+_EXPORTS = {"SweepSpec": "engine", "run_sweep": "engine",
+            "run_traces": "engine", "CXLRAMSim": "simulator",
+            "SimConfig": "simulator"}
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

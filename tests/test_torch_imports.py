@@ -1,0 +1,110 @@
+"""The port stands alone: no JAX, no `repro`, the card by default, and a
+clear error for everything not ported yet."""
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.core import engine as tengine
+from repro_torch.core import numa as tnuma
+from repro_torch.core import simulator as tsim
+from repro_torch.core.cache import CacheParams, init_batch_carry
+from repro_torch.core.timing import TimingConfig
+from repro_torch.kernels import cache_sim as tkernels
+from repro_torch.workloads import Workload
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, runpy, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path(sys.argv[1], run_name="chip_smoke_import_probe")
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_repro():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, check=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "JAX_PLATFORMS": "cpu"})
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 20
+    assert bad.strip() == "[]"
+    # chip_smoke.py imports the port inside main(): read its imports too
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+    imported += [n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom)]
+    assert "repro_torch.core.simulator" in imported
+    assert not [m for m in imported
+                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsim.CXLRAMSim()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine.run_sweep(tengine.SweepSpec(), CacheParams(), TimingConfig())
+
+
+def test_cuda_backend_on_cpu_tensors_raises():
+    p = CacheParams(l1_bytes=1024, l1_ways=2, l2_bytes=4096, l2_ways=4)
+    addr = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tkernels.mesi_cache_sim(addr, addr, addr, addr, params=p,
+                                backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tkernels.mesi_segment(init_batch_carry(p, 1), addr, addr, addr, addr,
+                              params=p, backend="cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tengine.run_traces(p, addr, backend="pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Chase(Workload):
+    name: str = "pointer_chase"
+
+
+UNPORTED = {
+    "topologies": dict(topologies=("direct2",)),
+    "workloads": dict(workloads=(_Chase(),)),
+    "tiering": dict(tiering=(object(),)),
+    "sampling": dict(sampling=(object(),)),
+    "mesh": dict(mesh=2),
+    "stream_chunk": dict(stream_chunk=512),
+    "resume": dict(resume="ckpt"),
+    "fault_plan": dict(fault_plan=object()),
+    "report": dict(report=object()),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(UNPORTED))
+def test_unported_knobs_raise(knob):
+    sim = tsim.CXLRAMSim(tsim.SimConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
+        sim.sweep((2,), **UNPORTED[knob])
+
+
+def test_route_and_machine_route_raise():
+    sim = tsim.CXLRAMSim(tsim.SimConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        sim.route()
+    addr = torch.arange(16, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        sim.machine.run_trace(addr, addr, tnuma.ZNuma(1.0), 1,
+                              route=object())
