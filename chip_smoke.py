@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -6,26 +6,40 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 (sm_90a) and the CUDA toolkit (`nvcc`).  Phases, each of which passes or
 makes the script exit non-zero:
 
-1. print the card's name and power limit, and build the kernel library
-   from ``src/repro_torch/kernels/csrc`` (timed);
-2. hold the MESI kernel against its plain PyTorch version on the card,
-   bitwise: random small-geometry batches (1, 2 and 4 cores, 2 and 3
-   targets, sentinel tails) resident and in segments that alternate
-   between kernel and plain version; a 31-core case whose L1 planes exceed
-   shared memory; and, at the full Table-I geometry, a batch of the first
-   16,384 accesses of the 8 x L2 STREAM triad trace beside three rows
-   crowded into a few sets, which force L1 and L2 evictions, dirty
-   writebacks and back-invalidations across all 16 L2 ways;
-3. run the main path — ``CXLRAMSim(SimConfig(), device="cuda")``, the
-   CXL-CLI flow, ``stream_suite((2, 4, 6, 8))`` and a three-policy
-   ``sweep((4,))`` — with the launch counts reset just before, check that
-   the kernel carried it and the plain version did not, check row
-   invariants, the 8 x L2 row resident against two segmentations, and
-   ``tests/golden/engine.json`` reproduced on the card;
-4. time the kernel per STREAM row with CUDA events (after a warm-up),
-   the plain version on the 16,384-access prefix, compute the bytes
-   bound, and profile the main path once to split its wall time into
-   device kernels and the rest;
+1. print the card's name and power limit, and build both kernel libraries
+   from ``src/repro_torch/kernels/csrc`` (one `nvcc` each, started
+   together; timed, with the ptxas report);
+2. hold each kernel against its plain PyTorch version on the card,
+   bitwise.  The MESI kernel (K1/K2, ``mesi.cu``): random small-geometry
+   batches (1, 2 and 4 cores, 2 and 3 targets, sentinel tails) resident
+   and in segments that alternate between kernel and plain version; a
+   31-core case whose L1 planes exceed shared memory; and, at the Table-I
+   geometry, the first 16,384 accesses of the 8 x L2 STREAM triad trace
+   beside three rows crowded into a few sets.  The epoch kernel (K3,
+   ``mesi_dyn.cu``), at the golden geometry, B = 4, N = 2048: 1/2/4 cores
+   at three targets and 2 cores at two, each batch holding a two-tier row
+   under DRAM pressure, a sampled row whose budget exceeds the page count,
+   a three-tier (or third two-tier) row and a static ride-along row (whose
+   stats must equal K1's); segments that alternate kernel and plain
+   version; a page count (30,000) that puts the page map and counts in
+   global memory; a Table-I prefix, 8,192 accesses of HotCold at 8 x L2
+   with 512-access epochs and a budget of 16; and the launches that sweeps
+   A, B and C make, as the engine derives them, cut to their first 8,192
+   accesses;
+3. run the main paths with the launch counts reset just before each and
+   read just after: PR 11's ``stream_suite((2, 4, 6, 8))`` plus a
+   three-policy ``sweep((4,))`` on the MESI kernel, then the dynamic path
+   at the Table-I host — sweep A (HotCold and GUPS under static and two
+   dynamic tierers), sweep B (a 10.5 M-access GUPS trace exact and SMARTS
+   sampled) and sweep C (HotCold on a DRAM -> CXL -> CXL-SSD hierarchy,
+   point timing and a latency distribution) — on the epoch kernel, with
+   no plain-version call; check row invariants, and reproduce
+   ``tests/golden/{engine,topology,workloads,sampling,fidelity}.json``
+   exactly on the card;
+4. time each kernel with CUDA events at the main paths' shapes (after a
+   warm-up), the plain versions on their Table-I parity batches, compute
+   the bytes bounds, and profile the main paths once to split their wall
+   time into device kernels and the rest;
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -41,7 +55,10 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-PREFIX = 16_384
+PREFIX = 16_384                    # K1's Table-I parity prefix
+DYN_PREFIX = 8_192                 # K3's Table-I parity prefix
+GOLDEN_GEOMETRY = dict(l1_bytes=8 * 1024, l1_ways=2, l2_bytes=16 * 1024,
+                       l2_ways=8)
 
 
 def fail(msg: str) -> None:
@@ -73,19 +90,24 @@ def cuda_ms(fn, warmup: int = 1, reps: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def same_run(a, b) -> int:
-    """Max |a - b| over stats and every state plane of two runs (must be 0)."""
+def max_diff(pairs) -> int:
+    """Max |a - b| over pairs of integer tensors (shapes must agree)."""
     import torch
-    (sa, sta), (sb, stb) = a, b
-    pairs = [(sa, sb)] + [(getattr(sta, f), getattr(stb, f))
-                          for f in sta._fields]
     err = 0
     for x, y in pairs:
         if x.shape != y.shape or x.dtype != y.dtype:
             raise AssertionError(f"shape/dtype mismatch {x.shape} {y.shape}")
-        err = max(err, int((x.to(torch.int64) - y.to(torch.int64))
-                           .abs().max()))
+        if x.numel():
+            err = max(err, int((x.to(torch.int64) - y.to(torch.int64))
+                               .abs().max()))
     return err
+
+
+def same_run(a, b) -> int:
+    """Max |a - b| over stats and every state plane of two runs (must be 0)."""
+    (sa, sta), (sb, stb) = a, b
+    return max_diff([(sa, sb)] + [(getattr(sta, f), getattr(stb, f))
+                                  for f in sta._fields])
 
 
 def crowded(p, n_sets: int, n_tags: int, n: int, gen):
@@ -100,46 +122,31 @@ def crowded(p, n_sets: int, n_tags: int, n: int, gen):
     return sets + p.l2_sets * tags
 
 
-def main() -> int:
+def finite_floats(row) -> bool:
+    def ok(v):
+        if isinstance(v, float):
+            return v == v and abs(v) != float("inf")
+        if isinstance(v, list):
+            return all(ok(x) for x in v)
+        return True
+    return all(ok(v) for k, v in row.items() if not k.endswith("_ci95"))
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: K1 against its plain version (PR 11's cases)
+# ---------------------------------------------------------------------------
+def k1_parity(dev, gen):
     import torch
-    if not torch.cuda.is_available():
-        fail("no CUDA device is available")
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
-        fail(f"the repro_torch sources are not beside {__file__}")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import cache as cache_mod
-    from repro_torch.core import engine, numa, stream
-    from repro_torch.core.machine import CPUModel
-    from repro_torch.core.simulator import CXLRAMSim, SimConfig
-    from repro_torch.core.timing import TimingConfig
-    from repro_torch.kernels import build, cache_sim, ops
-
-    dev = torch.device("cuda")
-    card = card_line()
-    print(card)
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
-
-    # ---- 1. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    reports = build.build()
-    build_s = time.perf_counter() - t0
-    print(f"[build] {sorted(reports) or 'cached'} in {build_s:.2f} s")
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
-
-    # ---- 2. kernel against plain version, on the card -------------------
+    from repro_torch.core import numa, stream
+    from repro_torch.kernels import cache_sim
     max_err = 0
-    gen = torch.Generator().manual_seed(0)
     small = dict(l1_bytes=1024, l1_ways=2, l2_bytes=4096, l2_ways=4)
     cases = [(dict(small, cores=c, n_targets=t), 4, 4096)
              for c in (1, 2, 4) for t in (2, 3)]
     # L1 planes in global memory; two crowded sets, so the 31 cores' copies
     # are shared, upgraded, invalidated and back-invalidated
     cases.append((dict(cores=31), 2, 1024))
-    t0 = time.perf_counter()
     for kw, b, n in cases:
         p = cache_mod.CacheParams(**kw)
         if p.cores == 31:
@@ -174,7 +181,7 @@ def main() -> int:
         err = max(err, same_run(kern, (carry[2], cache_mod.unpack_state(
             carry[0], carry[1]))))
         torch.cuda.synchronize()
-        print(f"[parity] {kw} B={b} N={n}: max|kernel - plain| = {err}")
+        print(f"[parity K1] {kw} B={b} N={n}: max|kernel - plain| = {err}")
         max_err = max(max_err, err)
         if err:
             raise AssertionError(f"kernel disagrees with plain version: {kw}")
@@ -204,11 +211,11 @@ def main() -> int:
         *prefix, params=table1, backend="reference")), warmup=0)
     err = same_run(kern, plain_box[0])
     max_err = max(max_err, err)
-    print(f"[parity] Table-I B=4 N={PREFIX} (8xL2 triad prefix + 3 crowded "
-          f"rows): max|kernel - plain| = {err}")
+    print(f"[parity K1] Table-I B=4 N={PREFIX} (8xL2 triad prefix + 3 "
+          f"crowded rows): max|kernel - plain| = {err}")
     for i, row in enumerate(kern[0].cpu()):
         s = cache_mod.stats_dict(row)
-        print(f"[parity]   row {i} stats {s}")
+        print(f"[parity K1]   row {i} stats {s}")
         if i > 0 and not (s["writebacks_l1"] and s["back_invalidations"]
                           and s["mem_write_dram"] + s["mem_write_cxl"]):
             raise AssertionError(f"crowded row {i} evicted too little: {s}")
@@ -217,29 +224,191 @@ def main() -> int:
     prefix_ms = cuda_ms(lambda: cache_sim.mesi_cache_sim(*prefix,
                                                          params=table1),
                         reps=5)
-    print(f"[parity] phase took {time.perf_counter() - t0:.1f} s")
-    plain_shape = list(prefix[0].shape)
+    return dict(max_err=max_err, plain_ms=plain_ms,
+                plain_shape=list(prefix[0].shape), prefix_ms=prefix_ms)
 
-    # ---- 3. the main path -------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Phase 2: K3 against its plain version
+# ---------------------------------------------------------------------------
+def dyn_case(p, n_p: int, n: int, gen, dev, slot: int = 32):
+    """A (B = 4) epoch batch: a two-tier row under DRAM pressure, a sampled
+    row whose budget exceeds the page count, a row spilling to the SSD
+    target (with three targets; with two, another two-tier row) and a
+    static ride-along row with a sentinel tail."""
+    import torch
+    from repro_torch.core import tiering_dyn
+    b, t = 4, p.n_targets
+    unbounded = tiering_dyn.UNBOUNDED_PAGES
+    addr = torch.randint(0, 64 * n_p, (b, n), generator=gen,
+                         dtype=torch.int32)
+    hot = torch.randint(0, 64 * min(n_p, 4), (b, n), generator=gen,
+                        dtype=torch.int32)
+    addr = torch.where(torch.rand((b, n), generator=gen) < 0.6, hot, addr)
+    addr[3, n - n // 8:] = -1
+    trace = [x.to(dev) for x in (
+        addr, torch.randint(0, 2, (b, n), generator=gen, dtype=torch.int32),
+        torch.randint(0, p.cores, (b, n), generator=gen, dtype=torch.int32),
+        torch.randint(1, t, (b, n), generator=gen, dtype=torch.int32))]
+    pmap0 = torch.randint(0, 2, (b, n_p), generator=gen, dtype=torch.int32)
+    ssd = t > 2
+    if ssd:
+        pmap0[2, :2] = 2
+    kw = dict(slot_len=slot, k_max=8, page_map0=pmap0.to(dev),
+              dyn_flag=[1, 1, 1, 0], n_pages=[n_p, n_p - 1, n_p, n_p],
+              budget=[2, n_p + 3, 3, 0], threshold=[1, 2, 1, 1],
+              period=[1, 2, 1, 1], dram_cap=[3, 2, unbounded, unbounded],
+              page_target_lines=torch.randint(
+                  0, 40, (b, n_p, t), generator=gen,
+                  dtype=torch.int32).to(dev),
+              ssd_tid=[0, 0, t - 1 if ssd else 0, 0],
+              cxl_cap=[unbounded, unbounded, 2 if ssd else unbounded,
+                       unbounded],
+              s_warm=[0, 1, 0, 0], s_meas=[0, 1, 0, 0], s_per=[0, 3, 0, 0])
+    return trace, kw
+
+
+def dyn_diff(a, b) -> int:
+    return max_diff([(getattr(a, f), getattr(b, f)) for f in a._fields])
+
+
+def alternate_segments(p, trace, kw, seg: int):
+    """run_dynamic in segments of `seg` slots alternating kernel / plain."""
+    import torch
+    from repro_torch.core import tiering_dyn
+    a3, w3, c3, t3, pmap0, scalars, k_max, bound = \
+        tiering_dyn.prep_dynamic_inputs(*trace, **kw)
+    carry = tiering_dyn.init_dyn_carry(p, pmap0)
+    parts = []
+    for i, s in enumerate(range(0, a3.shape[1], seg)):
+        carry, *outs = tiering_dyn.run_dynamic_segment(
+            p, k_max, bound, carry, *(x[:, s:s + seg] for x in
+                                      (a3, w3, c3, t3)), *scalars,
+            backend="cuda" if i % 2 == 0 else "reference")
+        parts.append(outs)
+    return tiering_dyn.DynOutputs(
+        carry[2], carry[4], carry[6], carry[7],
+        *(torch.cat([pt[k] for pt in parts], dim=1) for k in range(3)))
+
+
+def k3_parity(sim, dev, gen):
+    import torch
+    from repro_torch.core import cache as cache_mod
+    from repro_torch.core import engine, numa, tiering_dyn
+    from repro_torch.workloads import HotCold
+    max_err = 0
+    for cores, t in ((1, 3), (2, 3), (4, 3), (2, 2)):
+        p = cache_mod.CacheParams(**GOLDEN_GEOMETRY, cores=cores,
+                                  n_targets=t)
+        trace, kw = dyn_case(p, 40, 2048, gen, dev)
+        kern = tiering_dyn.run_dynamic(p, *trace, **kw)
+        plain = tiering_dyn.run_dynamic(p, *trace, backend="reference", **kw)
+        err = dyn_diff(kern, plain)
+        # the static ride-along row equals the static (K1) path
+        static, _ = engine.run_traces(p, *(x[3:] for x in trace))
+        err = max(err, max_diff([(kern.stats[3:], static)]))
+        alternate = (cores, t) == (2, 3)
+        if alternate:
+            err = max(err, dyn_diff(kern, alternate_segments(p, trace, kw,
+                                                             7)))
+        moved = kern.slots[:3, :, 2:].sum(dim=(1, 2)).tolist()
+        rows = "three-tier" if t == 3 else "two-tier"
+        print(f"[parity K3] golden geometry, {cores} cores, {t} targets, "
+              f"B=4 N=2048 P=40 (two-tier+cap, sampled, {rows}, static"
+              f"{', alternating segments' if alternate else ''}): "
+              f"max|kernel - plain| = {err}; pages moved per row {moved}")
+        if err or min(moved) == 0:
+            raise AssertionError(f"K3 parity failed at {cores} cores, "
+                                 f"{t} targets")
+        max_err = max(max_err, err)
+    # a page count whose map and counts do not fit in shared memory
+    p = cache_mod.CacheParams(**GOLDEN_GEOMETRY, cores=2, n_targets=3)
+    trace, kw = dyn_case(p, 30_000, 2048, gen, dev)
+    err = dyn_diff(tiering_dyn.run_dynamic(p, *trace, **kw),
+                   tiering_dyn.run_dynamic(p, *trace, backend="reference",
+                                           **kw))
+    print(f"[parity K3] P=30000 (page map + counts in global memory), "
+          f"B=4 N=2048: max|kernel - plain| = {err}")
+    if err:
+        raise AssertionError("K3 disagrees with pmap/counts in global memory")
+    max_err = max(max_err, err)
+
+    # the Table-I prefix: HotCold at 8 x L2, 512-access epochs, budget 16,
+    # as a two-tier row and a three-tier row with a 1024-page CXL-DRAM cap
+    table1 = cache_mod.CacheParams(n_targets=3)
+    wt = HotCold(hot_page_frac=0.25).device_trace(8 * table1.l2_bytes, dev)
+    n_p = wt.n_pages
+    addr = wt.addr[:DYN_PREFIX].expand(2, -1).contiguous()
+    wr = wt.is_write[:DYN_PREFIX].expand(2, -1).contiguous()
+    ptl = torch.zeros((2, n_p, 3), dtype=torch.int32, device=dev)
+    ptl[:, :, 1] = 64                 # every line of a CXL page on target 1
+    kw = dict(slot_len=512, k_max=16,
+              page_map0=numa.ZNuma(1.0).tiers(n_p, dev).expand(2, -1)
+              .contiguous(),
+              dyn_flag=[1, 1], n_pages=[n_p, n_p], budget=[16, 16],
+              threshold=[1, 1], period=[1, 1],
+              dram_cap=[tiering_dyn.UNBOUNDED_PAGES] * 2,
+              page_target_lines=ptl, ssd_tid=[0, 2],
+              cxl_cap=[tiering_dyn.UNBOUNDED_PAGES, 1024])
+    trace = (addr, wr, torch.zeros_like(addr), torch.ones_like(addr))
+    kern = tiering_dyn.run_dynamic(table1, *trace, **kw)
+    tiering_dyn.run_dynamic(table1, *(x[:, :512] for x in trace),
+                            backend="reference", **kw)           # warm-up
+    box = []
+    plain_ms = cuda_ms(lambda: box.append(tiering_dyn.run_dynamic(
+        table1, *trace, backend="reference", **kw)), warmup=0)
+    err = dyn_diff(kern, box[0])
+    prefix_ms = cuda_ms(lambda: tiering_dyn.run_dynamic(table1, *trace,
+                                                        **kw), reps=5)
+    print(f"[parity K3] Table-I HotCold 8xL2 prefix, B=2 N={DYN_PREFIX} "
+          f"P={n_p}, epoch 512, budget 16 (two-tier, three-tier): "
+          f"max|kernel - plain| = {err}; pages moved per row "
+          f"{kern.slots[:, :, 2:].sum(dim=(1, 2)).tolist()}")
+    if err:
+        raise AssertionError("K3 disagrees at the Table-I geometry")
+    max_err = max(max_err, err)
+
+    # the main path's own launches: sweeps A, B and C as the engine builds
+    # them (their target count, slot, top-k width, page map and scalars),
+    # cut to their first DYN_PREFIX accesses
+    for name in dynamic_sweeps():
+        launch = sweep_launch(sim, name, dev)
+        trace = [x[:, :DYN_PREFIX].contiguous() for x in launch.trace]
+        kern = tiering_dyn.run_dynamic(launch.params, *trace,
+                                       **launch.kwargs)
+        err = dyn_diff(kern, tiering_dyn.run_dynamic(
+            launch.params, *trace, backend="reference", **launch.kwargs))
+        print(f"[parity K3] sweep {name}'s launch, first {DYN_PREFIX} "
+              f"accesses: B={trace[0].shape[0]}, "
+              f"{launch.params.n_targets} targets, slot "
+              f"{launch.kwargs['slot_len']}, k_max {launch.kwargs['k_max']}"
+              f": max|kernel - plain| = {err}; pages moved per row "
+              f"{kern.slots[:, :, 2:].sum(dim=(1, 2)).tolist()}, measured "
+              f"slots per row {kern.meas.sum(dim=1).tolist()}")
+        if err:
+            raise AssertionError(f"K3 disagrees on sweep {name}'s launch")
+    return dict(max_err=max_err, plain_ms=plain_ms,
+                plain_shape=[2, DYN_PREFIX], prefix_ms=prefix_ms)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the main paths
+# ---------------------------------------------------------------------------
+def static_main_path(sim):
+    """PR 11's main path: the §IV STREAM sweep on the MESI kernel."""
+    import torch
+    from repro_torch.core import numa, stream
+    from repro_torch.kernels import ops
     ops.reset_launches()
     t0 = time.perf_counter()
-    sim = CXLRAMSim(SimConfig(), device="cuda")
-    memdevs = sim.memdevs()
-    regions = sim.online("znuma")
-    numastat = sim.numastat()
-    breakdown = sim.latency_breakdown()
     suite = sim.stream_suite((2, 4, 6, 8))
     policies = sim.sweep((4,), policies=[numa.ZNuma(0.0),
                                          numa.WeightedInterleave(1, 1),
                                          numa.ZNuma(1.0)])
     torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    print(f"[main] memdevs {memdevs}")
-    print(f"[main] regions {regions}")
-    print(f"[main] numastat {numastat}")
-    print(f"[main] CXL latency breakdown {breakdown}")
-    print(f"[main] stream_suite + sweep took {main_s:.2f} s wall; "
+    print(f"[main] stream_suite + sweep took {wall:.2f} s wall; "
           f"launch counts {launches}")
     if launches["mesi_segment"] < 2 or launches["mesi_segment_ref"] != 0:
         raise AssertionError(f"main path did not run on the kernel: "
@@ -247,21 +416,19 @@ def main() -> int:
     cols = ("footprint_x_l2", "policy", "cpu", "time_ns", "bw_total_gbps",
             "bw_dram_gbps", "bw_cxl_gbps", "l2_miss_rate", "lat_dram_ns",
             "lat_cxl_ns")
+    l2 = sim.config.cache.l2_bytes
     for r in suite + policies:
         print("[row] " + json.dumps({k: r[k] for k in cols}
                                     | {"stats": r["stats"]}))
         s = r["stats"]
-        n = 3 * stream.layout_for_footprint(
-            r["footprint_x_l2"] * table1.l2_bytes).n_elems
+        n = 3 * stream.layout_for_footprint(r["footprint_x_l2"] * l2).n_elems
         checks = {
             "l1 accesses == trace length": s["l1_hit"] + s["l1_miss"] == n,
             "l2 accesses == l1 misses":
                 s["l2_hit"] + s["l2_miss"] == s["l1_miss"],
             "memory reads == l2 misses":
                 s["mem_read_dram"] + s["mem_read_cxl"] == s["l2_miss"],
-            "finite floats": all(
-                isinstance(v, float) and v == v and abs(v) != float("inf")
-                for v in r.values() if isinstance(v, float)),
+            "finite floats": finite_floats(r),
         }
         if r["policy"] == "znuma(cxl=100%)":
             checks["no DRAM traffic"] = (
@@ -274,99 +441,363 @@ def main() -> int:
         bad = [k for k, ok in checks.items() if not ok]
         if bad:
             raise AssertionError(f"row invariants failed {bad}: {r}")
+    return dict(suite=suite, launches=launches, wall=wall)
 
-    # the 8 x L2 row: resident against two segmentations, and the suite row
-    tier_c = numa.tier_of_lines(numa.ZNuma(1.0), a8, lay8.n_pages)
-    row8 = [x[None].to(torch.int32).contiguous()
-            for x in (a8, w8, torch.zeros_like(a8), tier_c)]
-    resident = engine.run_traces(table1, *row8)
-    for seg in (1 << 18, 1 << 20):
-        err = same_run(resident, engine.run_traces(table1, *row8,
-                                                   segment=seg))
-        print(f"[main] 8xL2 row resident vs segment={seg}: max|diff| = {err}")
-        if err:
-            raise AssertionError("segmented run differs from resident")
-    if cache_mod.stats_dict(resident[0][0].cpu()) != suite[-1]["stats"]:
-        raise AssertionError("8xL2 suite row differs from a resident run")
 
-    # the repo's golden row, reproduced on the card
-    golden = json.loads((ROOT / "tests" / "golden" / "engine.json")
-                        .read_text())
-    spec = engine.SweepSpec(footprint_factors=(2,),
-                            policies=(numa.WeightedInterleave(1, 1),),
-                            cpus=(CPUModel(kind="o3", mlp=8),))
-    got = engine.run_sweep(
-        spec, cache_mod.CacheParams(l1_bytes=8 * 1024, l1_ways=2,
-                                    l2_bytes=16 * 1024, l2_ways=8),
-        TimingConfig(), device="cuda")
-    if json.loads(json.dumps(got)) != [golden]:
-        raise AssertionError(f"golden engine row differs: {got}")
-    print("[main] tests/golden/engine.json reproduced exactly on the card")
+def dynamic_sweeps():
+    """Sweeps A, B and C of the dynamic path at the Table-I host: name ->
+    `CXLRAMSim.sweep` keyword arguments (footprint 8 x L2)."""
+    from repro_torch.core import route
+    from repro_torch.core.sampling import SamplingSpec
+    from repro_torch.core.tiering_dyn import DynamicTiering
+    from repro_torch.core.timing import LatencyDistribution
+    from repro_torch.workloads import Gups, HotCold
+    return {
+        "A": dict(workloads=(HotCold(hot_page_frac=0.25), Gups()),
+                  tiering=(None, DynamicTiering(2048, 16, 8),
+                           DynamicTiering(4096, 8, 8))),
+        "B": dict(workloads=(Gups(updates_per_line=20),),
+                  sampling=(None, SamplingSpec(1, 1, 8))),
+        "C": dict(workloads=(HotCold(hot_page_frac=0.25),),
+                  topologies=(route.direct(1, ssd_gib=16),),
+                  tiering=(DynamicTiering(2048, 16, 8,
+                                          cxl_capacity_pages=1024),),
+                  distributions=(None, LatencyDistribution(
+                      n_samples=128, seed=0))),
+    }
 
-    # ---- 4. times ---------------------------------------------------------
+
+def sweep_launch(sim, name, dev):
+    """The epoch kernel's launch that `sim.sweep((8,), ...)` makes for
+    sweep `name`, derived by the engine itself."""
+    from repro_torch.core import engine
+    spec = sim.sweep_spec((8,), **dynamic_sweeps()[name])
+    return engine.dynamic_launch(
+        spec, sim.config.cache, engine.sweep_routes(spec, sim.config.timing),
+        device=dev)
+
+
+def check_dynamic_rows(name, rows, sim):
+    """Row invariants of a dynamic-path sweep."""
+    from repro_torch.core.cache import MEM_READ
+    lengths = {w.name: w.device_trace(8 * sim.config.cache.l2_bytes,
+                                      sim.device).n_accesses
+               for w in dynamic_sweeps()[name]["workloads"]}
+    for r in rows:
+        show = {k: r[k] for k in ("workload", "tiering", "sampling",
+                                  "topology", "distribution", "time_ns",
+                                  "bw_total_gbps", "bw_dram_gbps",
+                                  "bw_cxl_gbps", "bw_ssd_gbps",
+                                  "l2_miss_rate", "migrated_pages",
+                                  "migration_gbps", "sampled_frac",
+                                  "sample_windows", "l2_miss_rate_ci95")
+                if k in r}
+        print(f"[sweep {name}] " + json.dumps(show | {"stats": r["stats"]}))
+        s = r["stats"]
+        n_t = (len(s) - 8) // 2
+        reads = sum(list(s.values())[MEM_READ:MEM_READ + n_t])
+        checks = {"finite floats": finite_floats(r),
+                  "l2 accesses == l1 misses":
+                      s["l2_hit"] + s["l2_miss"] == s["l1_miss"]}
+        if r.get("sampling", "exact") == "exact":
+            checks["l1 accesses == trace length"] = \
+                s["l1_hit"] + s["l1_miss"] == lengths[r["workload"]]
+            checks["memory reads == l2 misses"] = reads == s["l2_miss"]
+        else:
+            checks["an eighth measured in detail"] = \
+                0.12 < r["sampled_frac"] <= 0.13
+            checks["finite intervals"] = all(
+                v == v and abs(v) != float("inf")
+                for k, v in r.items() if k.endswith("_ci95"))
+        if r.get("tiering", "static") != "static" \
+                and r["workload"] == "hot_cold":
+            checks["hot pages migrate"] = r["migrated_pages"] > 0
+        if "topology" in r:
+            checks["the SSD tier carries traffic"] = r["bw_ssd_gbps"] > 0
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"sweep {name} row invariants failed "
+                                 f"{bad}: {show}")
+
+
+def run_dynamic_sweeps(sim):
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    for name, kw in dynamic_sweeps().items():
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rows = sim.sweep((8,), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        print(f"[sweep {name}] {len(rows)} rows in {wall:.2f} s wall; "
+              f"launch counts {launches}")
+        if launches["mesi_dyn_segment"] < 1 or any(
+                launches[k] for k in ("mesi_segment_ref",
+                                      "mesi_dyn_segment_ref")):
+            raise AssertionError(f"sweep {name} did not run on the epoch "
+                                 f"kernel alone: {launches}")
+        check_dynamic_rows(name, rows, sim)
+        out[name] = dict(rows=rows, wall=wall, launches=launches)
+    exact, sampled = out["B"]["rows"]
+    ratios = {k: abs(sampled["stats"][k] - v) / sampled[f"{k}_ci95"]
+              for k, v in exact["stats"].items() if sampled[f"{k}_ci95"]}
+    print(f"[sweep B] |sampled - exact| / ci95 per counter: "
+          f"{ {k: round(v, 3) for k, v in ratios.items()} }; "
+          f"{sum(v <= 1 for v in ratios.values())} of {len(ratios)} inside")
+    return out
+
+
+def goldens_on_the_card(dev):
+    """tests/golden/*.json reproduced exactly through the kernels."""
+    from repro_torch.core import cache as cache_mod
+    from repro_torch.core import engine, numa, route
+    from repro_torch.core.machine import CPUModel
+    from repro_torch.core.sampling import SamplingSpec
+    from repro_torch.core.tiering_dyn import DynamicTiering
+    from repro_torch.core.timing import LatencyDistribution, TimingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import Gups, HotCold
+    cpus = (CPUModel(kind="o3", mlp=8),)
+    specs = {
+        "engine": engine.SweepSpec(footprint_factors=(2,),
+                                   policies=(numa.WeightedInterleave(1, 1),),
+                                   cpus=cpus),
+        "topology": engine.SweepSpec(footprint_factors=(2,),
+                                     policies=(numa.ZNuma(1.0),), cpus=cpus,
+                                     topologies=(route.direct(2),)),
+        "workloads": engine.SweepSpec(footprint_factors=(2,),
+                                      policies=(numa.ZNuma(1.0),), cpus=cpus,
+                                      workloads=(Gups(),)),
+        "sampling": engine.SweepSpec(
+            footprint_factors=(8,), policies=(numa.ZNuma(1.0),), cpus=cpus,
+            workloads=(Gups(),), sampling=(None, SamplingSpec(1, 1, 4))),
+        "fidelity": engine.SweepSpec(
+            footprint_factors=(8,), policies=(numa.ZNuma(1.0),), cpus=cpus,
+            workloads=(HotCold(hot_page_frac=0.25),),
+            topologies=(route.direct(1, ssd_gib=16),),
+            tiering=(DynamicTiering(2048, 16, 8, cxl_capacity_pages=8),),
+            distributions=(None, LatencyDistribution(n_samples=128,
+                                                     seed=0))),
+    }
+    for name, spec in specs.items():
+        want = json.loads((ROOT / "tests" / "golden" / f"{name}.json")
+                          .read_text())
+        ops.reset_launches()
+        got = json.loads(json.dumps(engine.run_sweep(
+            spec, cache_mod.CacheParams(**GOLDEN_GEOMETRY), TimingConfig(),
+            device=dev)))
+        kernel = "mesi_dyn_segment" if name in ("sampling", "fidelity") \
+            else "mesi_segment"
+        if (got != (want if isinstance(want, list) else [want])
+                or ops.LAUNCHES[kernel] != 1
+                or ops.LAUNCHES[kernel + "_ref"] != 0):
+            raise AssertionError(f"golden {name} differs on the card "
+                                 f"({dict(ops.LAUNCHES)}): {got}")
+        print(f"[golden] tests/golden/{name}.json reproduced exactly on the "
+              f"card through {kernel}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: times
+# ---------------------------------------------------------------------------
+def k1_times(dev, table1, card):
+    from repro_torch.core import cache as cache_mod
+    from repro_torch.core import engine
+    from repro_torch.kernels import cache_sim
     batch, _ = engine.build_sweep_batch(
         engine.SweepSpec(footprint_factors=(2, 4, 6, 8)), table1,
         device=dev)
-    main_args = (batch.addr, batch.is_write, batch.core, batch.tier)
-    main_ms = cuda_ms(lambda: cache_sim.mesi_cache_sim(*main_args,
-                                                       params=table1))
+    args = (batch.addr, batch.is_write, batch.core, batch.tier)
+    main_ms = cuda_ms(lambda: cache_sim.mesi_cache_sim(*args, params=table1))
     for i, k in enumerate((2, 4, 6, 8)):
         n = int(batch.n_valid[i])
-        one = [x[i:i + 1, :n].contiguous() for x in main_args]
+        one = [x[i:i + 1, :n].contiguous() for x in args]
         ms = cuda_ms(lambda: cache_sim.mesi_cache_sim(*one, params=table1))
-        print(f"[time] {k}xL2 row: N={n} accesses, kernel {ms:.3f} ms, "
+        print(f"[time K1] {k}xL2 row: N={n} accesses, kernel {ms:.3f} ms, "
               f"{n / ms / 1e3:.3f} M accesses/s ({card})")
     b, n_pad = batch.addr.shape
     carry = cache_mod.init_batch_carry(table1, b, device=dev)
     carry_bytes = sum(x.numel() * x.element_size() for x in carry)
     accesses = int(batch.n_valid.sum())
-    trace_bytes = 16 * accesses      # addr, is_write, core, tier: int32 each
-    bound_ms = (trace_bytes + 2 * carry_bytes) / HBM_BYTES_PER_S * 1e3
-    print(f"[time] main-path launch B={b} x N={n_pad}: kernel {main_ms:.3f} "
-          f"ms ({accesses / main_ms / 1e3:.3f} M accesses/s), bytes bound "
-          f"{bound_ms:.4f} ms ({trace_bytes + 2 * carry_bytes} B at "
-          f"3.35 TB/s)")
-    print(f"[time] Table-I parity batch {plain_shape}: kernel "
-          f"{prefix_ms:.3f} ms, plain version {plain_ms:.1f} ms ({card})")
+    bound_bytes = 16 * accesses + 2 * carry_bytes
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[time K1] main-path launch B={b} x N={n_pad}: kernel "
+          f"{main_ms:.3f} ms ({accesses / main_ms / 1e3:.3f} M accesses/s), "
+          f"bytes bound {bound_ms:.4f} ms ({bound_bytes} B at 3.35 TB/s)")
+    return dict(ms=main_ms, shape=[b, n_pad], bound_ms=bound_ms)
 
-    # the main path once more under the profiler: where its time goes
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+def k3_times(sim, dev, card):
+    from repro_torch.core import tiering_dyn
+    from repro_torch.kernels import cache_sim
+    out = {}
+    for name in dynamic_sweeps():
+        plan = sweep_launch(sim, name, dev)
+        a3, w3, c3, t3, pmap0, scalars, k_max, bound = \
+            tiering_dyn.prep_dynamic_inputs(*plan.trace, **plan.kwargs)
+        carry = tiering_dyn.init_dyn_carry(plan.params, pmap0)
+        args = (a3, w3, c3, t3) + tuple(scalars)
+        n_valid = plan.batch.batch.n_valid
+
+        def launch(carry=carry, args=args, sel=slice(None)):
+            return cache_sim.mesi_dyn_segment(
+                tuple(x[sel] for x in carry), *(x[sel] for x in args),
+                params=plan.params, k_max=k_max, count_bound=bound)
+
+        ms = cuda_ms(launch)
+        b, e, slot = args[0].shape
+        accesses = int(n_valid.sum())
+        _, slots, snaps, meas = launch()
+
+        def nbytes(*xs):
+            return sum(x.numel() * x.element_size() for x in xs)
+
+        # each real access's 4 int32 fields, the carry read and written,
+        # the page table and 13 scalars per row read, the per-slot
+        # outputs written
+        bound_bytes = (16 * accesses + 2 * nbytes(*carry) + nbytes(args[12])
+                       + 13 * 4 * b + nbytes(slots, snaps, meas))
+        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"[time K3] sweep {name} launch B={b} x E={e} x slot={slot}: "
+              f"kernel {ms:.3f} ms, {accesses} real accesses, "
+              f"{accesses / ms / 1e3:.3f} M accesses/s; bytes bound "
+              f"{bound_ms:.4f} ms ({bound_bytes} B at 3.35 TB/s) ({card})")
+        if name == "A":
+            for i in range(b):
+                row_ms = cuda_ms(lambda i=i: launch(sel=slice(i, i + 1)),
+                                 warmup=0)
+                n = int(n_valid[i])
+                print(f"[time K3]   sweep A row {i}: N={n}, kernel "
+                      f"{row_ms:.3f} ms, {n / row_ms / 1e3:.3f} M "
+                      f"accesses/s")
+        out[name] = dict(ms=ms, shape=[b, e, slot], bound_ms=bound_ms,
+                         accesses=accesses)
+    return out
+
+
+def profile(fn, label):
+    """Wall time of `fn()` split into device kernels and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.stream_suite((2, 4, 6, 8))
-        sim.sweep((4,), policies=[numa.ZNuma(0.0),
-                                  numa.WeightedInterleave(1, 1),
-                                  numa.ZNuma(1.0)])
+        fn()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     device_us = sorted(((e.self_device_time_total, e.key, e.count)
                         for e in prof.key_averages()
                         if e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(us for us, _, _ in device_us) / 1e3
     if busy_ms > 0:
-        print(f"[profile] main path: wall {prof_wall_ms:.1f} ms, device "
-              f"kernels {busy_ms:.1f} ms ({100 * busy_ms / prof_wall_ms:.1f}"
-              f"% of wall; only B of the card's SMs are busy meanwhile)")
+        print(f"[profile] {label}: wall {wall_ms:.1f} ms, device kernels "
+              f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall; "
+              f"only B of the card's SMs are busy meanwhile)")
         for us, key, count in device_us[:6]:
             print(f"[profile]   {us / 1e3:10.3f} ms  x{count:<4d} {key[:70]}")
     else:
-        print(f"[profile] main path: wall {prof_wall_ms:.1f} ms; the "
-              f"profiler saw no device time (device busy share not measured)")
+        print(f"[profile] {label}: wall {wall_ms:.1f} ms; the profiler saw "
+              f"no device time (device busy share not measured)")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"the repro_torch sources are not beside {__file__}")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import cache as cache_mod
+    from repro_torch.core import numa
+    from repro_torch.core.simulator import CXLRAMSim, SimConfig
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+
+    # ---- 1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    reports = build.build()
+    print(f"[build] {sorted(reports) or 'cached'} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+    # ---- 2. kernels against plain versions, on the card ----------------
+    sim = CXLRAMSim(SimConfig())               # the Table-I host, on cuda
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    k1 = k1_parity(dev, gen)
+    print(f"[parity K1] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k3 = k3_parity(sim, dev, gen)
+    print(f"[parity K3] phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3. the main paths ----------------------------------------------
+    print(f"[main] memdevs {sim.memdevs()}")
+    print(f"[main] regions {sim.online('znuma')}")
+    print(f"[main] numastat {sim.numastat()}")
+    print(f"[main] CXL latency breakdown {sim.latency_breakdown()}")
+    static = static_main_path(sim)
+    sweeps = run_dynamic_sweeps(sim)
+    goldens_on_the_card(dev)
+
+    # ---- 4. times ---------------------------------------------------------
+    table1 = cache_mod.CacheParams()
+    k1_t = k1_times(dev, table1, card)
+    print(f"[time K1] Table-I parity batch {k1['plain_shape']}: kernel "
+          f"{k1['prefix_ms']:.3f} ms, plain version {k1['plain_ms']:.1f} ms "
+          f"({card})")
+    k3_t = k3_times(sim, dev, card)
+    print(f"[time K3] Table-I parity batch {k3['plain_shape']}: kernel "
+          f"{k3['prefix_ms']:.3f} ms, plain version {k3['plain_ms']:.1f} ms "
+          f"({card})")
+    profile(lambda: (sim.stream_suite((2, 4, 6, 8)),
+                     sim.sweep((4,), policies=[numa.ZNuma(0.0),
+                                               numa.WeightedInterleave(1, 1),
+                                               numa.ZNuma(1.0)])),
+            "PR 11 main path (static STREAM sweep)")
+    profile(lambda: sim.sweep((8,), **dynamic_sweeps()["A"]),
+            "sweep A (tiering)")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     # ---- 5. results -------------------------------------------------------
+    dyn_launches = sum(s["launches"]["mesi_dyn_segment"]
+                       for s in sweeps.values())
     print(card)
     print(json.dumps({"kernels": [{
         "name": "mesi_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mesi.cu",
         "replaces": "src/repro/kernels/cache_sim.py:428",
         "also_replaces": "src/repro/kernels/cache_sim.py:587",
-        "launches": launches["mesi_segment"],
-        "max_abs_err": max_err,
-        "ms": main_ms, "shape": [b, n_pad],
-        "plain_ms": plain_ms, "plain_shape": plain_shape,
-        "ms_on_plain_shape": prefix_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes",
+        "launches": static["launches"]["mesi_segment"],
+        "max_abs_err": k1["max_err"],
+        "ms": k1_t["ms"], "shape": k1_t["shape"],
+        "plain_ms": k1["plain_ms"], "plain_shape": k1["plain_shape"],
+        "ms_on_plain_shape": k1["prefix_ms"],
+        "bound_ms": k1_t["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "mesi_dyn_segment", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mesi_dyn.cu",
+        "replaces": "src/repro/kernels/cache_sim.py:911",
+        "launches": dyn_launches,
+        "launches_by_sweep": {n: s["launches"]["mesi_dyn_segment"]
+                              for n, s in sweeps.items()},
+        "max_abs_err": k3["max_err"],
+        "ms": k3_t["A"]["ms"], "shape": k3_t["A"]["shape"],
+        "ms_by_sweep": {n: t["ms"] for n, t in k3_t.items()},
+        "plain_ms": k3["plain_ms"], "plain_shape": k3["plain_shape"],
+        "ms_on_plain_shape": k3["prefix_ms"],
+        "bound_ms": k3_t["A"]["bound_ms"], "bound_by": "bytes",
+        "bound_ms_by_sweep": {n: t["bound_ms"] for n, t in k3_t.items()},
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

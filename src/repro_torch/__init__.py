@@ -4,8 +4,10 @@ The package mirrors `repro` module for module (``repro_torch.core.cache``
 is the counterpart of ``repro.core.cache``, and so on), imports neither JAX
 nor `repro`, and runs its cache simulation on the CUDA card unless the
 caller passes ``device="cpu"``.  Its hot path, the two-level MESI state
-machine, is a hand-written CUDA kernel
-(``repro_torch/kernels/csrc/mesi.cu``) built with `nvcc` at first use.
+machine, is a pair of hand-written CUDA kernels built with `nvcc` at first
+use: ``repro_torch/kernels/csrc/mesi.cu`` for static sweeps and
+``mesi_dyn.cu`` for the epoch-structured path (dynamic tiering, sampled
+simulation, the CXL-SSD tier).
 
     from repro_torch.core import CXLRAMSim, SimConfig
     sim = CXLRAMSim(SimConfig())          # device defaults to the CUDA card

@@ -5,11 +5,14 @@ The JAX package's objects arrive as plain data: dataclasses as the dicts
 functions here build the port's objects from them, so both packages can
 compute on the same configuration and the same state — a carry produced
 by ``repro.core.engine.init_batch_carry`` / ``run_batch_segment`` can be
-continued by :func:`repro_torch.core.engine.run_batch_segment`.  This
-module imports neither JAX nor `repro`; callers do the JAX side.
+continued by :func:`repro_torch.core.engine.run_batch_segment`, and the
+epoch carry of ``repro.core.tiering_dyn.init_dyn_carry`` by
+:func:`repro_torch.core.tiering_dyn.run_dynamic_segment`.  This module
+imports neither JAX nor `repro`; callers do the JAX side.
 
-A placement policy is identified by its class name, since ``asdict``
-drops it: ``policy("ZNuma", {"cxl_fraction": 0.5})``.
+A placement policy or a workload is identified by its class name, since
+``asdict`` drops it: ``policy("ZNuma", {"cxl_fraction": 0.5})``,
+``workload("HotCold", {"seed": 5, ...})``.
 """
 from __future__ import annotations
 
@@ -18,10 +21,14 @@ from typing import Any, Mapping, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import numa, spec
+from repro_torch import workloads
+from repro_torch.core import numa, route, spec
 from repro_torch.core.cache import CacheParams
 from repro_torch.core.machine import CPUModel
+from repro_torch.core.sampling import SamplingSpec
 from repro_torch.core.simulator import SimConfig
+from repro_torch.core.switch import SwitchConfig
+from repro_torch.core.tiering_dyn import DynamicTiering
 from repro_torch.core.timing import (CXLTiming, DramTiming, QueueModel,
                                      SSDTiming, TimingConfig)
 
@@ -77,15 +84,44 @@ def sim_config(d: Mapping[str, Any]) -> SimConfig:
                      cpu=cpu_model(d["cpu"]))
 
 
-def carry_from_numpy(l1p, l2p, stats, t, device=None
-                     ) -> Tuple[torch.Tensor, ...]:
-    """The packed batch carry ``(l1p, l2p, stats, t)`` as int32 tensors.
+def dynamic_tiering(d: Mapping[str, Any]) -> DynamicTiering:
+    return DynamicTiering(**d)
 
-    Shapes are those of ``init_batch_carry``: (B, cores, s1, w1, 3),
-    (B, s2, w2, 5), (B, nstats) and (B,).
+
+def sampling_spec(d: Mapping[str, Any]) -> SamplingSpec:
+    return SamplingSpec(**d)
+
+
+def topology_spec(d: Mapping[str, Any]) -> route.TopologySpec:
+    sw = d["switch"]
+    return route.TopologySpec(
+        name=d["name"], expander_gib=tuple(d["expander_gib"]),
+        switch=None if sw is None else SwitchConfig(**sw),
+        dram_gib=d["dram_gib"], ssd_gib=d["ssd_gib"])
+
+
+def workload(kind: str, fields: Mapping[str, Any]) -> workloads.Workload:
+    """The workload of class `kind` (``type(w).__name__``)."""
+    by_class = {cls.__name__: cls for cls in workloads.REGISTRY.values()}
+    if kind in workloads.UNPORTED:
+        raise workloads.not_ported(kind)
+    if kind not in by_class:
+        raise ValueError(f"unknown workload {kind!r}; one of "
+                         f"{sorted(by_class)}")
+    return by_class[kind](**fields)
+
+
+def carry_from_numpy(*leaves, device=None) -> Tuple[torch.Tensor, ...]:
+    """A carry of NumPy arrays as int32 tensors on `device`.
+
+    Either the packed batch carry ``(l1p, l2p, stats, t)`` of
+    ``init_batch_carry`` — (B, cores, s1, w1, 3), (B, s2, w2, 5),
+    (B, nstats) and (B,) — or the 9-tuple epoch carry of
+    ``init_dyn_carry``, which adds ``page_map`` and ``counts`` (B, P),
+    ``mig_rd`` and ``mig_wr`` (B, T) and ``eidx`` (B,).
     """
     return tuple(torch.from_numpy(np.array(x, dtype=np.int32, copy=True))
-                 .to(device) for x in (l1p, l2p, stats, t))
+                 .to(device) for x in leaves)
 
 
 def carry_to_numpy(carry) -> Tuple[np.ndarray, ...]:

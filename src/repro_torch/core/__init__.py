@@ -2,9 +2,10 @@
 simulation on a CUDA card (or the CPU, when asked).
 
 Layers (bottom-up): spec -> packet -> registers -> hdm -> topology ->
-timing -> switch -> numa -> cache -> stream -> machine -> engine ->
-simulator.  The engine calls the kernels of :mod:`repro_torch.kernels`,
-which build on :mod:`.cache`; so the entry points below are resolved on
+timing -> switch -> route -> numa -> cache -> stream -> machine ->
+sampling -> tiering_dyn -> engine -> simulator.  The engine calls the
+kernels of :mod:`repro_torch.kernels`, which build on :mod:`.cache` and
+:mod:`.tiering_dyn`; so the entry points below are resolved on
 first use rather than imported here, which would close that cycle.
 """
 import importlib

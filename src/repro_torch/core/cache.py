@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 # MESI states
@@ -360,6 +361,19 @@ def stats_dict(stats) -> Dict[str, int]:
     """Counter dict; the target count is inferred from the vector width."""
     t = (len(stats) - 8) // 2
     return {n: int(v) for n, v in zip(stat_names(t), stats)}
+
+
+def snapshot_deltas(snapshots) -> np.ndarray:
+    """Per-slot counter deltas from cumulative stat snapshots.
+
+    The dynamic-tiering program (:mod:`repro_torch.core.tiering_dyn`)
+    emits the cumulative stats after every epoch slot; row ``e`` of the
+    result is what slot ``e`` contributed.  Host NumPy int64, (E, nstats).
+    """
+    s = np.asarray(snapshots, np.int64)
+    if s.ndim != 2:
+        raise ValueError(f"snapshots must be (E, nstats), got {s.shape}")
+    return np.diff(s, axis=0, prepend=np.zeros((1, s.shape[1]), np.int64))
 
 
 def miss_rates(stats) -> Dict[str, float]:

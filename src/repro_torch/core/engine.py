@@ -1,14 +1,21 @@
-"""Batched trace engine: the §IV characterization sweep as one device call.
+"""Batched trace engine: the characterization sweep as one device call.
 
 The paper's §IV suite sweeps STREAM footprints x page-placement policies x
-CPU models.  This engine stacks every (workload, footprint, policy) cell
-into a leading batch dimension, pads the traces to a common length with
+CPU models; the scenario axes widen it to topologies (N routed targets),
+workloads, dynamic tiering, sampled simulation and latency distributions.
+This engine stacks every (topology, workload, footprint, policy) cell into
+a leading batch dimension, pads the traces to a common length with
 sentinel entries, and runs the exact two-level MESI model of
-:mod:`repro_torch.core.cache` over the whole batch in one call of the MESI
-kernel (:mod:`repro_torch.kernels.cache_sim`).  CPU models do not touch
-cache state, so the engine simulates each cell once and broadcasts the
-stats across the CPU axis before closing the Picard timing fixed point
+:mod:`repro_torch.core.cache` over the whole batch in one kernel call
+(:mod:`repro_torch.kernels.cache_sim`).  CPU models do not touch cache
+state, so the engine simulates each cell once and broadcasts the stats
+across the CPU axis before closing the Picard timing fixed point
 (:func:`repro_torch.core.machine.time_batch`, host NumPy float64).
+
+A sweep with a dynamic-tiering or sampling entry runs the epoch-structured
+program instead (:mod:`repro_torch.core.tiering_dyn`, one call of the
+``mesi_dyn_segment`` kernel): static and exact rows ride along in the
+same batch, with stats equal to the static path's.
 
 Traces come from the workload generators of :mod:`repro_torch.workloads`,
 built on the simulation device; :func:`stack_device_traces` pads and
@@ -19,9 +26,10 @@ Devices and backends
 :func:`run_sweep` runs on the CUDA device unless the caller passes
 ``device="cpu"``, and raises when no CUDA device is present.  The cache
 simulation follows the device of its trace: CUDA tensors go to the
-hand-written kernel, CPU tensors to the plain PyTorch version.
-``backend="reference"`` selects the plain version on either device
-(parity checks); ``backend="cuda"`` insists on the kernel.
+hand-written kernels, CPU tensors to their plain PyTorch versions.
+``backend="reference"`` selects the plain versions on either device
+(parity checks); ``backend="cuda"`` (or the JAX package's name,
+``"pallas"``) insists on the kernels.
 
 Sentinel convention
 -------------------
@@ -30,21 +38,26 @@ all state/stat updates for them, so stats over a padded trace are bitwise
 equal to the unpadded run.  Padding is only ever appended at the end of a
 trace (logical time still advances across sentinels).
 
-Not ported yet (each raises ``NotImplementedError``): the topology axis
-and routing (ROADMAP queue 1, item 4), workloads other than STREAM
-(item 5), sharded or streamed execution (item 6), dynamic tiering and
-sampling (item 7), and checkpoint/resume with fault injection (item 8).
+Not ported yet (each raises ``NotImplementedError``): the ``kv_decode`` and
+``moe_stream`` workloads (ROADMAP queue 1, items 9 and 5), sharded or
+streamed execution (item 6), and checkpoint/resume with fault injection
+(item 8).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import workloads as workloads_mod
 from repro_torch.core import cache as cache_mod
 from repro_torch.core import numa as numa_mod
+from repro_torch.core import route as route_mod
+from repro_torch.core import sampling as sampling_mod
+from repro_torch.core import tiering_dyn
 from repro_torch.core.cache import init_batch_carry  # noqa: F401  (engine API)
 from repro_torch.core.machine import CPUModel, RunResult, time_batch
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
@@ -100,13 +113,20 @@ class SweepSpec:
         is empty).
     backend : str, optional
         ``None`` (follow the device), ``'reference'`` (plain PyTorch) or
-        ``'cuda'`` (the MESI kernel).
-    topologies, workloads, tiering, sampling
-        The other scenario axes of the JAX package.  Only the static
-        STREAM path is ported: `topologies` must be empty, `workloads`
-        may hold only :class:`~repro_torch.workloads.base.Stream`, and
-        `tiering` / `sampling` may hold only ``None`` entries (static,
-        exact).  Anything else raises ``NotImplementedError``.
+        ``'cuda'`` (the kernels; ``'pallas'`` is the same).
+    topologies : tuple of route.TopologySpec
+        Each spec is enumerated (committed HDM decoders) and its N-target
+        route map drives per-access routing, all in one batch (stats
+        padded to the widest target count).  Empty = the binary DRAM/CXL
+        tier path, equal to one direct-attach expander.
+    workloads : tuple of workloads.Workload
+        Trace generators; empty = ``(Stream(kernel),)``.
+    tiering : tuple of Optional[tiering_dyn.DynamicTiering]
+        Epoch-based dynamic tiering; ``None`` entries run static placement
+        and give the static rows.  Empty = static only.
+    sampling : tuple of Optional[sampling.SamplingSpec]
+        SMARTS-style sampled simulation; ``None`` entries run exact.
+        Sampled rows carry whole-trace estimates and ``*_ci95`` columns.
     distributions : tuple of Optional[timing.LatencyDistribution]
         Load-dependent latency distributions; each entry re-closes the
         timing fixed point over the same device run (``None`` = point
@@ -117,10 +137,10 @@ class SweepSpec:
     cpus: Tuple[CPUModel, ...] = (CPUModel(kind="o3"),)
     kernel: str = "triad"
     backend: Optional[str] = None
-    topologies: Tuple = ()
+    topologies: Tuple[route_mod.TopologySpec, ...] = ()
     workloads: Tuple[Workload, ...] = ()
-    tiering: Tuple = ()
-    sampling: Tuple = ()
+    tiering: Tuple[Optional[tiering_dyn.DynamicTiering], ...] = ()
+    sampling: Tuple[Optional[sampling_mod.SamplingSpec], ...] = ()
     distributions: Tuple[Optional[LatencyDistribution], ...] = ()
 
     @property
@@ -136,13 +156,20 @@ class SweepSpec:
                 for pol in self.policies]
 
     @property
-    def tiering_axis(self) -> Tuple[None, ...]:
-        """The tiering loop: static placement only."""
+    def topology_axis(self) -> Tuple[Optional[route_mod.TopologySpec], ...]:
+        """The topology loop: `(None,)` = the binary-tier path."""
+        return self.topologies if self.topologies else (None,)
+
+    @property
+    def tiering_axis(self) -> Tuple[
+            Optional[tiering_dyn.DynamicTiering], ...]:
+        """The tiering loop: `(None,)` = static placement only."""
         return self.tiering if self.tiering else (None,)
 
     @property
-    def sampling_axis(self) -> Tuple[None, ...]:
-        """The sampling loop: exact simulation only."""
+    def sampling_axis(self) -> Tuple[
+            Optional[sampling_mod.SamplingSpec], ...]:
+        """The sampling loop: `(None,)` = exact simulation only."""
         return self.sampling if self.sampling else (None,)
 
     @property
@@ -152,15 +179,10 @@ class SweepSpec:
         return self.distributions if self.distributions else (None,)
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for any axis the port lacks."""
-        if self.topologies:
-            raise _not_ported("the topologies axis (core/route.py)", 4)
-        if any(not isinstance(wl, Stream) for wl in self.workload_axis):
-            raise _not_ported("a workload other than STREAM", 5)
-        if any(tr is not None for tr in self.tiering):
-            raise _not_ported("dynamic tiering", 7)
-        if any(sp is not None for sp in self.sampling):
-            raise _not_ported("sampled simulation", 7)
+        """Raise ``NotImplementedError`` for a workload the port lacks."""
+        for wl in self.workload_axis:
+            if wl.name in workloads_mod.UNPORTED:
+                raise workloads_mod.not_ported(wl.name)
 
 
 # ---------------------------------------------------------------------------
@@ -356,42 +378,87 @@ def _run_traces_segmented(p: cache_mod.CacheParams, addr, is_write, core,
 
 
 # ---------------------------------------------------------------------------
-# The §IV sweep
+# The sweep
 # ---------------------------------------------------------------------------
+def _routed_tier(wt, pol, route) -> torch.Tensor:
+    """Per-access target of a static cell (the binary tier without a
+    route).  Workloads that carry their own tier intent route through it
+    instead of the placement policy."""
+    if wt.tier is not None:
+        return (wt.tier if route is None
+                else route.targets_of_tiered_lines(wt.tier, wt.addr))
+    if route is None:
+        return numa_mod.tier_of_lines(pol, wt.addr, wt.n_pages)
+    return route.target_of_lines(pol, wt.addr, wt.n_pages)
+
+
+def _cell_traces(spec: SweepSpec, cache: cache_mod.CacheParams, device):
+    """Each (workload, footprint) trace, generated once on `device`."""
+    out = {}
+    for wl, k, _ in spec.sim_cells:
+        if (wl, k) not in out:
+            out[(wl, k)] = wl.device_trace(k * cache.l2_bytes, device)
+    return out
+
+
 def build_sweep_batch(spec: SweepSpec, cache: cache_mod.CacheParams, *,
+                      routes: Optional[Sequence[
+                          Optional[route_mod.RouteMap]]] = None,
                       device=None) -> Tuple[TraceBatch, List[int]]:
-    """Materialize the (workload x footprint x policy) batch on `device`.
+    """Materialize the (topology x workload x footprint x policy) batch.
 
     Each workload generates its trace once per footprint on the device;
-    policies only relabel each access's DRAM/CXL tier
-    (:func:`repro_torch.core.numa.tier_of_lines`), so the trace is shared
-    across the policy cells.  Rows are padded to the longest row.
+    routes and policies only relabel each access's target
+    (:meth:`repro_torch.core.route.RouteMap.target_of_lines`, or the
+    binary :func:`repro_torch.core.numa.tier_of_lines` without a route),
+    so the trace is shared across the topology/policy cells.  Cells whose
+    workload carries its own tier map are policy-independent and share
+    one row.  Rows are padded to the longest row.
 
     Returns
     -------
     (TraceBatch, list of int)
         The device-resident batch, and one batch-row index per logical cell
-        in ``sim_cells`` order.
+        in ``topology-major x sim_cells`` order.
     """
     spec.check_ported()
     device = resolve_device(device)
-    cell_traces = {}
-    for wl, k, _ in spec.sim_cells:
-        if (wl, k) not in cell_traces:
-            cell_traces[(wl, k)] = wl.device_trace(k * cache.l2_bytes,
-                                                   device)
+    if routes is None:
+        routes = [None] * len(spec.topology_axis)
+    cell_traces = _cell_traces(spec, cache, device)
     traces: List[Tuple] = []
     row_of = {}
     cell_rows: List[int] = []
-    for wl, k, pol in spec.sim_cells:
-        key = (wl, k, pol)
-        if key not in row_of:
+    for ti, route in enumerate(routes):
+        for wl, k, pol in spec.sim_cells:
             wt = cell_traces[(wl, k)]
-            tier = numa_mod.tier_of_lines(pol, wt.addr, wt.n_pages)
-            traces.append((wt.addr, wt.is_write, None, tier))
-            row_of[key] = len(traces) - 1
-        cell_rows.append(row_of[key])
+            key = (ti, wl, k) if wt.tier is not None else (ti, wl, k, pol)
+            if key not in row_of:
+                traces.append((wt.addr, wt.is_write, None,
+                               _routed_tier(wt, pol, route)))
+                row_of[key] = len(traces) - 1
+            cell_rows.append(row_of[key])
     return stack_device_traces(traces), cell_rows
+
+
+def _narrow_idx(t_max: int, t_route: int) -> List[int]:
+    """Stat columns a `t_route`-target route occupies in a `t_max`-wide
+    layout (the complement is identically zero — see `_narrow_stats`)."""
+    return (list(range(4)) + list(range(4, 4 + t_route))
+            + list(range(4 + t_max, 4 + t_max + t_route))
+            + list(range(4 + 2 * t_max, 8 + 2 * t_max)))
+
+
+def _narrow_stats(stats: np.ndarray, t_max: int, t_route: int) -> np.ndarray:
+    """Drop the (all-zero) per-target columns a narrower route never hit.
+
+    The batch sizes every row's stats for the widest topology (`t_max`
+    targets); a route with `t_route < t_max` targets only routes ids
+    `< t_route`, so the dropped read/write columns are zero.
+    """
+    if t_route == t_max:
+        return stats
+    return stats[:, _narrow_idx(t_max, t_route)]
 
 
 def _check_knobs(resume, fault_plan, report) -> None:
@@ -408,9 +475,10 @@ def run_sweep(spec: SweepSpec, cache: cache_mod.CacheParams,
     Parameters
     ----------
     spec : SweepSpec
-        The (workload x footprint x policy x cpu) grid.
+        The (sampling x tiering x topology x workload x footprint x policy
+        x cpu) grid, with the distributions axis outermost.
     cache : CacheParams
-        Cache geometry.
+        Cache geometry (the stats width follows the widest route).
     timing : TimingConfig
         Per-tier timing model closing the Picard fixed point.
     device : str or torch.device, optional
@@ -423,9 +491,10 @@ def run_sweep(spec: SweepSpec, cache: cache_mod.CacheParams,
     Returns
     -------
     list of dict
-        One row per (workload, footprint, policy, cpu) — the
-        `RunResult.row()` schema plus the raw `stats` counters, a
-        `workload` label and the STREAM `kernel`.
+        One row per grid point — the `RunResult.row()` schema plus the
+        raw `stats` counters, a `workload` label, the STREAM `kernel`, and
+        `topology` / `tiering` / `sampling` / `distribution` labels when
+        the spec sweeps those axes.
     """
     results = sweep_results(spec, cache, timing, device=device,
                             resume=resume, fault_plan=fault_plan,
@@ -433,27 +502,30 @@ def run_sweep(spec: SweepSpec, cache: cache_mod.CacheParams,
     rows: List[Dict] = []
     i = 0
     for dist in spec.distributions_axis:
-        for _sp in spec.sampling_axis:
-            for _tr in spec.tiering_axis:
-                for wl, k, pol in spec.sim_cells:
-                    for _cpu in spec.cpus:
-                        r = results[i]
-                        row = {"workload": wl.name,
-                               "footprint_x_l2": k,
-                               "policy": numa_mod.describe(pol),
-                               "cpu": r.cpu, **r.row(),
-                               "stats": r.stats}
-                        if isinstance(wl, Stream):
-                            row["kernel"] = wl.kernel
-                        if spec.tiering:
-                            row["tiering"] = "static"
-                        if spec.sampling:
-                            row["sampling"] = "exact"
-                        if spec.distributions:
-                            row["distribution"] = (
-                                "off" if dist is None else dist.label)
-                        rows.append(row)
-                        i += 1
+        for sp in spec.sampling_axis:
+            for tr in spec.tiering_axis:
+                for topo in spec.topology_axis:
+                    for wl, k, pol in spec.sim_cells:
+                        for _cpu in spec.cpus:
+                            r = results[i]
+                            row = {"workload": wl.name,
+                                   "footprint_x_l2": k,
+                                   "policy": numa_mod.describe(pol),
+                                   "cpu": r.cpu, **r.row(),
+                                   "stats": r.stats}
+                            if isinstance(wl, Stream):
+                                row["kernel"] = wl.kernel
+                            if topo is not None:
+                                row["topology"] = topo.name
+                            if spec.tiering:
+                                row["tiering"] = tiering_dyn.describe(tr)
+                            if spec.sampling:
+                                row["sampling"] = sampling_mod.describe(sp)
+                            if spec.distributions:
+                                row["distribution"] = (
+                                    "off" if dist is None else dist.label)
+                            rows.append(row)
+                            i += 1
     return rows
 
 
@@ -462,33 +534,45 @@ def sweep_results(spec: SweepSpec, cache: cache_mod.CacheParams,
                   fault_plan=None, report=None) -> List[RunResult]:
     """`run_sweep` returning full RunResults (row order identical).
 
-    One device call simulates every (workload, footprint, policy) cell.
-    Each cell's stats are then broadcast across the CPU-model axis (CPU
-    models never touch cache state) and the Picard timing fixed point
-    closes vectorized on the host.
-
-    Returns
-    -------
-    list of RunResult
-        One per grid row, ordered distribution-major, then workload,
-        footprint, policy, cpu.
+    One device call simulates every (topology, workload, footprint,
+    policy) cell; topologies with different target counts share it by
+    padding the stats width to the widest route (the unused per-target
+    counters stay zero and are dropped again before timing).  Each cell's
+    stats are then broadcast across the CPU-model axis and the Picard
+    timing fixed point closes per topology group, with each group's own
+    route.  A tiering or sampling entry sends the sweep through the
+    epoch-structured program (:func:`_sweep_results_dynamic`).
     """
     _check_knobs(resume, fault_plan, report)
     spec.check_ported()
-    # the binary DRAM/CXL path: two targets, whatever `cache` says
-    p = dataclasses.replace(cache, n_targets=2)
-    batch, cell_rows = build_sweep_batch(spec, cache, device=device)
+    device = resolve_device(device)
+    routes = sweep_routes(spec, timing)
+    if (any(tr is not None for tr in spec.tiering_axis)
+            or any(sp is not None for sp in spec.sampling_axis)):
+        return _sweep_results_dynamic(spec, cache, timing, routes,
+                                      device=device)
+    t_max = max(2 if r is None else r.n_targets for r in routes)
+    p = dataclasses.replace(cache, n_targets=t_max)
+    batch, cell_rows = build_sweep_batch(spec, cache, routes=routes,
+                                         device=device)
     stats, _ = run_traces(p, batch.addr, batch.is_write, core=None,
                           tier=batch.tier, backend=spec.backend)
     stats = stats.cpu().numpy().astype(np.int64)
+    n_cells = len(spec.sim_cells)
     rows_cpus = [wl.cpu_for(cpu) for wl, _k, _pol in spec.sim_cells
                  for cpu in spec.cpus]
-    rows_stats = np.repeat(stats[cell_rows], len(spec.cpus), axis=0)
     out: List[RunResult] = []
     # the distributions axis only re-closes the timing fixed point — the
     # device call above ran once for every entry
     for dist in spec.distributions_axis:
-        results = time_batch(timing, rows_cpus, rows_stats, dist=dist)
+        results: List[RunResult] = []
+        for ti, route in enumerate(routes):
+            block = stats[cell_rows[ti * n_cells:(ti + 1) * n_cells]]
+            t_route = 2 if route is None else route.n_targets
+            block = _narrow_stats(block, t_max, t_route)
+            rows_stats = np.repeat(block, len(spec.cpus), axis=0)
+            results.extend(time_batch(timing, rows_cpus, rows_stats,
+                                      route=route, dist=dist))
         # explicit all-None tiering/sampling axes repeat the static block
         # per entry — independent copies, so no rows share mutable state
         out.extend(results)
@@ -496,6 +580,13 @@ def sweep_results(spec: SweepSpec, cache: cache_mod.CacheParams,
         for _ in range(n_copies - 1):
             out.extend(_copy_result(r) for r in results)
     return out
+
+
+def sweep_routes(spec: SweepSpec, timing: TimingConfig
+                 ) -> List[Optional[route_mod.RouteMap]]:
+    """One route per topology entry (``None``: the default two targets)."""
+    return [None if tp is None else route_mod.build_route(tp, timing)
+            for tp in spec.topology_axis]
 
 
 def _copy_result(r: RunResult) -> RunResult:
@@ -506,3 +597,273 @@ def _copy_result(r: RunResult) -> RunResult:
         loaded_latency_ns=dict(r.loaded_latency_ns),
         lat_percentiles=(None if r.lat_percentiles is None else
                          {k: dict(v) for k, v in r.lat_percentiles.items()}))
+
+
+# ---------------------------------------------------------------------------
+# Dynamic tiering and sampling: the epoch-structured sweep path
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TieringBatch:
+    """Per-row inputs of the epoch program (see `tiering_dyn.run_dynamic`).
+
+    `batch.tier` carries the per-line CXL decode target for dynamic rows
+    and the final per-access target for static (`tiering=None`) rows;
+    `dyn_flag` selects which reading each row uses.  Traces, the page maps
+    and the migration table live on the simulation device; the per-row
+    scalars are host int64 arrays.
+    """
+    batch: TraceBatch
+    dyn_flag: np.ndarray                # (B,) 1 = page map routes, 0 = static
+    page_map0: torch.Tensor             # (B, P) initial page -> {0, 1[, 2]}
+    n_pages: np.ndarray                 # (B,)
+    budget: np.ndarray                  # (B,)
+    threshold: np.ndarray               # (B,)
+    period: np.ndarray                  # (B,) slots per epoch
+    dram_cap: np.ndarray                # (B,)
+    ssd_tid: np.ndarray                 # (B,) SSD target id; 0 = two-tier row
+    cxl_cap: np.ndarray                 # (B,) level-1 capacity (pages)
+    page_target_lines: torch.Tensor     # (B, P, T)
+    s_warm: np.ndarray                  # (B,) sampling warm slots (slot units)
+    s_meas: np.ndarray                  # (B,) sampling measure slots
+    s_per: np.ndarray                   # (B,) sampling period; 0 = exact
+    cell_rows: List[int]                # logical cell -> batch row
+
+
+def build_tiering_batch(spec: SweepSpec, cache: cache_mod.CacheParams,
+                        routes: Sequence[Optional[route_mod.RouteMap]],
+                        slot: int, t_max: int, *, device=None
+                        ) -> TieringBatch:
+    """Materialize the (sampling x tiering x topology x workload x
+    footprint x policy) batch for the epoch program.
+
+    Row sharing mirrors :func:`build_sweep_batch`: cells whose workload
+    owns its residency map are policy-independent (dynamic rows then seed
+    the tierer with the first-touch page map of the workload's own tier
+    stream, :func:`repro_torch.core.numa.first_touch_page_map`); every
+    ``tiering=None`` cell shares one row across all ``None`` entries, and
+    likewise every ``sampling=None`` cell across ``None`` sampling
+    entries.  The stacked traces are sentinel-padded to a multiple of
+    `slot`; the stats width is `t_max` (the widest route).
+    """
+    device = resolve_device(device)
+    cells = spec.sim_cells
+    cell_traces = _cell_traces(spec, cache, device)
+    p_max = max(wt.n_pages for wt in cell_traces.values())
+    ptl_of = []
+    for route in routes:
+        if route is None:
+            ptl = torch.zeros((p_max, t_max), dtype=torch.int32,
+                              device=device)
+            ptl[:, 1] = numa_mod.LINES_PER_PAGE
+        else:
+            ptl = route.page_target_lines(p_max, width=t_max, device=device)
+        ptl_of.append(ptl)
+
+    traces: List[Tuple] = []
+    pmap0s: List[torch.Tensor] = []
+    scalars: List[Tuple[int, ...]] = []
+    row_of: Dict = {}
+    cell_rows: List[int] = []
+    for si, sp in enumerate(spec.sampling_axis):
+        skey = si if sp is not None else -1  # exact entries share rows
+        sw, sm, spr = sampling_mod.scan_scalars(sp, slot)
+        for tri, tr in enumerate(spec.tiering_axis):
+            tkey = tri if tr is not None else -1  # static entries share rows
+            for ti, route in enumerate(routes):
+                for wl, k, pol in cells:
+                    wt = cell_traces[(wl, k)]
+                    key = ((skey, tkey, ti, wl, k) if wt.tier is not None
+                           else (skey, tkey, ti, wl, k, pol))
+                    if key not in row_of:
+                        tier, pmap0, sc = _tiering_row(tr, wt, pol, route,
+                                                       slot)
+                        if wt.n_pages < p_max:  # pad: CXL, never eligible
+                            pmap0 = torch.nn.functional.pad(
+                                pmap0, (0, p_max - wt.n_pages), value=1)
+                        traces.append((wt.addr, wt.is_write, None, tier))
+                        pmap0s.append(pmap0)
+                        scalars.append(sc + (sw, sm, spr, ti))
+                        row_of[key] = len(traces) - 1
+                    cell_rows.append(row_of[key])
+    batch = stack_device_traces(traces)
+    addr, is_write, core, tier = pad_trace(slot, batch.addr, batch.is_write,
+                                           batch.core, batch.tier)
+    batch = TraceBatch(addr=addr, is_write=is_write, core=core, tier=tier,
+                       n_valid=batch.n_valid)
+    sc = np.asarray(scalars, np.int64)
+    return TieringBatch(
+        batch=batch, dyn_flag=sc[:, 0], page_map0=torch.stack(pmap0s),
+        n_pages=sc[:, 1], budget=sc[:, 2], threshold=sc[:, 3],
+        period=sc[:, 4], dram_cap=sc[:, 5], ssd_tid=sc[:, 6],
+        cxl_cap=sc[:, 7],
+        page_target_lines=torch.stack([ptl_of[ti] for ti in sc[:, 11]]),
+        s_warm=sc[:, 8], s_meas=sc[:, 9], s_per=sc[:, 10],
+        cell_rows=cell_rows)
+
+
+def _tiering_row(tr, wt, pol, route, slot: int):
+    """``(tier, page_map0, scalars)`` of one epoch-program row.
+
+    Dynamic rows carry each line's CXL decode target and start from the
+    placement's page map; static rows carry their final targets, exactly
+    the static path's, and never migrate.
+    """
+    unbounded = tiering_dyn.UNBOUNDED_PAGES
+    device = wt.addr.device
+    if tr is None:
+        return (_routed_tier(wt, pol, route),
+                torch.ones((wt.n_pages,), dtype=torch.int32, device=device),
+                (0, wt.n_pages, 0, 1, 1, unbounded, 0, unbounded))
+    tier = (torch.ones_like(wt.addr, dtype=torch.int32) if route is None
+            else route.cxl_targets_of_lines(wt.addr))
+    if wt.tier is not None:
+        pmap0 = numa_mod.first_touch_page_map(wt.tier, wt.addr, wt.n_pages)
+    else:
+        pmap0 = (pol.tiers(wt.n_pages, device=device) != 0).to(torch.int32)
+    cap = (unbounded if tr.dram_capacity_pages is None
+           else tr.dram_capacity_pages)
+    l1cap = (unbounded if tr.cxl_capacity_pages is None
+             else tr.cxl_capacity_pages)
+    ssd_t = 0 if route is None else route.ssd_tid
+    return tier, pmap0, (1, wt.n_pages, tr.budget, tr.threshold,
+                         tr.epoch_len // slot, cap, ssd_t, l1cap)
+
+
+class DynamicLaunch(NamedTuple):
+    """The epoch kernel's launch for a tiering/sampling sweep:
+    ``tiering_dyn.run_dynamic(params, *trace, **kwargs)``."""
+    params: cache_mod.CacheParams     # stats width = the widest route's
+    batch: TieringBatch
+    kwargs: Dict                      # slot_len, k_max and per-row scalars
+
+    @property
+    def trace(self) -> Tuple[torch.Tensor, ...]:
+        b = self.batch.batch
+        return b.addr, b.is_write, b.core, b.tier
+
+
+def dynamic_launch(spec: SweepSpec, cache: cache_mod.CacheParams,
+                   routes: Sequence[Optional[route_mod.RouteMap]],
+                   *, device) -> DynamicLaunch:
+    """Build a tiering/sampling sweep's batch and derive its scan slot and
+    top-k width.
+
+    The slot is the gcd of the tierers' epoch lengths (and of the sampling
+    slot when the sweep also samples); the top-k width is the largest
+    budget.  Raises ``ValueError`` when an epoch is not a whole number of
+    slots.
+    """
+    t_max = max(2 if r is None else r.n_targets for r in routes)
+    p = dataclasses.replace(cache, n_targets=t_max)
+    dyn = [tr for tr in spec.tiering_axis if tr is not None]
+    sampled = [sp for sp in spec.sampling_axis if sp is not None]
+    if dyn:
+        # sampling slots must nest inside epoch slots: scan at the gcd
+        slot = tiering_dyn.slot_length(dyn)
+        if sampled:
+            slot = math.gcd(slot, sampling_mod.SLOT_LEN)
+        k_max = max(1, max(tr.budget for tr in dyn))
+    else:
+        slot = sampling_mod.SLOT_LEN
+        k_max = 1
+    for tr in dyn:
+        if tr.epoch_len % slot:
+            raise ValueError(
+                f"epoch_len {tr.epoch_len} is not a multiple of the "
+                f"sweep's epoch gcd {slot}")
+    tb = build_tiering_batch(spec, cache, routes, slot, t_max, device=device)
+    return DynamicLaunch(p, tb, dict(
+        slot_len=slot, k_max=k_max, dyn_flag=tb.dyn_flag,
+        page_map0=tb.page_map0, n_pages=tb.n_pages, budget=tb.budget,
+        threshold=tb.threshold, period=tb.period, dram_cap=tb.dram_cap,
+        page_target_lines=tb.page_target_lines, ssd_tid=tb.ssd_tid,
+        cxl_cap=tb.cxl_cap, s_warm=tb.s_warm, s_meas=tb.s_meas,
+        s_per=tb.s_per))
+
+
+def _sweep_results_dynamic(spec: SweepSpec, cache: cache_mod.CacheParams,
+                           timing: TimingConfig,
+                           routes: Sequence[Optional[route_mod.RouteMap]],
+                           *, device) -> List[RunResult]:
+    """The epoch-structured twin of the static `sweep_results` body.
+
+    One `tiering_dyn.run_dynamic` call (:func:`dynamic_launch`) simulates
+    every (sampling, tiering, topology, workload, footprint, policy) cell;
+    static rows ride along with a zero budget and their precomputed
+    targets.  Migration line counts feed `time_batch(mig_lines=...)`;
+    dynamic rows also get `migrated_pages` and per-epoch DRAM hit-tier
+    fractions.  Sampled rows replace the gated device counters with
+    whole-trace estimates (:func:`repro_torch.core.sampling.estimate` over
+    the per-slot snapshot deltas) before the timing fixed point and carry
+    per-counter 95% confidence intervals.
+    """
+    launch = dynamic_launch(spec, cache, routes, device=device)
+    tb, slot = launch.batch, launch.kwargs["slot_len"]
+    t_max = launch.params.n_targets
+    out = tiering_dyn.run_dynamic(launch.params, *launch.trace,
+                                  backend=spec.backend, **launch.kwargs)
+    stats = out.stats.cpu().numpy().astype(np.int64)
+    mig = np.stack([out.mig_read.cpu().numpy().astype(np.int64),
+                    out.mig_write.cpu().numpy().astype(np.int64)], axis=1)
+    slots = out.slots.cpu().numpy().astype(np.int64)     # (B, E, 4)
+    snaps = out.snapshots.cpu().numpy()                   # (B, E, nstats)
+    meas = out.meas.cpu().numpy()                         # (B, E)
+    cells = spec.sim_cells
+    n_cells = len(cells)
+    n_cpus = len(spec.cpus)
+    n_tier = len(spec.tiering_axis)
+    rows_cpus = [wl.cpu_for(cpu) for wl, _k, _pol in cells
+                 for cpu in spec.cpus]
+
+    # whole-trace estimates per sampled batch row (a batch row belongs to
+    # exactly one sampling entry)
+    est_of: Dict[int, sampling_mod.Estimate] = {}
+
+    def _est(br: int, sp: sampling_mod.SamplingSpec):
+        if br not in est_of:
+            est_of[br] = sampling_mod.estimate(
+                cache_mod.snapshot_deltas(snaps[br]), slots[br, :, 0],
+                meas[br], confidence=sp.confidence)
+        return est_of[br]
+
+    results: List[RunResult] = []
+    # the distributions axis only re-closes the timing fixed point
+    for dist in spec.distributions_axis:
+        for si, sp in enumerate(spec.sampling_axis):
+            for tri, tr in enumerate(spec.tiering_axis):
+                for ti, route in enumerate(routes):
+                    base = (((si * n_tier + tri) * len(routes) + ti)
+                            * n_cells)
+                    block_rows = tb.cell_rows[base:base + n_cells]
+                    t_route = 2 if route is None else route.n_targets
+                    if sp is None:
+                        block = stats[block_rows]
+                        ests = None
+                    else:
+                        ests = [_est(br, sp) for br in block_rows]
+                        block = np.stack([e.stats for e in ests])
+                    block = _narrow_stats(block, t_max, t_route)
+                    rows_mig = np.repeat(mig[block_rows][:, :, :t_route],
+                                         n_cpus, axis=0)
+                    res = time_batch(timing, rows_cpus,
+                                     np.repeat(block, n_cpus, axis=0),
+                                     route=route, mig_lines=rows_mig,
+                                     dist=dist)
+                    for j, r in enumerate(res):
+                        br = block_rows[j // n_cpus]
+                        if tr is not None:
+                            r.migrated_pages = int(slots[br, :, 2].sum()
+                                                   + slots[br, :, 3].sum())
+                            r.epoch_dram_frac = tiering_dyn.epoch_fractions(
+                                slots[br], tr.epoch_len // slot)
+                        if ests is not None:
+                            e = ests[j // n_cpus]
+                            r.sampled_frac = e.sampled_frac
+                            r.sample_windows = e.n_windows
+                            r.stats_ci95 = {
+                                nm: float(e.ci[ci]) for nm, ci in zip(
+                                    cache_mod.stat_names(t_route),
+                                    _narrow_idx(t_max, t_route))}
+                            r.l2_miss_rate_ci95 = e.l2_miss_rate_ci()[1]
+                    results.extend(res)
+    return results

@@ -9,9 +9,11 @@ interleaved targets at a fixed granularity:
 
 This is the CXL 2.0 §8.2.5.12 decode (including the non-power-of-two
 3/6/12-way modes), in pure-Python ints (arbitrary precision) for
-topology/enumeration on full 64-bit addresses.  :func:`weighted_page_policy`
-is the vectorized OS page-interleave rule the placement policies of
-:mod:`repro_torch.core.numa` apply to page indices on the device.
+topology/enumeration on full 64-bit addresses, and vectorized over tensors
+of window-relative cacheline indices (:meth:`InterleaveProgram.
+decode_lines`) for per-access routing on the device.
+:func:`weighted_page_policy` is the vectorized OS page-interleave rule the
+placement policies of :mod:`repro_torch.core.numa` apply to page indices.
 """
 from __future__ import annotations
 
@@ -63,6 +65,40 @@ class InterleaveProgram:
         if not (self.base <= hpa < self.base + self.size):
             raise ValueError("dpa outside device share of window")
         return hpa
+
+    # -- vectorized (trace-relative line indices) ---------------------------
+    def decode_lines(self, line_idx: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Vectorized decode over window-relative cacheline indices.
+
+        Args:
+          line_idx: (N,) integer cacheline indices relative to `base`.
+        Returns:
+          (way, dpa_line): each (N,) int32 on the device of `line_idx`.
+          `way` indexes `self.targets`; `dpa_line` is the device-local
+          cacheline index.
+        """
+        g_lines = self.granularity // CACHELINE_BYTES
+        line_idx = line_idx.to(torch.int32)
+        chunk = line_idx // g_lines
+        way = chunk % self.ways
+        dpa_line = (chunk // self.ways) * g_lines + line_idx % g_lines
+        return way.to(torch.int32), dpa_line.to(torch.int32)
+
+    def encode_lines(self, way: torch.Tensor,
+                     dpa_line: torch.Tensor) -> torch.Tensor:
+        """Vectorized inverse of :meth:`decode_lines`."""
+        g_lines = self.granularity // CACHELINE_BYTES
+        chunk, rem = dpa_line // g_lines, dpa_line % g_lines
+        return ((chunk * self.ways + way) * g_lines + rem).to(torch.int32)
+
+
+def traffic_split(program: InterleaveProgram,
+                  line_idx: torch.Tensor) -> torch.Tensor:
+    """Per-target request counts for a trace — the interleave balance
+    statistic the paper's §IV sweep reports."""
+    way, _ = program.decode_lines(line_idx)
+    return torch.bincount(way, minlength=program.ways)
 
 
 def weighted_page_policy(page_idx: torch.Tensor, dram_weight: int,

@@ -211,10 +211,11 @@ class Machine:
         return cache_sim.stats_dict(stats), cache_sim.miss_rates(stats)
 
     # -- timing fixed point -------------------------------------------------
-    def _time(self, stats: Dict[str, int]) -> RunResult:
-        vec = np.asarray([[stats[n] for n in cache_sim.stat_names(2)]],
+    def _time(self, stats: Dict[str, int], route=None) -> RunResult:
+        t = 2 if route is None else route.n_targets
+        vec = np.asarray([[stats[n] for n in cache_sim.stat_names(t)]],
                          np.int64)
-        return time_batch(self.timing, [self.cpu], vec)[0]
+        return time_batch(self.timing, [self.cpu], vec, route=route)[0]
 
     def run_trace(self, addr: torch.Tensor, is_write: torch.Tensor,
                   policy: numa_mod.Policy, n_pages: int,
@@ -234,8 +235,9 @@ class Machine:
             Issuing core per access.
         backend : str, optional
             ``None`` (follow the device), ``'reference'`` or ``'cuda'``.
-        route : None
-            N-target routing is not ported yet (ROADMAP queue 1, item 4).
+        route : repro_torch.core.route.RouteMap, optional
+            Switches from the binary DRAM/CXL tier map to N-target
+            routing through the route map's committed HDM programs.
 
         Returns
         -------
@@ -243,17 +245,19 @@ class Machine:
             Stats + the closed timing fixed point for this machine's CPU.
         """
         from repro_torch.core import engine  # deferred: engine builds on machine
-        if route is not None:
-            raise NotImplementedError(
-                "route= needs core/route.py, which is not ported yet "
-                "(ROADMAP queue 1, item 4)")
         addr = addr.to(torch.int32)
-        tier = numa_mod.tier_of_lines(policy, addr, n_pages)
+        if route is None:
+            tier = numa_mod.tier_of_lines(policy, addr, n_pages)
+            p = self.cache_params
+        else:
+            tier = route.target_of_lines(policy, addr, n_pages)
+            p = dataclasses.replace(self.cache_params,
+                                    n_targets=route.n_targets)
         stats, _ = engine.run_traces(
-            self.cache_params, addr[None], is_write[None],
+            p, addr[None], is_write[None],
             core=None if core is None else core[None],
             tier=tier[None], backend=backend)
-        return self._time(cache_sim.stats_dict(stats[0].cpu()))
+        return self._time(cache_sim.stats_dict(stats[0].cpu()), route=route)
 
 
 def per_target_bw_columns(row: Dict) -> List[str]:

@@ -96,6 +96,29 @@ def tier_of_lines(policy: Policy, line_addr: torch.Tensor,
     return page_tiers[page.clamp(0, n_pages - 1).long()]
 
 
+def first_touch_page_map(tier: torch.Tensor, line_addr: torch.Tensor,
+                         n_pages: int) -> torch.Tensor:
+    """Page -> tier map from a trace's *first* access to each page.
+
+    How workloads that carry their own per-access residency map seed the
+    dynamic tierer (:mod:`repro_torch.core.tiering_dyn`): each page's
+    initial tier is the tier of its first access; pages the trace never
+    touches default to CXL (1).  `tier` values above 2 clamp to 2
+    (CXL-SSD); sentinel entries (< 0) are ignored.  Returns (n_pages,)
+    int32 on the trace's device.
+    """
+    line = line_addr.to(torch.int32)
+    tier = tier.to(torch.int32).clamp(0, 2)
+    n = line.shape[0]
+    page = (line // LINES_PER_PAGE).clamp(0, n_pages - 1).long()
+    order = torch.arange(n, dtype=torch.int32, device=line.device)
+    slot = torch.where(line >= 0, order, n)
+    first = torch.full((n_pages,), n, dtype=torch.int32, device=line.device)
+    first = first.scatter_reduce(0, page, slot, reduce="amin")
+    return torch.where(first < n, tier[first.clamp(0, n - 1).long()],
+                       1).to(torch.int32)
+
+
 def describe(policy: Policy) -> str:
     """Short human-readable policy label (sweep row `policy` column)."""
     if isinstance(policy, ZNuma):

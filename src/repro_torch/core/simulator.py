@@ -1,10 +1,12 @@
 """CXLRAMSim facade: build -> enumerate -> online -> characterize.
 
 One object wires the whole paper together: topology + firmware + enumeration
-(:mod:`.topology`), per-tier timing (:mod:`.timing`), the cache/tier machine
-(:mod:`.machine`), placement policies (:mod:`.numa`) and STREAM workloads
-(:mod:`.stream`), with the cache simulation on a torch device — the CUDA
-card unless the caller asks for the CPU.
+(:mod:`.topology`), routing (:mod:`.route`), per-tier timing
+(:mod:`.timing`), the cache/tier machine (:mod:`.machine`), placement
+policies (:mod:`.numa`), dynamic tiering (:mod:`.tiering_dyn`), sampled
+simulation (:mod:`.sampling`) and the workloads of
+:mod:`repro_torch.workloads`, with the cache simulation on a torch device —
+the CUDA card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict, List, Optional, Sequence
 from repro_torch.core import cache as cache_sim
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import numa as numa_mod
+from repro_torch.core import route as route_mod
 from repro_torch.core import stream as stream_mod
 from repro_torch.core import topology as topo
 from repro_torch.core.machine import CPUModel, Machine, RunResult
@@ -65,11 +68,14 @@ class CXLRAMSim:
         return self.cli.numastat()
 
     # ---- routing ----------------------------------------------------------
-    def route(self, switch=None):
-        """N-target route map over this system's committed HDM decoders."""
-        raise NotImplementedError(
-            "CXLRAMSim.route needs core/route.py, which is not ported to "
-            "repro_torch yet (ROADMAP queue 1, item 4)")
+    def route(self, switch=None) -> route_mod.RouteMap:
+        """N-target route map over this system's committed HDM decoders.
+
+        Target 0 = local DRAM, 1..K = this system's expander endpoints;
+        pass a `SwitchConfig` to model all endpoints behind one switch.
+        """
+        return route_mod.build_route_from_system(
+            self.map, self.config.timing, switch=switch)
 
     # ---- characterization -------------------------------------------------
     def _check_policy(self, policy: numa_mod.Policy) -> None:
@@ -118,40 +124,86 @@ class CXLRAMSim:
               resume=None,
               fault_plan=None,
               report=None) -> List[Dict]:
-        """The grid — (workload x footprint x policy x CPU) — batched.
+        """The full grid — (sampling x tiering x topology x workload x
+        footprint x policy x CPU) — batched.
 
-        Every (workload, footprint, policy) cell is simulated in one device
-        call; CPU models and `distributions` entries vary only the timing
-        fixed point.  `backend` is ``None`` (follow the device),
-        ``'reference'`` or ``'cuda'``.
+        Every simulated cell runs in one device call; CPU models and
+        `distributions` entries vary only the timing fixed point.
+        `topologies` (:func:`repro_torch.core.route.direct` /
+        :func:`~repro_torch.core.route.switched` specs) route accesses to
+        N targets; `workloads` takes :mod:`repro_torch.workloads`
+        generators; `tiering` takes
+        :class:`~repro_torch.core.tiering_dyn.DynamicTiering` entries and
+        `sampling` :class:`~repro_torch.core.sampling.SamplingSpec` entries
+        (``None`` = static / exact, the rows of the static path), which
+        run the epoch-structured kernel.  `backend` is ``None`` (follow
+        the device), ``'reference'`` or ``'cuda'``.
 
         Not ported yet, and raising ``NotImplementedError`` when given:
-        `topologies` (ROADMAP queue 1, item 4), non-STREAM `workloads`
-        (item 5), `mesh` and `stream_chunk` (item 6), non-None `tiering`
-        and `sampling` entries (item 7), and `resume`, `fault_plan` and
-        `report` (item 8).
+        `mesh` and `stream_chunk` (ROADMAP queue 1, item 6) and `resume`,
+        `fault_plan` and `report` (item 8).
         """
         if mesh is not None or stream_chunk is not None:
             raise NotImplementedError(
                 "mesh/stream_chunk need core/distribute.py, which is not "
                 "ported to repro_torch yet (ROADMAP queue 1, item 6)")
+        spec = self.sweep_spec(footprint_factors, policies, cpus, kernel,
+                               backend, topologies, workloads, tiering,
+                               sampling, distributions)
+        return engine_mod.run_sweep(spec, self.config.cache,
+                                    self.config.timing, device=self.device,
+                                    resume=resume, fault_plan=fault_plan,
+                                    report=report)
+
+    def sweep_spec(self, footprint_factors: Sequence[int] = (2, 4, 6, 8),
+                   policies: Optional[Sequence[numa_mod.Policy]] = None,
+                   cpus: Optional[Sequence[CPUModel]] = None,
+                   kernel: str = "triad",
+                   backend: Optional[str] = None,
+                   topologies=None,
+                   workloads: Optional[Sequence] = None,
+                   tiering: Optional[Sequence] = None,
+                   sampling: Optional[Sequence] = None,
+                   distributions: Optional[Sequence] = None
+                   ) -> engine_mod.SweepSpec:
+        """The :class:`~repro_torch.core.engine.SweepSpec` that
+        :meth:`sweep` runs for these arguments (default policy ZNuma at
+        100% CXL, default CPU the config's)."""
         policies = tuple(policies) if policies else (
             numa_mod.ZNuma(cxl_fraction=1.0),)
         for p in policies:
             self._check_policy(p)
-        cpus = tuple(cpus) if cpus else (self.config.cpu,)
-        spec = engine_mod.SweepSpec(
+        return engine_mod.SweepSpec(
             footprint_factors=tuple(footprint_factors), policies=policies,
-            cpus=cpus, kernel=kernel, backend=backend,
+            cpus=tuple(cpus) if cpus else (self.config.cpu,), kernel=kernel,
+            backend=backend,
             topologies=tuple(topologies) if topologies else (),
             workloads=tuple(workloads) if workloads else (),
             tiering=tuple(tiering) if tiering else (),
             sampling=tuple(sampling) if sampling else (),
             distributions=tuple(distributions) if distributions else ())
-        return engine_mod.run_sweep(spec, self.config.cache,
-                                    self.config.timing, device=self.device,
-                                    resume=resume, fault_plan=fault_plan,
-                                    report=report)
+
+    def stream_suite_sequential(self,
+                                footprint_factors: Sequence[int]
+                                = (2, 4, 6, 8),
+                                policy: Optional[numa_mod.Policy] = None,
+                                kernel: str = "triad",
+                                cpu: Optional[CPUModel] = None
+                                ) -> List[Dict]:
+        """Per-config sequential path (one kernel call per footprint).
+
+        The baseline the batched :meth:`stream_suite` is held against:
+        its stats are bitwise the same.
+        """
+        policy = policy or numa_mod.ZNuma(cxl_fraction=1.0)
+        rows = []
+        for k in footprint_factors:
+            fp = k * self.config.cache.l2_bytes
+            r = self.run_stream(kernel, fp, policy, cpu=cpu)
+            rows.append({"footprint_x_l2": k, "kernel": kernel,
+                         "policy": numa_mod.describe(policy),
+                         "cpu": r.cpu, **r.row(), "stats": r.stats})
+        return rows
 
     def latency_breakdown(self) -> Dict[str, float]:
         return self.config.timing.cxl.stage_breakdown()

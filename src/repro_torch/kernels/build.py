@@ -1,16 +1,18 @@
 """Build the hand-written CUDA kernels with `nvcc` and load them with ctypes.
 
-Each library is one `.cu` source under ``csrc/`` with a plain C interface,
-compiled for Hopper (``sm_90a``) into a shared library at first use:
+Each library is one `.cu` source under ``csrc/`` with a plain C interface
+(it may include shared ``csrc/*.cuh`` headers), compiled for Hopper
+(``sm_90a``) into a shared library at first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 Sources and output both live in this package's directory: the library lands
 in ``_build/`` beside ``csrc/`` (git ignores it), named by a hash of the
-source so an edited kernel is never served from a stale build.  An installed
-copy carries ``csrc/*.cu`` as package data and builds the same way, provided
-its directory is writable.  A missing `nvcc` or a failed compile
+source, of every header it includes and of the flags, so an edited kernel
+or shared header is never served from a stale build.  An installed copy
+carries ``csrc/*.cu`` and ``csrc/*.cuh`` as package data and builds the same
+way, provided its directory is writable.  A missing `nvcc` or a failed compile
 raises; there is no fallback.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -20,17 +22,19 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 HERE = pathlib.Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD_DIR = HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIBRARIES = ("mesi",)
+LIBRARIES = ("mesi", "mesi_dyn")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 class KernelBuildError(RuntimeError):
@@ -48,10 +52,25 @@ def _nvcc() -> str:
                            "the repro_torch kernels)")
 
 
+def sources(name: str) -> List[pathlib.Path]:
+    """`csrc/<name>.cu` and every ``csrc`` header it includes, transitively
+    (quoted ``#include``s only; system headers are not followed)."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(path.parent / inc.decode()
+                    for inc in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = LIBRARIES) -> Dict[str, str]:

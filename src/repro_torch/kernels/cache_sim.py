@@ -1,4 +1,4 @@
-"""The two-level MESI + tier cache kernel: CUDA wrapper and plain version.
+"""The two-level MESI + tier cache kernels: CUDA wrappers and plain versions.
 
 :func:`mesi_segment` advances the engine's packed batch carry
 ``(l1p, l2p, stats, t)`` over a (B, N) trace segment — the port of the
@@ -19,16 +19,28 @@ thread the identical carry, so segments may alternate between them with
 bitwise-equal results.  Sentinel entries (``addr == SENTINEL``) change no
 state or counter; the clock advances across them and ends at ``t + N``.
 
-``LAUNCHES`` counts kernel launches (``"mesi_segment"``) and plain-version
-calls (``"mesi_segment_ref"``) since :func:`reset_launches`.
+:func:`mesi_dyn_segment` is the epoch-structured twin for dynamic tiering,
+sampling and the CXL-SSD tier: the port of the Pallas kernel
+``mesi_dyn_segment``.  It advances the 9-tuple carry of
+:func:`repro_torch.core.tiering_dyn.init_dyn_carry` over a (B, E, slot_len)
+segment; its CUDA kernel is ``csrc/mesi_dyn.cu``, which shares the
+per-access body (``csrc/mesi_access.cuh``) with ``csrc/mesi.cu``, and its
+plain version, :func:`mesi_dyn_segment_ref`, loops
+:func:`repro_torch.core.tiering_dyn._slot_step` over the slots.
+
+``LAUNCHES`` counts kernel launches (``"mesi_segment"``,
+``"mesi_dyn_segment"``) and plain-version calls (``"mesi_segment_ref"``,
+``"mesi_dyn_segment_ref"``) since :func:`reset_launches`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import tiering_dyn
 from repro_torch.core.cache import (
     SENTINEL, CacheParams, CacheState, _packed_step, init_batch_carry,
     nstats, unpack_state,
@@ -37,7 +49,9 @@ from repro_torch.kernels import build
 
 BACKENDS = ("reference", "cuda")
 
-LAUNCHES: Dict[str, int] = {"mesi_segment": 0, "mesi_segment_ref": 0}
+LAUNCHES: Dict[str, int] = {"mesi_segment": 0, "mesi_segment_ref": 0,
+                            "mesi_dyn_segment": 0,
+                            "mesi_dyn_segment_ref": 0}
 
 
 def reset_launches() -> None:
@@ -47,9 +61,15 @@ def reset_launches() -> None:
 
 
 def resolve_backend(backend: Optional[str], device: torch.device) -> str:
-    """The backend a call runs on: ``None`` follows the tensor's device."""
+    """The backend a call runs on: ``None`` follows the tensor's device.
+
+    The JAX package's name for its kernel backend, ``"pallas"``, selects
+    the CUDA kernel.
+    """
     if backend is None:
         return "cuda" if device.type == "cuda" else "reference"
+    if backend == "pallas":
+        backend = "cuda"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from "
                          f"{BACKENDS} or None (follow the device)")
@@ -213,3 +233,182 @@ def mesi_cache_sim(addr, is_write, core, tier, *, params: CacheParams,
     l1p, l2p, stats, _ = mesi_segment(carry, addr, is_write, core, tier,
                                       params=params, backend=backend)
     return stats, unpack_state(l1p, l2p)
+
+
+# ---------------------------------------------------------------------------
+# The epoch-structured kernel (dynamic tiering, sampling, CXL-SSD tier)
+# ---------------------------------------------------------------------------
+#: Column order of the packed per-row scalar input of the kernel: the
+#: per-row scalars of :func:`repro_torch.core.tiering_dyn.
+#: run_dynamic_segment` followed by the two scalar carry components
+#: (logical clock, epoch-slot index).
+DYN_SCALARS = ("dyn_flag", "n_pages", "budget", "threshold", "period",
+               "dram_cap", "ssd_tid", "cxl_cap", "s_warm", "s_meas",
+               "s_per", "t0", "eidx0")
+
+
+def mesi_dyn_segment_ref(carry, addr, is_write, core, tier, dyn_flag,
+                         n_pages, budget, threshold, period, dram_cap,
+                         ssd_tid, cxl_cap, page_target_lines, s_warm,
+                         s_meas, s_per, *, params: CacheParams, k_max: int,
+                         count_bound: int):
+    """Plain PyTorch version of :func:`mesi_dyn_segment` (same contract).
+
+    :func:`repro_torch.core.tiering_dyn._slot_step` — the packed MESI step
+    per access for all B rows at once, then the migration stages with
+    ``torch.topk`` — looped over the E slots.  The input carry is not
+    modified.
+    """
+    LAUNCHES["mesi_dyn_segment_ref"] += 1
+    b, e, _ = addr.shape
+    n_p = page_target_lines.shape[1]
+    k_max = min(int(k_max), n_p)
+    consts = tiering_dyn.slot_consts(
+        (dyn_flag, n_pages, budget, threshold, period, dram_cap, ssd_tid,
+         cxl_cap, page_target_lines, s_warm, s_meas, s_per), n_p, k_max)
+    state = tuple(x.clone() for x in carry)
+    valid = addr != SENTINEL
+    slots, snaps, meas = [], [], []
+    for j in range(e):
+        state, (ys, st, ms) = tiering_dyn._slot_step(
+            params, k_max, count_bound, n_p, consts, state,
+            (addr[:, j], is_write[:, j] != 0, core[:, j], tier[:, j],
+             valid[:, j]))
+        slots.append(ys)
+        snaps.append(st.clone())
+        meas.append(ms)
+    if e == 0:
+        zeros = functools.partial(torch.zeros, dtype=torch.int32,
+                                  device=addr.device)
+        return (state, zeros((b, 0, 4)),
+                zeros((b, 0, nstats(params.n_targets))), zeros((b, 0)))
+    return (state, torch.stack(slots, dim=1), torch.stack(snaps, dim=1),
+            torch.stack(meas, dim=1))
+
+
+def _dyn_library() -> ctypes.CDLL:
+    lib = build.load("mesi_dyn")
+    lib.mesi_dyn_segment.argtypes = [_P] * 16 + [_I] * 13 + [_P]
+    lib.mesi_dyn_segment.restype = _I
+    lib.mesi_dyn_error_string.argtypes = [_I]
+    lib.mesi_dyn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_dyn_inputs(tensors, params: CacheParams) -> None:
+    device = tensors["addr"][0].device
+    for name, (x, shape) in tensors.items():
+        if x.device != device or x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {device}, "
+                             f"got {x.device}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, "
+                             f"got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if params.l1_ways > 32 or params.l2_ways > 32:
+        raise ValueError("the kernel spans ways with one warp: l1_ways and "
+                         "l2_ways must be <= 32")
+    core = tensors["core"][0]
+    if core.numel() and (int(core.min()) < 0
+                         or int(core.max()) >= params.cores):
+        raise ValueError(f"core ids must lie in [0, {params.cores})")
+    if int(tensors["sc"][0][:, 4].min()) < 1:
+        raise ValueError("every row's period must be >= 1")
+
+
+def _launch_dyn(carry, addr, is_write, core, tier, sc, ptl, *,
+                params: CacheParams, k_max: int, count_bound: int):
+    """Launch the kernel on copies of the carry; return the advanced
+    carry and the per-slot outputs."""
+    b, e, slot_len = addr.shape
+    n_p, n_t = ptl.shape[1], params.n_targets
+    ns = nstats(n_t)
+    l1p, l2p, stats, t, pmap, counts, mig_rd, mig_wr, eidx = carry
+    _check_dyn_inputs({
+        "l1p": (l1p, (b, params.cores, params.l1_sets, params.l1_ways, 3)),
+        "l2p": (l2p, (b, params.l2_sets, params.l2_ways, 5)),
+        "stats": (stats, (b, ns)), "t": (t, (b,)),
+        "page_map": (pmap, (b, n_p)), "counts": (counts, (b, n_p)),
+        "mig_rd": (mig_rd, (b, n_t)), "mig_wr": (mig_wr, (b, n_t)),
+        "eidx": (eidx, (b,)), "sc": (sc, (b, len(DYN_SCALARS))),
+        "page_target_lines": (ptl, (b, n_p, n_t)),
+        "addr": (addr, (b, e, slot_len)),
+        "is_write": (is_write, (b, e, slot_len)),
+        "core": (core, (b, e, slot_len)), "tier": (tier, (b, e, slot_len)),
+    }, params)
+    l1p, l2p, stats, pmap, counts, mig_rd, mig_wr = (
+        x.clone() for x in (l1p, l2p, stats, pmap, counts, mig_rd, mig_wr))
+    device = addr.device
+    slots = torch.empty((b, e, 4), dtype=torch.int32, device=device)
+    snaps = torch.empty((b, e, ns), dtype=torch.int32, device=device)
+    meas = torch.empty((b, e), dtype=torch.int32, device=device)
+    lib = _dyn_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.mesi_dyn_segment(
+        addr.data_ptr(), is_write.data_ptr(), core.data_ptr(),
+        tier.data_ptr(), sc.data_ptr(), ptl.data_ptr(), l1p.data_ptr(),
+        l2p.data_ptr(), stats.data_ptr(), pmap.data_ptr(),
+        counts.data_ptr(), mig_rd.data_ptr(), mig_wr.data_ptr(),
+        slots.data_ptr(), snaps.data_ptr(), meas.data_ptr(),
+        b, e, slot_len, n_p, k_max, count_bound, params.cores,
+        params.l1_sets, params.l1_ways, params.l2_sets, params.l2_ways,
+        n_t, device.index if device.index is not None else
+        torch.cuda.current_device(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mesi_dyn_segment kernel failed: CUDA error {rc} "
+                           f"({lib.mesi_dyn_error_string(rc).decode()})")
+    LAUNCHES["mesi_dyn_segment"] += 1
+    carry = (l1p, l2p, stats, t + e * slot_len, pmap, counts, mig_rd,
+             mig_wr, eidx + e)
+    return carry, slots, snaps, meas
+
+
+def mesi_dyn_segment(carry, addr, is_write, core, tier, dyn_flag, n_pages,
+                     budget, threshold, period, dram_cap, ssd_tid, cxl_cap,
+                     page_target_lines, s_warm, s_meas, s_per, *,
+                     params: CacheParams, k_max: int, count_bound: int,
+                     backend: Optional[str] = None):
+    """Advance the batched epoch carry over a (B, E, slot_len) segment.
+
+    Args:
+      carry: the 9-tuple ``(l1p, l2p, stats, t, page_map, counts, mig_rd,
+        mig_wr, eidx)`` of :func:`repro_torch.core.tiering_dyn.
+        init_dyn_carry`, int32 on the trace's device.
+      addr/is_write/core/tier: (B, E, slot_len) integer tensors;
+        :data:`SENTINEL` addresses mark padding.
+      dyn_flag ... cxl_cap, s_warm, s_meas, s_per: (B,) per-row scalars in
+        :func:`repro_torch.core.tiering_dyn.run_dynamic_segment`'s order.
+      page_target_lines: (B, P, T) int32.
+      params: cache geometry (``T == params.n_targets``).
+      k_max: top-k width, clamped to P.
+      count_bound: the coldness-key bound from
+        :func:`repro_torch.core.tiering_dyn.prep_dynamic_inputs`.
+      backend: ``None`` (follow the device), ``"reference"`` or ``"cuda"``.
+
+    Returns ``(carry, slots (B, E, 4), snaps (B, E, nstats), meas (B, E))``:
+    new tensors, the input carry unchanged.  The clock advances by
+    ``E * slot_len`` and the slot index by E.
+    """
+    if addr.ndim != 3:
+        raise ValueError("mesi_dyn_segment expects a (B, E, slot_len) batch")
+    backend = resolve_backend(backend, addr.device)
+    addr, is_write, core, tier = (x.to(torch.int32).contiguous()
+                                  for x in (addr, is_write, core, tier))
+    scalars = [x.to(torch.int32) for x in (
+        dyn_flag, n_pages, budget, threshold, period, dram_cap, ssd_tid,
+        cxl_cap, s_warm, s_meas, s_per)]
+    ptl = page_target_lines.to(torch.int32).contiguous()
+    k_max = min(int(k_max), ptl.shape[1])
+    if backend == "reference":
+        return mesi_dyn_segment_ref(
+            carry, addr, is_write, core, tier, *scalars[:8], ptl,
+            *scalars[8:], params=params, k_max=k_max,
+            count_bound=count_bound)
+    sc = torch.stack(scalars + [carry[3].to(torch.int32),
+                                carry[8].to(torch.int32)], dim=1)
+    return _launch_dyn(carry, addr, is_write, core, tier, sc.contiguous(),
+                       ptl, params=params, k_max=k_max,
+                       count_bound=count_bound)

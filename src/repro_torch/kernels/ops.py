@@ -6,6 +6,6 @@ the kernel, a CPU tensor runs the plain version; ``backend="reference"``
 forces the plain version) and counts its launches in :data:`LAUNCHES`.
 """
 from repro_torch.kernels.cache_sim import (  # noqa: F401
-    LAUNCHES, mesi_cache_sim, reset_launches,
+    LAUNCHES, mesi_cache_sim, mesi_dyn_segment, reset_launches,
 )
 from repro_torch.kernels.cache_sim import mesi_segment as mesi_run_segment  # noqa: F401

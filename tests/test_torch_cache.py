@@ -81,7 +81,9 @@ def test_mesi_cache_sim_plain_counts_calls():
     trace = mixed_batch(3, 200, 2, 2)
     tkernels.reset_launches()
     got = tkernels.mesi_cache_sim(*as_torch(*trace), params=tp)
-    assert tkernels.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 1}
+    assert tkernels.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 1,
+                                 "mesi_dyn_segment": 0,
+                                 "mesi_dyn_segment_ref": 0}
     assert_same(got, jengine.run_traces(jp, *trace))
 
 

@@ -1,11 +1,14 @@
-"""The CUDA MESI kernel on the card: against its plain version, bitwise.
+"""The CUDA MESI kernels on the card: against their plain versions, bitwise.
 
-Every test here needs a CUDA device (the kernel has no CPU mode) and skips
-without one.  The file imports no JAX, so it runs on a machine that has
+Every test here needs a CUDA device (the kernels have no CPU mode) and
+skips without one.  The file imports no JAX, so it runs on a machine that has
 only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
 """
+import json
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -13,9 +16,12 @@ import torch
 from repro_torch.core import cache as tcache
 from repro_torch.core import engine as tengine
 from repro_torch.core import numa as tnuma
+from repro_torch.core import route as troute
+from repro_torch.core import tiering_dyn as tdyn
 from repro_torch.core.machine import CPUModel
-from repro_torch.core.timing import TimingConfig
+from repro_torch.core.timing import LatencyDistribution, TimingConfig
 from repro_torch.kernels import cache_sim as tkernels
+from repro_torch.workloads import HotCold
 
 pytestmark = pytest.mark.cuda
 
@@ -56,7 +62,9 @@ def test_kernel_matches_plain_version(card, cores, n_targets):
     tkernels.reset_launches()
     kern = tkernels.mesi_cache_sim(*trace, params=p)
     plain = tkernels.mesi_cache_sim(*trace, params=p, backend="reference")
-    assert tkernels.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 1}
+    assert tkernels.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 1,
+                                 "mesi_dyn_segment": 0,
+                                 "mesi_dyn_segment_ref": 0}
     assert_same(kern, plain)
 
 
@@ -96,5 +104,80 @@ def test_main_path_runs_on_the_kernel(card):
         cpus=(CPUModel(kind="inorder"), CPUModel(kind="o3")))
     tkernels.reset_launches()
     on_card = tengine.run_sweep(spec, p, TimingConfig())
-    assert tkernels.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 0}
+    assert tkernels.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 0,
+                                 "mesi_dyn_segment": 0,
+                                 "mesi_dyn_segment_ref": 0}
     assert on_card == tengine.run_sweep(spec, p, TimingConfig(), device="cpu")
+
+
+def dyn_batch(seed, n_p, device, n=512, cores=2, n_targets=3):
+    """A two-tier row under DRAM pressure, a sampled row whose budget
+    exceeds the page count, a three-tier row (with two targets, another
+    two-tier row) and a static row with a sentinel tail (the CPU tests'
+    batch, built here without JAX)."""
+    rng = np.random.default_rng(seed)
+    b, unbounded = 4, tdyn.UNBOUNDED_PAGES
+    addr = np.where(rng.random((b, n)) < 0.6,
+                    rng.integers(0, 64 * min(n_p, 4), (b, n)),
+                    rng.integers(0, 64 * n_p, (b, n))).astype(np.int32)
+    addr[3, n - 40:] = tcache.SENTINEL
+    trace = [torch.from_numpy(x).to(device) for x in (
+        addr, rng.integers(0, 2, (b, n)).astype(np.int32),
+        rng.integers(0, cores, (b, n)).astype(np.int32),
+        rng.integers(1, n_targets, (b, n)).astype(np.int32))]
+    pmap0 = rng.integers(0, 2, (b, n_p)).astype(np.int32)
+    ssd = n_targets > 2
+    if ssd:
+        pmap0[2, :2] = 2
+    kw = dict(slot_len=32, k_max=8, page_map0=torch.from_numpy(pmap0),
+              dyn_flag=[1, 1, 1, 0], n_pages=[n_p, n_p - 1, n_p, n_p],
+              budget=[2, n_p + 3, 3, 0], threshold=[1, 2, 1, 1],
+              period=[1, 2, 1, 1], dram_cap=[3, 2, unbounded, unbounded],
+              page_target_lines=torch.from_numpy(rng.integers(
+                  0, 40, (b, n_p, n_targets)).astype(np.int32)),
+              ssd_tid=[0, 0, n_targets - 1 if ssd else 0, 0],
+              cxl_cap=[unbounded, unbounded, 2 if ssd else unbounded,
+                       unbounded],
+              s_warm=[0, 1, 0, 0], s_meas=[0, 1, 0, 0], s_per=[0, 3, 0, 0])
+    return trace, kw
+
+
+# 12 pages keep the page map and counts in shared memory; 30,000 (240 KB)
+# push them to global memory.  Two targets is the layout of every sweep
+# without a topology axis (12 stats, a (B, P, 2) page table).
+@pytest.mark.parametrize("n_p,n_targets", [(12, 3), (30_000, 3), (12, 2)])
+def test_dyn_kernel_matches_plain_version(card, n_p, n_targets):
+    p = tcache.CacheParams(**SMALL, cores=2, n_targets=n_targets)
+    trace, kw = dyn_batch(n_p, n_p, card, n_targets=n_targets)
+    tkernels.reset_launches()
+    kern = tdyn.run_dynamic(p, *trace, **kw)
+    plain = tdyn.run_dynamic(p, *trace, backend="reference", **kw)
+    assert tkernels.LAUNCHES["mesi_dyn_segment"] == 1
+    assert tkernels.LAUNCHES["mesi_dyn_segment_ref"] == 1
+    for field in kern._fields:
+        assert torch.equal(getattr(kern, field), getattr(plain, field)), field
+    assert kern.slots[:3, :, 2:].sum() > 0
+    # the kernel in segments of 5 slots, threading the carry
+    segmented = tdyn.run_dynamic(p, *trace, segment_slots=5, **kw)
+    for field in kern._fields:
+        assert torch.equal(getattr(segmented, field), getattr(kern, field))
+
+
+def test_fidelity_golden_on_the_card(card):
+    golden = pathlib.Path(__file__).resolve().parent / "golden"
+    spec = tengine.SweepSpec(
+        footprint_factors=(8,), policies=(tnuma.ZNuma(1.0),),
+        cpus=(CPUModel(kind="o3", mlp=8),),
+        workloads=(HotCold(hot_page_frac=0.25),),
+        topologies=(troute.direct(1, ssd_gib=16),),
+        tiering=(tdyn.DynamicTiering(epoch_len=2048, budget=16, threshold=8,
+                                     cxl_capacity_pages=8),),
+        distributions=(None, LatencyDistribution(n_samples=128, seed=0)))
+    tkernels.reset_launches()
+    rows = tengine.run_sweep(spec, tcache.CacheParams(
+        l1_bytes=8 * 1024, l1_ways=2, l2_bytes=16 * 1024, l2_ways=8),
+        TimingConfig())
+    assert tkernels.LAUNCHES["mesi_dyn_segment"] == 1
+    assert tkernels.LAUNCHES["mesi_dyn_segment_ref"] == 0
+    assert json.loads(json.dumps(rows)) == json.loads(
+        (golden / "fidelity.json").read_text())

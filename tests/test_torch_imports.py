@@ -10,11 +10,12 @@ import pytest
 import torch
 
 from repro_torch.core import engine as tengine
-from repro_torch.core import numa as tnuma
 from repro_torch.core import simulator as tsim
 from repro_torch.core.cache import CacheParams, init_batch_carry
+from repro_torch.core.tiering_dyn import DynamicTiering
 from repro_torch.core.timing import TimingConfig
 from repro_torch.kernels import cache_sim as tkernels
+from repro_torch import workloads as tworkloads
 from repro_torch.workloads import Workload
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -60,6 +61,10 @@ def test_default_device_is_the_card():
         tsim.CXLRAMSim()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.run_sweep(tengine.SweepSpec(), CacheParams(), TimingConfig())
+    # the dynamic path too: no fallback to the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine.run_sweep(tengine.SweepSpec(tiering=(DynamicTiering(),)),
+                          CacheParams(), TimingConfig())
 
 
 def test_cuda_backend_on_cpu_tensors_raises():
@@ -71,20 +76,26 @@ def test_cuda_backend_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernels.mesi_segment(init_batch_carry(p, 1), addr, addr, addr, addr,
                               params=p, backend="cuda")
-    with pytest.raises(ValueError, match="unknown backend"):
+    # the JAX package's kernel backend name selects the CUDA kernel
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tengine.run_traces(p, addr, backend="pallas")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tengine.run_traces(p, addr, backend="tpu")
 
 
 @dataclasses.dataclass(frozen=True)
-class _Chase(Workload):
-    name: str = "pointer_chase"
+class _KVDecode(Workload):
+    name: str = "kv_decode"
+
+
+@dataclasses.dataclass(frozen=True)
+class _MoEStream(Workload):
+    name: str = "moe_stream"
 
 
 UNPORTED = {
-    "topologies": dict(topologies=("direct2",)),
-    "workloads": dict(workloads=(_Chase(),)),
-    "tiering": dict(tiering=(object(),)),
-    "sampling": dict(sampling=(object(),)),
+    "kv_decode": dict(workloads=(_KVDecode(),)),
+    "moe_stream": dict(workloads=(_MoEStream(),)),
     "mesh": dict(mesh=2),
     "stream_chunk": dict(stream_chunk=512),
     "resume": dict(resume="ckpt"),
@@ -100,11 +111,28 @@ def test_unported_knobs_raise(knob):
         sim.sweep((2,), **UNPORTED[knob])
 
 
-def test_route_and_machine_route_raise():
-    sim = tsim.CXLRAMSim(tsim.SimConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        sim.route()
-    addr = torch.arange(16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        sim.machine.run_trace(addr, addr, tnuma.ZNuma(1.0), 1,
-                              route=object())
+def test_unported_workloads_raise_by_name():
+    for name in ("kv_decode", "moe_stream"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            tworkloads.get(name)
+    for attr in ("KVDecode", "MoEStream", "pollution_probe"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            getattr(tworkloads, attr)
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include <climits>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = build._target("k")
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    assert build._target("k") != before
+    assert set(build.LIBRARIES) == {"mesi", "mesi_dyn"}
+    real = build.HERE / "csrc"
+    for name in build.LIBRARIES:
+        monkeypatch.setattr(build, "CSRC", real)
+        assert [p.name for p in build.sources(name)] == [
+            f"{name}.cu", "mesi_access.cuh"]
