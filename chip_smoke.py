@@ -6,10 +6,10 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 (sm_90a) and the CUDA toolkit (`nvcc`).  Phases, each of which passes or
 makes the script exit non-zero:
 
-1. print the card's name and power limit, and build both kernel libraries
-   from ``src/repro_torch/kernels/csrc`` (one `nvcc` each, started
+1. print the card's name and power limit, and build the three kernel
+   libraries from ``src/repro_torch/kernels/csrc`` (one `nvcc` each, started
    together; timed, with the ptxas report);
-2. hold each kernel against its plain PyTorch version on the card,
+2. hold each MESI kernel against its plain PyTorch version on the card,
    bitwise.  The MESI kernel (K1/K2, ``mesi.cu``): random small-geometry
    batches (1, 2 and 4 cores, 2 and 3 targets, sentinel tails) resident
    and in segments that alternate between kernel and plain version; a
@@ -25,21 +25,33 @@ makes the script exit non-zero:
    global memory; a Table-I prefix, 8,192 accesses of HotCold at 8 x L2
    with 512-access epochs and a budget of 16; and the launches that sweeps
    A, B and C make, as the engine derives them, cut to their first 8,192
-   accesses;
+   accesses (sweep A's KVDecode rows included);
 3. run the main paths with the launch counts reset just before each and
    read just after: PR 11's ``stream_suite((2, 4, 6, 8))`` plus a
    three-policy ``sweep((4,))`` on the MESI kernel, then the dynamic path
-   at the Table-I host — sweep A (HotCold and GUPS under static and two
-   dynamic tierers), sweep B (a 10.5 M-access GUPS trace exact and SMARTS
-   sampled) and sweep C (HotCold on a DRAM -> CXL -> CXL-SSD hierarchy,
-   point timing and a latency distribution) — on the epoch kernel, with
-   no plain-version call; check row invariants, and reproduce
+   at the Table-I host — sweep A (HotCold, GUPS and KVDecode under static
+   and two dynamic tierers), sweep B (a 10.5 M-access GUPS trace exact and
+   SMARTS sampled) and sweep C (HotCold on a DRAM -> CXL -> CXL-SSD
+   hierarchy, point timing and a latency distribution) — on the epoch
+   kernel, with no plain-version call; check row invariants, KVDecode's
+   device trace and row against its host trace, and reproduce
    ``tests/golden/{engine,topology,workloads,sampling,fidelity}.json``
-   exactly on the card;
+   exactly on the card; then slice 3's path, ``launch.serve.run`` at the
+   full width of h2o-danube-3-4b (3.96 B parameters in bf16, random from
+   a seed) with serve.py's defaults (8 requests, prefill 48, decode 16,
+   16-token pages, 24 HBM pages): one paged-attention (K4) launch per
+   decode step, finite logits, and the same loop at smoke size in float32
+   equal on the card and on the CPU;
+   2b. hold K4 (``paged_attention.cu``) against its plain version: head
+   dims 16/64/120/128, 1 and 4 query heads per kv head, f32 and bf16, with
+   empty contexts, partial last pages and out-of-range padding in the
+   block tables, and the serve loop's own last step (rtol = atol = 3e-5
+   in f32, 2e-2 in bf16);
 4. time each kernel with CUDA events at the main paths' shapes (after a
-   warm-up), the plain versions on their Table-I parity batches, compute
-   the bytes bounds, and profile the main paths once to split their wall
-   time into device kernels and the rest;
+   warm-up), the plain versions on their Table-I parity batches, K4 at the
+   serve loop's shapes and at a 4096-token decode beside SDPA on the
+   gathered K/V, compute the bounds, and profile the main paths once to
+   split their wall time into device kernels and the rest;
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -55,6 +67,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 PREFIX = 16_384                    # K1's Table-I parity prefix
 DYN_PREFIX = 8_192                 # K3's Table-I parity prefix
 GOLDEN_GEOMETRY = dict(l1_bytes=8 * 1024, l1_ways=2, l2_bytes=16 * 1024,
@@ -451,9 +464,10 @@ def dynamic_sweeps():
     from repro_torch.core.sampling import SamplingSpec
     from repro_torch.core.tiering_dyn import DynamicTiering
     from repro_torch.core.timing import LatencyDistribution
-    from repro_torch.workloads import Gups, HotCold
+    from repro_torch.workloads import Gups, HotCold, KVDecode
     return {
-        "A": dict(workloads=(HotCold(hot_page_frac=0.25), Gups()),
+        "A": dict(workloads=(HotCold(hot_page_frac=0.25), Gups(),
+                             KVDecode()),
                   tiering=(None, DynamicTiering(2048, 16, 8),
                            DynamicTiering(4096, 8, 8))),
         "B": dict(workloads=(Gups(updates_per_line=20),),
@@ -599,6 +613,179 @@ def goldens_on_the_card(dev):
               f"card through {kernel}")
 
 
+def kv_decode_device_equals_host(sim, rows):
+    """KVDecode's device trace equals its host trace bitwise on the card,
+    and its static sweep-A row equals the row built from the host trace
+    (the check `benchmarks/run.py` makes for the JAX package)."""
+    import torch
+    from repro_torch.core import cache as cache_mod
+    from repro_torch.core import engine
+    from repro_torch.workloads import KVDecode
+    wl, dev = KVDecode(), sim.device
+    fp = 8 * sim.config.cache.l2_bytes
+    dt, ht = wl.device_trace(fp, dev), wl.host_trace(fp)
+    same = dt.n_pages == ht.n_pages and all(
+        torch.equal(getattr(dt, f), torch.from_numpy(getattr(ht, f)).to(dev))
+        for f in ("addr", "is_write", "tier"))
+    up = [torch.from_numpy(x).to(dev)[None] for x in (ht.addr, ht.is_write,
+                                                       ht.tier)]
+    stats, _ = engine.run_traces(sim.config.cache, up[0], up[1], core=None,
+                                 tier=up[2])
+    want = cache_mod.stats_dict(stats[0].cpu())
+    got = next(r["stats"] for r in rows if r["workload"] == wl.name
+               and r["tiering"] == "static")
+    print(f"[sweep A] kv_decode: {dt.n_accesses} accesses over "
+          f"{dt.n_pages} pages, tier intent {torch.bincount(dt.tier).tolist()}"
+          f"; device trace == host trace: {same}; static row == row from "
+          f"the host trace: {got == want}")
+    if not (same and got == want):
+        raise AssertionError("kv_decode device and host traces or rows "
+                             "differ on the card")
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def serve_main_path(dev, card):
+    """Slice 3's main path: the serve loop at the full width of
+    h2o-danube-3-4b with serve.py's defaults, on K4."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    cfg = get_config("h2o-danube-3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launches()
+    r = serve.run(cfg, device=dev, params=params)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_req, n_dec = 8, 16
+    print(f"[serve] {cfg.arch}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads "
+          f"of {cfg.head_dim}, window {cfg.window}, {r['n_params']:,} "
+          f"parameters in {cfg.dtype} ({r['n_params'] * 2 / 1e9:.2f} GB), "
+          f"random from seed 0 in {init_s:.2f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"[serve] {n_req} requests, prefill 48, decode {n_dec}, page 16, "
+          f"24 HBM pages: prefill {r['prefill_s']:.3f} s "
+          f"({n_req * 48 / r['prefill_s']:.1f} prompt tokens/s), decode "
+          f"{r['decode_s']:.3f} s ({n_req * n_dec / r['decode_s']:.2f} "
+          f"tokens/s, {1e3 * r['decode_s'] / (n_req * n_dec):.2f} ms per "
+          f"decode_step) ({card})")
+    print(f"[serve] launch counts {launches}; "
+          f"kv {r['kv_stats']}; tiers {r['tier_histogram']}")
+    print(f"[serve] continuation of request 0: {r['tokens'][0]}")
+    checks = {
+        "one K4 launch per decode step, no plain version":
+            launches["paged_attention"] == n_dec
+            and launches["paged_attention_ref"] == 0,
+        "finite logits": r["logits_finite"],
+        "finite K4 outputs of shape (B, H, D)": all(
+            o.shape == (n_req, cfg.n_heads, cfg.head_dim)
+            and bool(torch.isfinite(o).all()) for o in r["attn_out"]),
+        "every page accounted": sum(r["tier_histogram"].values())
+            == n_req * 6 + 8,
+        "pages spilled to CXL": r["kv_stats"]["demotions"] > 0,
+        "every request decoded": all(len(t) == n_dec
+                                     for t in r["tokens"].values()),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"the serve path failed {bad}")
+
+    # the same loop at smoke size in float32, on the card and on the CPU
+    # from the same weights: equal KV accounting, K4 outputs within 1e-4
+    small = dataclasses.replace(get_smoke("h2o-danube-3-4b"),
+                                dtype="float32")
+    p_cpu = tf.init_params(small, torch.Generator().manual_seed(1), "cpu")
+    kw = dict(requests=3, prefill=20, decode=3, page_size=4, hbm_pages=5)
+    on_card = serve.run(small, device=dev, params=tree_to(p_cpu, dev), **kw)
+    on_cpu = serve.run(small, device="cpu", params=p_cpu, **kw)
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(on_card["attn_out"], on_cpu["attn_out"]))
+    same = (on_card["kv_stats"] == on_cpu["kv_stats"]
+            and on_card["tier_histogram"] == on_cpu["tier_histogram"])
+    print(f"[serve] smoke-size float32 loop, card against CPU: KV stats "
+          f"equal {same}; max|K4 out card - CPU| = {err:.3g}")
+    if not same or err > 1e-4:
+        raise AssertionError("the serve loop disagrees between card and CPU")
+    return dict(r=r, cfg=cfg, params=params, launches=launches, peak=peak)
+
+
+def paged_case(gen, b, h, kh, d, page, nblk, dtype, dev):
+    """K4 inputs: sequence 0 empty, 1 ending one token into its second
+    page, the rest random; entries past the live blocks out of range."""
+    import torch
+    n_pages = b * nblk
+    q = torch.randn((b, h, d), generator=gen)
+    kp = torch.randn((n_pages, page, kh, d), generator=gen)
+    vp = torch.randn((n_pages, page, kh, d), generator=gen)
+    bt = torch.randperm(n_pages, generator=gen).to(torch.int32).reshape(
+        b, nblk)
+    cl = torch.randint(1, nblk * page + 1, (b,), generator=gen,
+                       dtype=torch.int32)
+    cl[0], cl[1] = 0, page + 1
+    live = (cl + page - 1) // page
+    bt[torch.arange(nblk)[None, :] >= live[:, None]] = n_pages + 7
+    return [x.to(dev, dtype) for x in (q, kp, vp)] + [bt.to(dev),
+                                                      cl.to(dev)]
+
+
+def k4_parity(dev, gen, serve_inputs, kv):
+    """K4 against its plain version on the card."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    tol = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+
+    def check(label, args, dtype):
+        kern = pa.paged_attention(*args)
+        plain = pa.paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        diff = (kern.float() - plain.float()).abs()
+        err = float(diff.max())
+        errs[dtype] = max(errs[dtype], err)
+        ok = (not bool((diff > tol[dtype] * (1 + plain.float().abs())).any())
+              and kern.dtype == args[0].dtype
+              and bool(torch.isfinite(kern).all()))
+        print(f"[parity K4] {label}: max|kernel - plain| = {err:.3g} "
+              f"(tolerance {tol[dtype]:g}, rtol = atol)")
+        if not ok:
+            raise AssertionError(f"K4 disagrees with its plain version: "
+                                 f"{label}")
+        return kern
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 64, 120, 128):
+            for groups in (1, 4):
+                args = paged_case(gen, 5, 2 * groups, 2, d, 16, 6, dtype,
+                                  dev)
+                kern = check(f"{str(dtype)[6:]} D={d} groups={groups} B=5 "
+                             f"page 16 (empty, partial, padded rows)", args,
+                             dtype)
+                if not bool((kern[0] == 0).all()):
+                    raise AssertionError("K4: an empty context is not 0")
+    q, kp, vp, bt, cl = serve_inputs
+    check(f"the serve loop's last step: q {tuple(q.shape)}, f32 pools "
+          f"{tuple(kp.shape)}, block table {tuple(bt.shape)}, contexts "
+          f"{cl.tolist()}", serve_inputs, torch.float32)
+    check("the same step on the bf16 pools themselves",
+          (q, kv.k_pool[0], kv.v_pool[0], bt, cl), torch.float32)
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: times
 # ---------------------------------------------------------------------------
@@ -677,8 +864,78 @@ def k3_times(sim, dev, card):
     return out
 
 
-def profile(fn, label):
-    """Wall time of `fn()` split into device kernels and the rest."""
+def k4_times(dev, gen, serve_inputs, card):
+    """K4 at the serve loop's shapes and at a 4096-token decode: kernel,
+    the wrapper as the serve loop calls it (its block-table check syncs
+    with the host), bound, plain version and SDPA on the already gathered
+    K/V."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    b, h, kh, d, page, nblk = 8, 32, 8, 120, 16, 256
+    long_ctx = [torch.randn((b, h, d), generator=gen),
+                torch.randn((b * nblk, page, kh, d), generator=gen),
+                torch.randn((b * nblk, page, kh, d), generator=gen),
+                torch.randperm(b * nblk, generator=gen).to(torch.int32)
+                .reshape(b, nblk),
+                torch.full((b,), nblk * page, dtype=torch.int32)]
+    long_ctx = [x.to(dev) for x in long_ctx]
+    out = {}
+    for name, args in (("serve", serve_inputs), ("ctx4096", long_ctx)):
+        q, kp, vp, bt, cl = args
+        bb, hh, dd = q.shape
+        pg, kvh, nb = kp.shape[1], kp.shape[2], bt.shape[1]
+        ms = cuda_ms(lambda: pa._launch(q, kp, vp, bt, cl), warmup=3,
+                     reps=50)
+        wrapper_ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, cl),
+                             warmup=3, reps=50)
+        plain_ms = cuda_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt,
+                                                          cl), reps=5)
+        # the yardstick: one PyTorch call on K/V gathered beforehand
+        live = pa.live_mask(bt, cl, pg)
+        idx = torch.where(live, bt.long(), 0)
+        kd = kp[idx].reshape(bb, nb * pg, kvh, dd).transpose(1, 2) \
+            .contiguous()
+        vd = vp[idx].reshape(bb, nb * pg, kvh, dd).transpose(1, 2) \
+            .contiguous()
+        pos = torch.arange(nb * pg, device=dev)
+        mask = None if bool((cl == nb * pg).all()) else \
+            (pos[None, :] < cl[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)
+        lib_ms = cuda_ms(sdpa, warmup=3, reps=50)
+        lib_err = float((sdpa()[:, :, 0] - pa._launch(
+            q, kp, vp, bt, cl)).abs().max())
+        n_bytes = pa.bound_bytes(q, kp, bt, cl)
+        flops = 4 * int(cl.clamp(0, nb * pg).sum()) * hh * dd
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        out[name] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms,
+                         bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms
+                         else "operations",
+                         shape=dict(B=bb, H=hh, K=kvh, D=dd, page=pg,
+                                    nblk=nb, ctx=cl.tolist(),
+                                    pool=str(kp.dtype)[6:]))
+        print(f"[time K4] {name}: B={bb} H={hh} K={kvh} D={dd} page {pg} "
+              f"nblk {nb}, contexts {sorted(set(cl.tolist()))}, "
+              f"{str(kp.dtype)[6:]} pool: kernel {ms:.4f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes} B at 3.35 TB/s "
+              f"= {bytes_ms:.4f} ms; {flops} f32 flops at 67 TFLOP/s = "
+              f"{ops_ms:.4f} ms), {n_bytes / ms / 1e6:.1f} GB/s; through "
+              f"the wrapper {wrapper_ms:.4f} ms; plain "
+              f"version {plain_ms:.4f} ms; SDPA on the gathered K/V "
+              f"{lib_ms:.4f} ms (max|SDPA - kernel| {lib_err:.3g}) ({card})")
+    return out
+
+
+def profile(fn, label, kernel=None, note="only B of the card's SMs are "
+            "busy meanwhile"):
+    """Wall time of `fn()` split into device kernels and the rest; with
+    `kernel`, that kernel's share of the device time too."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -691,15 +948,20 @@ def profile(fn, label):
                         for e in prof.key_averages()
                         if e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(us for us, _, _ in device_us) / 1e3
-    if busy_ms > 0:
-        print(f"[profile] {label}: wall {wall_ms:.1f} ms, device kernels "
-              f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall; "
-              f"only B of the card's SMs are busy meanwhile)")
-        for us, key, count in device_us[:6]:
-            print(f"[profile]   {us / 1e3:10.3f} ms  x{count:<4d} {key[:70]}")
-    else:
+    if busy_ms <= 0:
         print(f"[profile] {label}: wall {wall_ms:.1f} ms; the profiler saw "
               f"no device time (device busy share not measured)")
+        return
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms, device kernels "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall; "
+          f"{note})")
+    for us, key, count in device_us[:6]:
+        print(f"[profile]   {us / 1e3:10.3f} ms  x{count:<5d} {key[:70]}")
+    if kernel:
+        k_ms = sum(us for us, key, _ in device_us if kernel in key) / 1e3
+        print(f"[profile]   {kernel}: {k_ms:.3f} ms, "
+              f"{100 * k_ms / busy_ms:.2f}% of device time, "
+              f"{100 * k_ms / wall_ms:.3f}% of wall")
 
 
 def main() -> int:
@@ -748,7 +1010,17 @@ def main() -> int:
     print(f"[main] CXL latency breakdown {sim.latency_breakdown()}")
     static = static_main_path(sim)
     sweeps = run_dynamic_sweeps(sim)
+    kv_decode_device_equals_host(sim, sweeps["A"]["rows"])
     goldens_on_the_card(dev)
+    t0 = time.perf_counter()
+    serve = serve_main_path(dev, card)
+    print(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 2b. K4 against its plain version, on the card ------------------
+    t0 = time.perf_counter()
+    k4_err = k4_parity(dev, gen, serve["r"]["last_attn_inputs"],
+                       serve["r"]["kv"])
+    print(f"[parity K4] phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. times ---------------------------------------------------------
     table1 = cache_mod.CacheParams()
@@ -767,6 +1039,12 @@ def main() -> int:
             "PR 11 main path (static STREAM sweep)")
     profile(lambda: sim.sweep((8,), **dynamic_sweeps()["A"]),
             "sweep A (tiering)")
+    k4_t = k4_times(dev, gen, serve["r"]["last_attn_inputs"], card)
+    from repro_torch.launch import serve as serve_mod
+    profile(lambda: serve_mod.run(serve["cfg"], device=dev,
+                                  params=serve["params"], decode=4),
+            "serve loop at full width, 8 requests, prefill 48, decode 4",
+            kernel="paged_attention", note="the rest is host time")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     # ---- 5. results -------------------------------------------------------
@@ -798,7 +1076,22 @@ def main() -> int:
         "ms_on_plain_shape": k3["prefix_ms"],
         "bound_ms": k3_t["A"]["bound_ms"], "bound_by": "bytes",
         "bound_ms_by_sweep": {n: t["bound_ms"] for n, t in k3_t.items()},
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:93",
+        "launches": serve["launches"]["paged_attention"],
+        "max_abs_err": k4_err[torch.float32],
+        "max_abs_err_bf16": k4_err[torch.bfloat16],
+        "ms": k4_t["serve"]["ms"], "shape": k4_t["serve"]["shape"],
+        "wrapper_ms": k4_t["serve"]["wrapper_ms"],
+        "plain_ms": k4_t["serve"]["plain_ms"],
+        "bound_ms": k4_t["serve"]["bound_ms"],
+        "bound_by": k4_t["serve"]["bound_by"],
+        "library_ms": k4_t["serve"]["library_ms"],
+        "library": "scaled_dot_product_attention(enable_gqa=True) on the "
+                   "K/V gathered beforehand (gather not timed)",
+        "ctx4096": k4_t["ctx4096"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

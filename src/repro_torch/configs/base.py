@@ -1,0 +1,168 @@
+"""Model/architecture configuration schema.
+
+One :class:`ModelConfig` describes every assigned architecture (DESIGN.md §6)
+plus the reduced smoke variants.  `block_pattern` drives the transformer
+assembly: a cycle of block kinds over the depth, e.g. ``("attn",)`` for dense
+LMs, ``("rec", "rec", "attn")`` for recurrentgemma's 2:1 hybrid,
+``("rwkv",)`` for RWKV6, ``("moe",)`` / ``("dense*3", "moe*rest")`` via
+`first_dense` for the MoE archs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+BlockKind = str  # 'attn' | 'moe' | 'rwkv' | 'rec'
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 Multi-head Latent Attention."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 128
+    top_k: int = 8
+    n_shared: int = 0              # shared (always-on) experts
+    expert_d_ff: int = 1536
+    shared_d_ff: int = 0           # d_ff of the shared expert (0 => expert_d_ff)
+    first_dense: int = 0           # leading dense layers (deepseek: 3)
+    dense_d_ff: int = 0            # d_ff of those dense layers
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch: str
+    family: str                    # 'dense' | 'ssm' | 'vlm' | 'moe' | 'audio' | 'hybrid'
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 => d_model // n_heads
+
+    block_pattern: Tuple[BlockKind, ...] = ("attn",)
+
+    # attention flavour
+    attn_kind: str = "full"        # 'full' | 'swa' | 'mla'
+    window: Optional[int] = None   # SWA / local-attn window
+    rope: str = "rope"             # 'rope' | 'mrope' | 'none' (sinusoidal)
+    rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
+    qk_norm: bool = False
+
+    # mixture of experts
+    moe: Optional[MoEConfig] = None
+    # multi-head latent attention
+    mla: Optional[MLAConfig] = None
+
+    # rwkv6 / rg-lru
+    rwkv_head_dim: int = 64
+    rwkv_chunk: int = 0            # 0 = step scan; >0 = chunk-parallel WKV
+    lru_width: int = 0             # 0 => d_model
+    conv_width: int = 4
+
+    # embeddings / heads
+    n_codebooks: int = 1           # musicgen: 4
+    tie_embeddings: bool = False
+    vision_tokens: int = 0         # qwen2-vl stub frontend tokens
+    vision_dim: int = 0
+
+    act: str = "silu"
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    # distribution
+    fsdp: bool = False             # ZeRO-3 weight sharding over the data axis
+    attn_seq_shard: bool = False   # shard q-seq (not heads) over model axis
+    kv_chunk: int = 1024           # blockwise-attention KV chunk
+    strategy: str = "tp"           # 'tp' | 'dp' (pure DP + ZeRO-3)
+    remat_policy: str = "none"     # 'none' (full remat) | 'dots' (save dots)
+    tp_reduce_bf16: bool = False   # bf16 wire on TP-boundary all-reduces
+                                   # (lowering-only on CPU: smoke configs
+                                   # keep False, see configs.get_smoke)
+
+    # serving
+    sub_quadratic: bool = False    # eligible for long_500k
+    kv_tiering: bool = True        # CXL KV-cache tiering applicable
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.lru_width == 0:
+            object.__setattr__(self, "lru_width", self.d_model)
+
+    # ---- derived -----------------------------------------------------------
+    def layer_kinds(self) -> Tuple[BlockKind, ...]:
+        """Expand block_pattern over depth (+ first_dense override for MoE)."""
+        kinds = []
+        for i in range(self.n_layers):
+            k = self.block_pattern[i % len(self.block_pattern)]
+            if (k == "moe" and self.moe is not None
+                    and i < self.moe.first_dense):
+                k = "attn"
+            kinds.append(k)
+        return tuple(kinds)
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embedding + blocks + head)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        n_q = self.n_heads * hd
+        n_kv = self.n_kv_heads * hd
+        total = v * d * self.n_codebooks            # embed
+        if not self.tie_embeddings:
+            total += d * v * self.n_codebooks       # head(s)
+        for k in self.layer_kinds():
+            if k in ("attn", "moe"):
+                if self.attn_kind == "mla" and self.mla:
+                    m = self.mla
+                    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+                    total += (d * m.q_lora_rank
+                              + m.q_lora_rank * self.n_heads * qk
+                              + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                              + m.kv_lora_rank * self.n_heads *
+                              (m.qk_nope_head_dim + m.v_head_dim)
+                              + self.n_heads * m.v_head_dim * d)
+                else:
+                    total += d * (n_q + 2 * n_kv) + n_q * d
+            if k == "attn":
+                ff = (self.moe.dense_d_ff if self.moe and self.moe.dense_d_ff
+                      else f)
+                total += 3 * d * ff
+            elif k == "moe":
+                if not self.moe:
+                    raise ValueError(
+                        "block kind 'moe' requires a MoE config")
+                total += d * self.moe.n_experts     # router
+                total += self.moe.n_experts * 3 * d * self.moe.expert_d_ff
+                sh = self.moe.shared_d_ff or self.moe.expert_d_ff
+                total += self.moe.n_shared * 3 * d * sh
+            elif k == "rwkv":
+                # time-mix (r,k,v,w,g,o) + channel-mix (~3.5 d^2) + loras
+                total += 6 * d * d + 3.5 * d * d
+            elif k == "rec":
+                w = self.lru_width
+                total += 2 * d * w + w * d + self.conv_width * w + 3 * w
+                total += 3 * d * f
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k + shared only)."""
+        if self.moe is None:
+            return self.n_params()
+        d = self.d_model
+        m = self.moe
+        full = self.n_params()
+        n_moe_layers = sum(1 for k in self.layer_kinds() if k == "moe")
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * 3 * d * m.expert_d_ff
+        return int(full - inactive)

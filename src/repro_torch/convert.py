@@ -13,10 +13,16 @@ imports neither JAX nor `repro`; callers do the JAX side.
 A placement policy or a workload is identified by its class name, since
 ``asdict`` drops it: ``policy("ZNuma", {"cxl_fraction": 0.5})``,
 ``workload("HotCold", {"seed": 5, ...})``.
+
+Model parameters and decode caches arrive as the JAX trees turned into
+NumPy leaves (``jax.tree_util.tree_map(np.asarray, tree)``); bf16 leaves
+(NumPy's ``bfloat16`` extension type) are carried bit for bit.
+:func:`model_params` and :func:`dense_cache` unstack the period axis the
+JAX package stacks for ``lax.scan``.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -127,3 +133,62 @@ def carry_from_numpy(*leaves, device=None) -> Tuple[torch.Tensor, ...]:
 def carry_to_numpy(carry) -> Tuple[np.ndarray, ...]:
     """The carry as host int32 NumPy arrays (what JAX accepts back)."""
     return tuple(x.cpu().numpy().astype(np.int32) for x in carry)
+
+
+def _tensor(a, device=None) -> torch.Tensor:
+    """A NumPy array as a tensor of the same dtype, bf16 included."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return (torch.from_numpy(np.array(a, copy=True).view(np.int16))
+                .view(torch.bfloat16).to(device))
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _tree(node, device):
+    if isinstance(node, Mapping):
+        return {k: _tree(v, device) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree(v, device) for v in node]
+    return _tensor(node, device)
+
+
+def _unstack(node, i: int):
+    """Period `i` of a tree whose leaves carry a leading period axis."""
+    if isinstance(node, Mapping):
+        return {k: _unstack(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def _periods(seg) -> List[Dict]:
+    n = len(np.asarray(_first_leaf(seg)))
+    return [_unstack(seg, i) for i in range(n)]
+
+
+def _first_leaf(node):
+    while isinstance(node, Mapping):
+        node = next(iter(node.values()))
+    return node
+
+
+def model_params(cfg, tree: Mapping, device=None) -> Dict:
+    """The port's parameters from the JAX ``init_params`` tree.
+
+    Every leaf keeps its name and dtype; each segment's stacked period
+    axis becomes a list of per-period dicts
+    (``params["segments"][seg][period]["b0"]...``).  `cfg` is accepted for
+    the reference's signature and checks the depth.
+    """
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "segments"}
+    out["segments"] = [_tree(_periods(seg), device)
+                       for seg in tree["segments"]]
+    depth = sum(len(seg) * len(seg[0]) for seg in out["segments"])
+    if depth != cfg.n_layers:
+        raise ValueError(f"the tree holds {depth} blocks, {cfg.arch} has "
+                         f"{cfg.n_layers} layers")
+    return out
+
+
+def dense_cache(tree, device=None) -> List:
+    """The port's decode caches from the JAX cache list (one stacked tree
+    per segment): ``caches[seg][period]["b0"] = {"k", "v"}``."""
+    return [_tree(_periods(seg), device) for seg in tree]

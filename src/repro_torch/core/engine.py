@@ -38,10 +38,9 @@ all state/stat updates for them, so stats over a padded trace are bitwise
 equal to the unpadded run.  Padding is only ever appended at the end of a
 trace (logical time still advances across sentinels).
 
-Not ported yet (each raises ``NotImplementedError``): the ``kv_decode`` and
-``moe_stream`` workloads (ROADMAP queue 1, items 9 and 5), sharded or
-streamed execution (item 6), and checkpoint/resume with fault injection
-(item 8).
+Not ported yet (each raises ``NotImplementedError``): the ``moe_stream``
+workload (ROADMAP queue 1, item 5), sharded or streamed execution (item
+6), and checkpoint/resume with fault injection (item 8).
 """
 from __future__ import annotations
 
@@ -59,6 +58,7 @@ from repro_torch.core import route as route_mod
 from repro_torch.core import sampling as sampling_mod
 from repro_torch.core import tiering_dyn
 from repro_torch.core.cache import init_batch_carry  # noqa: F401  (engine API)
+from repro_torch.core.device import resolve_device  # noqa: F401  (engine API)
 from repro_torch.core.machine import CPUModel, RunResult, time_batch
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
 from repro_torch.kernels import ops
@@ -66,21 +66,6 @@ from repro_torch.kernels.cache_sim import pad_trace
 from repro_torch.workloads.base import Stream, Workload
 
 SENTINEL = cache_mod.SENTINEL   # padded trace entries: addr == SENTINEL
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``None`` means the CUDA card.
-
-    Raises when CUDA is asked for (explicitly or by default) and no CUDA
-    device is present; the caller must pass ``device="cpu"`` to run on
-    the CPU.
-    """
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "simulator on the CPU")
-    return dev
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:

@@ -222,3 +222,9 @@ SSD_CACHE_HIT_LATENCY_NS = 350.0     # internal DRAM cache hit (incl. link)
 SSD_CACHE_HIT_FRAC = 0.6             # default internal cache hit rate
 SSD_READ_GBPS = 6.0                  # sustained media read bandwidth
 SSD_WRITE_GBPS = 2.0                 # sustained media program bandwidth
+
+# The JAX package's planner defaults (memory/tiering.TierSpec): a TPU v5e
+# host.  Inputs of the capacity model, copied as they are; no measurement
+# of the port's card.
+TPU_V5E_HBM_BYTES = 16 * 2**30
+TPU_V5E_PCIE_GBPS = 32e9             # host<->chip staging path

@@ -14,6 +14,10 @@ or shared header is never served from a stale build.  An installed copy
 carries ``csrc/*.cu`` and ``csrc/*.cuh`` as package data and builds the same
 way, provided its directory is writable.  A missing `nvcc` or a failed compile
 raises; there is no fallback.  Nothing here runs at import time.
+
+:data:`LAUNCHES` is the one launch count of every kernel: each wrapper adds
+one to its kernel's key where it launches the kernel, and to
+``"<kernel>_ref"`` where it runs the plain version instead.
 """
 from __future__ import annotations
 
@@ -33,8 +37,16 @@ CSRC = HERE / "csrc"
 BUILD_DIR = HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIBRARIES = ("mesi", "mesi_dyn")
+LIBRARIES = ("mesi", "mesi_dyn", "paged_attention")
+KERNELS = ("mesi_segment", "mesi_dyn_segment", "paged_attention")
+LAUNCHES: Dict[str, int] = {k + s: 0 for k in KERNELS for s in ("", "_ref")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class KernelBuildError(RuntimeError):

@@ -28,15 +28,15 @@ per-access body (``csrc/mesi_access.cuh``) with ``csrc/mesi.cu``, and its
 plain version, :func:`mesi_dyn_segment_ref`, loops
 :func:`repro_torch.core.tiering_dyn._slot_step` over the slots.
 
-``LAUNCHES`` counts kernel launches (``"mesi_segment"``,
+The wrappers count kernel launches (``"mesi_segment"``,
 ``"mesi_dyn_segment"``) and plain-version calls (``"mesi_segment_ref"``,
-``"mesi_dyn_segment_ref"``) since :func:`reset_launches`.
+``"mesi_dyn_segment_ref"``) in :data:`repro_torch.kernels.build.LAUNCHES`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,18 +46,9 @@ from repro_torch.core.cache import (
     nstats, unpack_state,
 )
 from repro_torch.kernels import build
+from repro_torch.kernels.build import LAUNCHES
 
 BACKENDS = ("reference", "cuda")
-
-LAUNCHES: Dict[str, int] = {"mesi_segment": 0, "mesi_segment_ref": 0,
-                            "mesi_dyn_segment": 0,
-                            "mesi_dyn_segment_ref": 0}
-
-
-def reset_launches() -> None:
-    """Set every launch count to 0."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def resolve_backend(backend: Optional[str], device: torch.device) -> str:

@@ -1,0 +1,218 @@
+"""Paged-KV decode attention (K4): the CUDA wrapper and its plain version.
+
+The port of the Pallas kernel ``paged_attention`` of the JAX package
+(``src/repro/kernels/paged_attention.py:76``, its ``pallas_call`` at line
+93): decode attention for one new token per sequence against KV that lives
+in fixed-size pages of a global pool, addressed through a per-sequence
+block table — the layout of the tier-aware paged KV cache
+(:mod:`repro_torch.memory.kvcache`).
+
+Shapes: ``q`` (B, H, D); ``k_pages``/``v_pages`` (P, page, K, D);
+``block_table`` (B, nblk) int32; ``context_lens`` (B,) int32 -> (B, H, D)
+in ``q.dtype``.  GQA: ``H % K == 0``, query head h reads kv head
+``h // (H / K)``.  Positions ``>= context_lens[b]`` are masked; an empty
+context gives 0.  Logits are ``(q . k) * D**-0.5``, scaled after the
+product as the JAX oracle ``repro.kernels.ref.
+paged_attention`` does (the Pallas body scales ``q`` first).
+
+Block-table entries past the live ones (``j >= ceil(ctx / page)``) are
+padding and may hold any value: the kernel never reads them, and the plain
+version masks them to page 0 before it gathers, so the two agree on padded
+tables.  The wrapper checks the live entries against ``P`` and raises on an
+out-of-range one.
+
+:func:`paged_attention` dispatches on the device of ``q``: a CUDA tensor
+launches the hand-written kernel ``csrc/paged_attention.cu`` (built with
+`nvcc` at first use, see :mod:`repro_torch.kernels.build`) or raises; a
+CPU tensor runs :func:`paged_attention_ref`.  The kernel takes f32 and
+bf16 ``q`` and pools and accumulates in f32.
+
+Bound (the least time on the card): bytes.  Each live position's K and V
+rows of each kv head are read once (``sum_b ctx_b * K * 2 * D`` elements),
+``q`` read and the output written once, plus the live table entries and
+the lengths, over 3.35 TB/s; see :func:`bound_bytes`.  At the serve shapes
+(B = 8, H = 32, K = 8, D = 120, contexts ~64) that is well under a
+microsecond and the kernel is launch-bound; at a 4096-token context
+(B = 8, f32 pools) it is 252 MB, about 75 us.  Design: one block per
+(kv head, sequence), tiles of 32 positions, see the source note.
+
+The wrapper counts kernel launches (``"paged_attention"``) and
+plain-version calls (``"paged_attention_ref"``) in
+:data:`repro_torch.kernels.build.LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import LAUNCHES
+
+#: head_dim and query-heads-per-kv-head limits of the CUDA kernel
+MAX_HEAD_DIM = 256
+MAX_GROUPS = 16
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def n_live_blocks(context_lens: torch.Tensor, page: int, nblk: int
+                  ) -> torch.Tensor:
+    """Live block-table entries per sequence: ``ceil(ctx / page)``, clamped
+    to [0, nblk]."""
+    ctx = context_lens.to(torch.int64).clamp(min=0)
+    return ((ctx + page - 1) // page).clamp(max=nblk)
+
+
+def live_mask(block_table: torch.Tensor, context_lens: torch.Tensor,
+              page: int) -> torch.Tensor:
+    """(B, nblk) bool: which block-table entries are live."""
+    nblk = block_table.shape[1]
+    j = torch.arange(nblk, device=block_table.device)
+    return j[None, :] < n_live_blocks(context_lens, page, nblk)[:, None]
+
+
+def _check(q, k_pages, v_pages, block_table, context_lens) -> None:
+    if q.ndim != 3 or k_pages.ndim != 4:
+        raise ValueError(f"q must be (B, H, D) and the pools (P, page, K, D);"
+                         f" got {tuple(q.shape)} and {tuple(k_pages.shape)}")
+    b, h, d = q.shape
+    p_, page, kh, dk = k_pages.shape
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} and v_pages "
+                         f"{tuple(v_pages.shape)} differ")
+    if dk != d:
+        raise ValueError(f"head_dim of q ({d}) and the pools ({dk}) differ")
+    if h % kh != 0:
+        raise ValueError(f"q heads {h} must be a multiple of kv heads {kh}")
+    if block_table.ndim != 2 or block_table.shape[0] != b:
+        raise ValueError(f"block_table must be (B={b}, nblk), got "
+                         f"{tuple(block_table.shape)}")
+    if tuple(context_lens.shape) != (b,):
+        raise ValueError(f"context_lens must be (B={b},), got "
+                         f"{tuple(context_lens.shape)}")
+    # one host sync: a masked `any`, not a gather of the live ids
+    bad = (block_table < 0) | (block_table >= p_)
+    if bool((bad & live_mask(block_table, context_lens, page)).any()):
+        raise ValueError(f"a live block-table entry lies outside the pool's "
+                         f"{p_} pages")
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`paged_attention` (same contract).
+
+    The JAX oracle's arithmetic: gather every page of the block table
+    (padded entries masked to page 0 first), f32 logits scaled after the
+    product, a masked softmax with empty rows set to 0, f32 value sum.
+    """
+    LAUNCHES["paged_attention_ref"] += 1
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    nblk = block_table.shape[1]
+    groups = h // kh
+    bt = torch.where(live_mask(block_table, context_lens, page),
+                     block_table.to(torch.int64), 0)
+    k = k_pages[bt].reshape(b, nblk * page, kh, d)     # (B, S, K, D)
+    v = v_pages[bt].reshape(b, nblk * page, kh, d)
+    qf = q.reshape(b, kh, groups, d).to(torch.float32)
+    logits = torch.einsum("bkgd,bskd->bkgs", qf, k.to(torch.float32)) * d ** -0.5
+    pos = torch.arange(nblk * page, device=q.device)[None, None, None, :]
+    mask = pos < context_lens.to(q.device)[:, None, None, None]
+    logits = torch.where(mask, logits, -math.inf)
+    probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load("paged_attention")
+    lib.paged_attention.argtypes = ([_P] * 6 + [_I] * 6 + [ctypes.c_float]
+                                    + [_I] * 3 + [_P])
+    lib.paged_attention.restype = _I
+    lib.paged_attention_error_string.argtypes = [_I]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(q, k_pages, v_pages, block_table, context_lens) -> torch.Tensor:
+    """The kernel itself, without :func:`_check`'s validation."""
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    device = q.device
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_table", block_table),
+                    ("context_lens", context_lens)):
+        if x.device != device:
+            raise ValueError(f"{name} must lie on {device}, got {x.device}")
+    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{x.dtype}")
+    if k_pages.dtype != v_pages.dtype:
+        raise TypeError("k_pages and v_pages must share a dtype")
+    if d > MAX_HEAD_DIM or h // kh > MAX_GROUPS:
+        raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM} and "
+                         f"<= {MAX_GROUPS} query heads per kv head; got "
+                         f"{d} and {h // kh}")
+    q_c, k_c, v_c = (x.contiguous() for x in (q, k_pages, v_pages))
+    bt = block_table.to(torch.int32).contiguous()
+    cl = context_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q_c)
+    lib = _library()
+    rc = lib.paged_attention(
+        q_c.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), bt.data_ptr(),
+        cl.data_ptr(), out.data_ptr(), b, h, d, page, kh, bt.shape[1],
+        d ** -0.5, _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
+        device.index if device.index is not None
+        else torch.cuda.current_device(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel failed: CUDA error {rc} "
+                           f"({lib.paged_attention_error_string(rc).decode()})")
+    LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, block_table, context_lens
+                    ) -> torch.Tensor:
+    """Decode attention over a paged KV pool.
+
+    Shapes: q (B,H,D); k_pages/v_pages (P, page, K, D); block_table
+    (B, nblk) int32; context_lens (B,) int32 -> out (B,H,D) in q.dtype.
+    A CUDA ``q`` launches the kernel (or raises); a CPU ``q`` runs
+    :func:`paged_attention_ref`.
+    """
+    _check(q, k_pages, v_pages, block_table, context_lens)
+    if q.device.type == "cuda":
+        return _launch(q, k_pages, v_pages, block_table, context_lens)
+    if q.device.type != "cpu":
+        raise ValueError(f"paged_attention runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    return paged_attention_ref(q, k_pages, v_pages, block_table,
+                               context_lens)
+
+
+def bound_bytes(q, k_pages, block_table, context_lens) -> int:
+    """Bytes one call must move at least: q read, each live position's K and
+    V rows of every kv head read, the live table entries and the lengths
+    read, the output written — each once."""
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    nblk = block_table.shape[1]
+    ctx = context_lens.to(torch.int64).clamp(0, nblk * page)
+    kv_elems = int(ctx.sum()) * kh * 2 * d
+    live = int(n_live_blocks(context_lens, page, nblk).sum())
+    return (2 * q.numel() * q.element_size()
+            + kv_elems * k_pages.element_size() + 4 * (live + b))

@@ -1,0 +1,237 @@
+"""Attention: GQA with full or sliding-window masks (the ``attn`` block).
+
+The port of the GQA/SWA half of the JAX package's ``models/attention.py``.
+:func:`blockwise_attention` is the same online-softmax loop over KV chunks
+in plain PyTorch (the reference computes it outside any Pallas kernel, so
+no kernel replaces it), and :func:`decode_attention` the one-token softmax
+against a dense cache.  Multi-head latent attention (MLA) is not ported
+(ROADMAP queue 1, item 11).
+
+Caches: ``{k, v: (B, S, K, hd)}``, with S = window for SWA, rolled so slot
+``p mod window`` holds token p.  :func:`attention_decode` writes the new
+token into the cache tensors in place and returns the same dict — the
+reference's ``dynamic_update_slice`` returns a copy; the values agree.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import rope as rope_mod
+from repro_torch.models.layers import (dense_init, matmul, pdtype, rmsnorm,
+                                       rmsnorm_init)
+from repro_torch.models.sharding import BATCH, MODEL, shard
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (prefill), GQA-aware
+# ---------------------------------------------------------------------------
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention. q (B,Sq,N,hd); k,v (B,Skv,K,hd) -> like q.
+
+    Positions are end-aligned (query i sits at ``i + Skv - Sq``); a ragged
+    last chunk is zero-padded and masked.  Logits and the value sum
+    accumulate in f32 from products of the working type, as the
+    reference's ``preferred_element_type=f32`` einsums.
+    """
+    b, sq, n, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    g = n // kh
+    scale = hd ** -0.5
+    kv_chunk = min(kv_chunk, skv)
+    skv_pad = -(-skv // kv_chunk) * kv_chunk
+    if skv_pad != skv:                      # pad + mask the tail chunk
+        pad = (0, 0, 0, 0, 0, skv_pad - skv)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    qg = torch.movedim(q.reshape(b, sq, kh, g, hd), 1, 3)  # (B,K,G,Sq,hd)
+    qg = (qg.to(F32) * scale).to(q.dtype).to(F32)
+    dev = q.device
+    qpos = torch.arange(sq, dtype=torch.int32, device=dev) + (skv - sq)
+
+    n_chunks = skv_pad // kv_chunk
+    kc = k.reshape(b, n_chunks, kv_chunk, kh, hd)
+    vc = v.reshape(b, n_chunks, kv_chunk, kh, hd_v)
+    m = torch.full((b, kh, g, sq), NEG_INF, dtype=F32, device=dev)
+    l = torch.zeros((b, kh, g, sq), dtype=F32, device=dev)
+    acc = torch.zeros((b, kh, g, sq, hd_v), dtype=F32, device=dev)
+    for j in range(n_chunks):
+        kpos = j * kv_chunk + torch.arange(kv_chunk, dtype=torch.int32,
+                                           device=dev)
+        s = torch.einsum("bkgqd,btkd->bkgqt", qg, kc[:, j].to(F32))
+        mask = (kpos < skv)[None, :]                        # pad tail
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        upd = torch.einsum("bkgqt,btkd->bkgqd", p.to(q.dtype).to(F32),
+                           vc[:, j].to(F32))
+        acc = acc * alpha[..., None] + upd
+        m = m_new
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    out = (acc / safe_l[..., None]).to(q.dtype)             # (B,K,G,Sq,hd_v)
+    return torch.movedim(out, 3, 1).reshape(b, sq, n, hd_v)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, ctx_len) -> torch.Tensor:
+    """One-token attention against a dense cache.
+
+    q (B,N,hd); k/v_cache (B,S,K,hd); ctx_len an int, a 0-d or a (B,)
+    tensor of valid slots -> (B,N,hd).
+    """
+    b, n, hd = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    g = n // kh
+    scale = hd ** -0.5
+    qg = q.reshape(b, kh, g, hd).to(F32) * scale
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(F32))
+    pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    if isinstance(ctx_len, int):        # no host-to-device copy
+        valid = (pos < ctx_len)[None, :]
+    else:
+        valid = pos[None, :] < ctx_len.to(q.device).reshape(-1, 1)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.to(F32))
+    return out.reshape(b, n, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+def attn_init(gen: torch.Generator, cfg) -> Dict:
+    d, n, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = pdtype(cfg)
+    p = {
+        # fused QKV, as the reference
+        "wqkv": dense_init(gen, (d, (n + 2 * kh) * hd), dtype=dt),
+        "wo": dense_init(gen, (n * hd, d), dtype=dt),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = rmsnorm_init(hd, gen.device)
+        p["knorm"] = rmsnorm_init(hd, gen.device)
+    return p
+
+
+def _qkv(params: Dict, x: torch.Tensor, cfg):
+    b, s, _ = x.shape
+    n, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qkv = matmul(x, params["wqkv"])
+    q = qkv[..., :n * hd].reshape(b, s, n, hd)
+    k = qkv[..., n * hd:(n + kh) * hd].reshape(b, s, kh, hd)
+    v = qkv[..., (n + kh) * hd:].reshape(b, s, kh, hd)
+    return q, k, v
+
+
+def _apply_positional(x: torch.Tensor, positions, cfg) -> torch.Tensor:
+    if cfg.rope == "rope":
+        return rope_mod.apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return rope_mod.apply_mrope(x, positions, cfg.rope_theta,
+                                    cfg.mrope_sections)
+    return x  # 'none': sinusoidal added at the embedding
+
+
+def _reduce(x: torch.Tensor, cfg):
+    return x.dtype if cfg.tp_reduce_bf16 else None
+
+
+def _projected(params: Dict, x: torch.Tensor, cfg, positions, seq_shard):
+    q, k, v = _qkv(params, x, cfg)
+    if cfg.qk_norm:
+        q = rmsnorm(params["qnorm"], q, cfg.norm_eps)
+        k = rmsnorm(params["knorm"], k, cfg.norm_eps)
+    q = _apply_positional(q, positions, cfg)
+    k = _apply_positional(k, positions, cfg)
+    q = (shard(q, BATCH, MODEL, None, None) if seq_shard
+         else shard(q, BATCH, None, MODEL, None))
+    return q, k, v
+
+
+def attention(params: Dict, x: torch.Tensor, cfg, positions,
+              *, window: Optional[int] = None,
+              seq_shard: bool = False) -> torch.Tensor:
+    """Full/SWA attention over a whole sequence."""
+    b, s, _ = x.shape
+    q, k, v = _projected(params, x, cfg, positions, seq_shard)
+    win = window if window is not None else cfg.window
+    o = blockwise_attention(q, k, v, causal=True, window=win)
+    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return shard(matmul(o, params["wo"], reduce_dtype=_reduce(x, cfg)),
+                 BATCH, None, None)
+
+
+def attention_prefill(params: Dict, x: torch.Tensor, cfg, positions,
+                      *, window: Optional[int] = None,
+                      seq_shard: bool = False
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """Like :func:`attention` but also returns the decode cache.
+
+    For SWA the cache holds the last `window` tokens, rolled so slot
+    (p mod window) carries token p — the invariant :func:`attention_decode`
+    maintains."""
+    b, s, _ = x.shape
+    q, k, v = _projected(params, x, cfg, positions, seq_shard)
+    win = window if window is not None else cfg.window
+    o = blockwise_attention(q, k, v, causal=True, window=win,
+                            kv_chunk=cfg.kv_chunk)
+    y = shard(matmul(o.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                     params["wo"], reduce_dtype=_reduce(x, cfg)),
+              BATCH, None, None)
+    if win is not None and s >= win:
+        k_c = torch.roll(k[:, -win:], shifts=s % win, dims=1)
+        v_c = torch.roll(v[:, -win:], shifts=s % win, dims=1)
+    else:
+        k_c, v_c = k, v
+    cache = {"k": shard(k_c.contiguous(), BATCH, MODEL, None, None),
+             "v": shard(v_c.contiguous(), BATCH, MODEL, None, None)}
+    return y, cache
+
+
+def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
+                     ctx_len: int, *, window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode. x (B,1,D); cache {k,v: (B,S,K,hd)}; `ctx_len` the
+    tokens already cached.  Returns (y (B,1,D), cache), the cache updated
+    in place; SWA caches roll modulo the window."""
+    b, _, d = x.shape
+    n, hd = cfg.n_heads, cfg.head_dim
+    s_cache = cache["k"].shape[1]
+    ctx_len = int(ctx_len)
+    q, k, v = _qkv(params, x, cfg)
+    if cfg.qk_norm:
+        q = rmsnorm(params["qnorm"], q, cfg.norm_eps)
+        k = rmsnorm(params["knorm"], k, cfg.norm_eps)
+    pos = torch.full((b, 1), ctx_len, dtype=torch.int32, device=x.device)
+    if cfg.rope == "mrope":
+        q = rope_mod.apply_mrope(q, torch.stack([pos] * 3), cfg.rope_theta,
+                                 cfg.mrope_sections)
+        k = rope_mod.apply_mrope(k, torch.stack([pos] * 3), cfg.rope_theta,
+                                 cfg.mrope_sections)
+    elif cfg.rope == "rope":
+        q = rope_mod.apply_rope(q, pos, cfg.rope_theta)
+        k = rope_mod.apply_rope(k, pos, cfg.rope_theta)
+    win = window if window is not None else cfg.window
+    slot = ctx_len % s_cache if win is not None else ctx_len
+    # dynamic_update_slice clamps the start so the slice fits
+    slot = min(max(slot, 0), s_cache - 1)
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    valid = min(ctx_len + 1, s_cache)
+    o = decode_attention(q[:, 0], cache["k"], cache["v"], valid)
+    y = matmul(o.reshape(b, n * hd), params["wo"],
+               reduce_dtype=_reduce(x, cfg)).reshape(b, 1, d)
+    return shard(y, BATCH, None, None), cache

@@ -1,0 +1,289 @@
+"""Transformer assembly: segments of repeating block patterns.
+
+Depth is organised into **segments**, maximal runs where a block pattern
+repeats, as in the JAX package (``dense LMs: [('attn',) x L]``).  The
+reference stacks each segment's parameters along a leading period axis
+for ``lax.scan``; the port keeps one dict per period instead and loops:
+
+    params["segments"][seg][period]["b0"]["attn"]["wqkv"]
+
+so every leaf keeps the reference's name (``wqkv``, ``wo``, ``wiu``,
+``ln1``, ...) and maps one to one (:func:`repro_torch.convert.
+model_params` unstacks the period axis).  Caches follow the same layout:
+``caches[seg][period]["b0"] = {"k", "v": (B, S, K, hd)}``.
+
+Only the ``attn`` block kind with GQA/SWA attention is ported.  The kinds
+``moe``, ``rwkv`` and ``rec``, and MLA attention, raise
+``NotImplementedError`` (ROADMAP queue 1, item 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (dense_init, embed, embed_init,
+                                       head_init, lm_head, mlp, mlp_init,
+                                       pdtype, rmsnorm, rmsnorm_init,
+                                       sinusoidal_positions)
+from repro_torch.models.rope import text_mrope_positions
+from repro_torch.models.sharding import BATCH, MODEL, shard
+
+F32 = torch.float32
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, item 11)")
+
+
+def _check_ported(kind: str, cfg) -> None:
+    if kind != "attn":
+        raise _not_ported(f"the {kind!r} block kind")
+    if cfg.attn_kind == "mla":
+        raise _not_ported("multi-head latent attention (attn_kind='mla')")
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    pattern: Tuple[str, ...]
+    n_periods: int
+
+
+def segments(cfg) -> List[Segment]:
+    kinds = cfg.layer_kinds()
+    segs: List[Segment] = []
+    if len(set(kinds)) == 1:
+        return [Segment((kinds[0],), len(kinds))]
+    # split off a leading run of a different kind (deepseek first_dense)
+    j = 0
+    while j < len(kinds) and kinds[j] == kinds[0]:
+        j += 1
+    rest = kinds[j:]
+    if len(set(rest)) == 1:
+        segs.append(Segment((kinds[0],), j))
+        segs.append(Segment((rest[0],), len(rest)))
+        return segs
+    # periodic pattern (recurrentgemma)
+    pat = tuple(cfg.block_pattern)
+    plen = len(pat)
+    n_full = len(kinds) // plen
+    for idx, k in enumerate(kinds[:n_full * plen]):
+        if k != pat[idx % plen]:
+            raise ValueError(f"layer kinds do not follow pattern at {idx}")
+    segs.append(Segment(pat, n_full))
+    rem = kinds[n_full * plen:]
+    if rem:
+        segs.append(Segment(tuple(rem), 1))
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# Block init / apply
+# ---------------------------------------------------------------------------
+def _dense_ff(cfg) -> int:
+    if cfg.moe is not None and cfg.moe.dense_d_ff:
+        return cfg.moe.dense_d_ff
+    return cfg.d_ff
+
+
+def block_init(gen: torch.Generator, kind: str, cfg) -> Dict:
+    _check_ported(kind, cfg)
+    d = cfg.d_model
+    return {"ln1": rmsnorm_init(d, gen.device),
+            "attn": attn_mod.attn_init(gen, cfg),
+            "ln2": rmsnorm_init(d, gen.device),
+            "mlp": mlp_init(gen, d, _dense_ff(cfg), dtype=pdtype(cfg))}
+
+
+def _block_seq(kind: str, p: Dict, x: torch.Tensor, cfg, positions
+               ) -> Tuple[torch.Tensor, Dict]:
+    """Sequence-form block (prefill). Returns (x, cache entry)."""
+    _check_ported(kind, cfg)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, cache = attn_mod.attention_prefill(p["attn"], h, cfg, positions,
+                                          seq_shard=cfg.attn_seq_shard)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    y = mlp(p["mlp"], h, cfg.act, reduce_bf16=cfg.tp_reduce_bf16)
+    return x + y, cache
+
+
+def _block_decode(kind: str, p: Dict, x: torch.Tensor, cfg, cache: Dict,
+                  ctx_len: int) -> Tuple[torch.Tensor, Dict]:
+    _check_ported(kind, cfg)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, new_cache = attn_mod.attention_decode(p["attn"], h, cfg, cache,
+                                             ctx_len)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    y = mlp(p["mlp"], h, cfg.act, reduce_bf16=cfg.tp_reduce_bf16)
+    return x + y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Model init
+# ---------------------------------------------------------------------------
+def init_params(cfg, generator: Optional[torch.Generator] = None,
+                device=None) -> Dict:
+    """Random parameters for `cfg` on `device` (default: the CUDA card).
+
+    `generator` (a ``torch.Generator`` on `device`) seeds every draw; a
+    fresh one seeded 0 when omitted.
+    """
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if generator.device.type != dev.type:
+        raise ValueError(f"the generator lies on {generator.device}, the "
+                         f"parameters on {dev}")
+    segs = segments(cfg)
+    for seg in segs:
+        for kind in seg.pattern:
+            _check_ported(kind, cfg)
+    dt = pdtype(cfg)
+    gen = generator
+    params: Dict = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                            cfg.n_codebooks, dtype=dt),
+        "final_norm": rmsnorm_init(cfg.d_model, dev),
+        "segments": [],
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = head_init(gen, cfg.d_model, cfg.vocab_size,
+                                   cfg.n_codebooks, dtype=dt)
+    if cfg.vision_tokens:
+        params["vision_proj"] = dense_init(gen, (cfg.vision_dim, cfg.d_model),
+                                           dtype=dt)
+    for seg in segs:
+        params["segments"].append([
+            {f"b{i}": block_init(gen, kind, cfg)
+             for i, kind in enumerate(seg.pattern)}
+            for _ in range(seg.n_periods)])
+    return params
+
+
+def n_param_elements(params: Dict) -> int:
+    """Number of parameter elements in a tree of dicts and lists."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    items = params.values() if isinstance(params, dict) else params
+    return sum(n_param_elements(v) for v in items)
+
+
+# ---------------------------------------------------------------------------
+# Embedding & positions
+# ---------------------------------------------------------------------------
+def _embed_inputs(params: Dict, cfg, tokens: torch.Tensor,
+                  vision: Optional[torch.Tensor], offset=0) -> torch.Tensor:
+    x = embed(params["embed"], tokens)
+    if cfg.rope == "none":
+        s = x.shape[-2]
+        x = x + sinusoidal_positions(s, cfg.d_model, offset,
+                                     x.device).to(x.dtype)[None]
+    if cfg.vision_tokens and vision is not None:
+        vproj = vision.to(x.dtype) @ params["vision_proj"]
+        x = torch.cat([vproj, x[:, cfg.vision_tokens:]], dim=1)
+    return shard(x, BATCH, None, None)
+
+
+def _positions(cfg, batch: int, seq: int,
+               positions: Optional[torch.Tensor], device) -> torch.Tensor:
+    if positions is not None:
+        return positions
+    if cfg.rope == "mrope":
+        return text_mrope_positions(batch, seq, device=device)
+    return torch.arange(seq, dtype=torch.int32,
+                        device=device).expand(batch, seq)
+
+
+def _head(params: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        table = params["embed"]["table"].to(x.dtype)
+        return shard(torch.matmul(x, table.t()), BATCH, None, MODEL)
+    return lm_head(params["head"], x)
+
+
+# ---------------------------------------------------------------------------
+# Forward paths
+# ---------------------------------------------------------------------------
+def pad_cache(caches: List, cfg, target_len: int) -> List:
+    """Right-pad attention caches (k/v, sequence dim 1) to `target_len`
+    capacity for the decode that follows; rolling SWA caches stay
+    window-sized.  Returns new caches."""
+    def pad(name, leaf):
+        if name not in ("k", "v"):
+            return leaf
+        tgt = min(target_len, cfg.window) if cfg.window else target_len
+        s = leaf.shape[1]
+        if s >= tgt:
+            return leaf
+        width = [0, 0] * (leaf.ndim - 2) + [0, tgt - s]
+        return torch.nn.functional.pad(leaf, width)
+
+    return [[{b: {name: pad(name, leaf) for name, leaf in entry.items()}
+              for b, entry in period.items()}
+             for period in seg] for seg in caches]
+
+
+def forward_prefill(params: Dict, cfg, tokens: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None,
+                    vision: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, List]:
+    """Returns (last-token logits (B, 1, V), caches[seg][period])."""
+    b, s = tokens.shape[0], tokens.shape[-1]
+    x = _embed_inputs(params, cfg, tokens, vision)
+    pos = _positions(cfg, b, s, positions, x.device)
+    caches: List = []
+    for seg, seg_params in zip(segments(cfg), params["segments"]):
+        seg_cache = []
+        for pp in seg_params:
+            entry = {}
+            for i, kind in enumerate(seg.pattern):
+                x, entry[f"b{i}"] = _block_seq(kind, pp[f"b{i}"], x, cfg,
+                                               pos)
+            seg_cache.append(entry)
+        caches.append(seg_cache)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _head(params, cfg, x[:, -1:]), caches
+
+
+def decode_step(params: Dict, cfg, token: torch.Tensor, caches: List,
+                ctx_len: int) -> Tuple[torch.Tensor, List]:
+    """One decode step. token (B,) or (B, C); `ctx_len` the tokens already
+    cached -> (logits (B, 1, ...), caches), the caches updated in place."""
+    tok = token[:, None] if token.ndim == 1 else token[..., None]
+    x = _embed_inputs(params, cfg, tok, None, offset=int(ctx_len))
+    for seg, seg_params, seg_cache in zip(segments(cfg), params["segments"],
+                                          caches):
+        for pp, entry in zip(seg_params, seg_cache):
+            for i, kind in enumerate(seg.pattern):
+                x, entry[f"b{i}"] = _block_decode(
+                    kind, pp[f"b{i}"], x, cfg, entry[f"b{i}"], ctx_len)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _head(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# Cache init
+# ---------------------------------------------------------------------------
+def init_cache(cfg, batch: int, s_cache: int, device=None) -> List:
+    """Empty caches shaped like :func:`decode_step` expects."""
+    dev = resolve_device(device)
+    dt = pdtype(cfg)
+    s = min(cfg.window, s_cache) if cfg.window else s_cache
+    shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+    caches = []
+    for seg in segments(cfg):
+        for kind in seg.pattern:
+            _check_ported(kind, cfg)
+        caches.append([{f"b{i}": {"k": torch.zeros(shape, dtype=dt,
+                                                   device=dev),
+                                  "v": torch.zeros(shape, dtype=dt,
+                                                   device=dev)}
+                        for i in range(len(seg.pattern))}
+                       for _ in range(seg.n_periods)])
+    return caches

@@ -6,16 +6,20 @@
 ``gups``            seeded random read-modify-write (HPCC RandomAccess)
 ``hot_cold``        skewed-popularity random access over a scattered hot
                     page set — the dynamic-tiering driver
+``kv_decode``       paged-attention decode gathers recorded from the
+                    ``PagedKVCache`` + ``ContinuousBatcher`` serving loop,
+                    with per-access HBM/CXL(/SSD) tier intent
 ==================  ======================================================
 
-The JAX package's ``kv_decode`` and ``moe_stream`` generators and its
-``pollution_probe`` are not ported yet: asking for them raises
-``NotImplementedError`` naming their ROADMAP item.
+The JAX package's ``moe_stream`` generator and its ``pollution_probe``
+are not ported yet: asking for them raises ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from repro_torch.workloads.base import (  # noqa: F401
     Stream, Workload, WorkloadTrace, full_period_affine, lines_for_footprint,
     mix32, mix32_int, pages_for_lines,
 )
+from repro_torch.workloads.kv_decode import KVDecode  # noqa: F401
 from repro_torch.workloads.microbench import Gups, HotCold, PointerChase  # noqa: F401
 
 REGISTRY = {
@@ -23,11 +27,11 @@ REGISTRY = {
     "pointer_chase": PointerChase,
     "gups": Gups,
     "hot_cold": HotCold,
+    "kv_decode": KVDecode,
 }
 
 #: Generators of the JAX package still to port: name -> ROADMAP item.
-UNPORTED = {"kv_decode": 9, "KVDecode": 9, "moe_stream": 5, "MoEStream": 5,
-            "pollution_probe": 5}
+UNPORTED = {"moe_stream": 5, "MoEStream": 5, "pollution_probe": 5}
 
 WORKLOADS = tuple(REGISTRY)
 

@@ -21,6 +21,7 @@ from repro_torch import convert
 from repro_torch.core import cache as tcache
 from repro_torch.core import engine as tengine
 from repro_torch.kernels import cache_sim as tkernels
+from repro_torch.kernels import ops as tops
 
 SMALL = dict(l1_bytes=1024, l1_ways=2, l2_bytes=4096, l2_ways=4)
 
@@ -79,11 +80,11 @@ def test_run_traces_matches_jax_reference(cores, n_targets):
 def test_mesi_cache_sim_plain_counts_calls():
     jp, tp = params(**SMALL, cores=2)
     trace = mixed_batch(3, 200, 2, 2)
-    tkernels.reset_launches()
+    tops.reset_launches()
     got = tkernels.mesi_cache_sim(*as_torch(*trace), params=tp)
-    assert tkernels.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 1,
-                                 "mesi_dyn_segment": 0,
-                                 "mesi_dyn_segment_ref": 0}
+    assert tops.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 1,
+                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
+                             "paged_attention": 0, "paged_attention_ref": 0}
     assert_same(got, jengine.run_traces(jp, *trace))
 
 

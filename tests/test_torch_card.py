@@ -1,4 +1,8 @@
-"""The CUDA MESI kernels on the card: against their plain versions, bitwise.
+"""The CUDA kernels on the card: the MESI kernels against their plain
+versions, bitwise; paged attention (K4) against its plain version within
+rtol = atol = 3e-5 (f32 pools and queries) or 2e-2 (bf16: the kernel and
+the plain version round the bf16 output of the same f32 sums; one bf16
+ulp at |x| < 2 is 7.8e-3 or less), and the serving loop on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one.  The file imports no JAX, so it runs on a machine that has
@@ -20,7 +24,11 @@ from repro_torch.core import route as troute
 from repro_torch.core import tiering_dyn as tdyn
 from repro_torch.core.machine import CPUModel
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
+from repro_torch.configs import get_smoke
 from repro_torch.kernels import cache_sim as tkernels
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.launch import serve as tserve
 from repro_torch.workloads import HotCold
 
 pytestmark = pytest.mark.cuda
@@ -59,12 +67,12 @@ def assert_same(a, b):
 def test_kernel_matches_plain_version(card, cores, n_targets):
     p = tcache.CacheParams(**SMALL, cores=cores, n_targets=n_targets)
     trace = batch(cores, 700, cores, n_targets, card)
-    tkernels.reset_launches()
+    tops.reset_launches()
     kern = tkernels.mesi_cache_sim(*trace, params=p)
     plain = tkernels.mesi_cache_sim(*trace, params=p, backend="reference")
-    assert tkernels.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 1,
-                                 "mesi_dyn_segment": 0,
-                                 "mesi_dyn_segment_ref": 0}
+    assert tops.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 1,
+                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
+                             "paged_attention": 0, "paged_attention_ref": 0}
     assert_same(kern, plain)
 
 
@@ -102,11 +110,11 @@ def test_main_path_runs_on_the_kernel(card):
         footprint_factors=(1, 2),
         policies=(tnuma.ZNuma(0.0), tnuma.WeightedInterleave(1, 1)),
         cpus=(CPUModel(kind="inorder"), CPUModel(kind="o3")))
-    tkernels.reset_launches()
+    tops.reset_launches()
     on_card = tengine.run_sweep(spec, p, TimingConfig())
-    assert tkernels.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 0,
-                                 "mesi_dyn_segment": 0,
-                                 "mesi_dyn_segment_ref": 0}
+    assert tops.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 0,
+                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
+                             "paged_attention": 0, "paged_attention_ref": 0}
     assert on_card == tengine.run_sweep(spec, p, TimingConfig(), device="cpu")
 
 
@@ -149,11 +157,11 @@ def dyn_batch(seed, n_p, device, n=512, cores=2, n_targets=3):
 def test_dyn_kernel_matches_plain_version(card, n_p, n_targets):
     p = tcache.CacheParams(**SMALL, cores=2, n_targets=n_targets)
     trace, kw = dyn_batch(n_p, n_p, card, n_targets=n_targets)
-    tkernels.reset_launches()
+    tops.reset_launches()
     kern = tdyn.run_dynamic(p, *trace, **kw)
     plain = tdyn.run_dynamic(p, *trace, backend="reference", **kw)
-    assert tkernels.LAUNCHES["mesi_dyn_segment"] == 1
-    assert tkernels.LAUNCHES["mesi_dyn_segment_ref"] == 1
+    assert tops.LAUNCHES["mesi_dyn_segment"] == 1
+    assert tops.LAUNCHES["mesi_dyn_segment_ref"] == 1
     for field in kern._fields:
         assert torch.equal(getattr(kern, field), getattr(plain, field)), field
     assert kern.slots[:3, :, 2:].sum() > 0
@@ -173,11 +181,79 @@ def test_fidelity_golden_on_the_card(card):
         tiering=(tdyn.DynamicTiering(epoch_len=2048, budget=16, threshold=8,
                                      cxl_capacity_pages=8),),
         distributions=(None, LatencyDistribution(n_samples=128, seed=0)))
-    tkernels.reset_launches()
+    tops.reset_launches()
     rows = tengine.run_sweep(spec, tcache.CacheParams(
         l1_bytes=8 * 1024, l1_ways=2, l2_bytes=16 * 1024, l2_ways=8),
         TimingConfig())
-    assert tkernels.LAUNCHES["mesi_dyn_segment"] == 1
-    assert tkernels.LAUNCHES["mesi_dyn_segment_ref"] == 0
+    assert tops.LAUNCHES["mesi_dyn_segment"] == 1
+    assert tops.LAUNCHES["mesi_dyn_segment_ref"] == 0
     assert json.loads(json.dumps(rows)) == json.loads(
         (golden / "fidelity.json").read_text())
+
+
+def paged_case(seed, b, h, kh, d, page, nblk, dtype, device):
+    """Random pools and queries; sequence 0 empty, 1 ending mid-page, the
+    rest random; every entry past a sequence's live blocks out of range."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * nblk
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, page, kh, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, page, kh, d)).astype(np.float32)
+    bt = rng.permutation(n_pages).reshape(b, nblk).astype(np.int32)
+    cl = rng.integers(1, nblk * page + 1, (b,)).astype(np.int32)
+    cl[0], cl[1] = 0, page + 1
+    live = -(-cl // page)
+    bt[np.arange(nblk)[None, :] >= live[:, None]] = n_pages + 7
+    dt = getattr(torch, dtype)
+    return [torch.from_numpy(x).to(device, dt) for x in (q, kp, vp)] + [
+        torch.from_numpy(x).to(device) for x in (bt, cl)]
+
+
+@pytest.mark.parametrize("d", [16, 64, 120, 128])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_matches_plain_version(card, d, groups, dtype):
+    args = paged_case(d + groups, 5, 2 * groups, 2, d, 16, 6, dtype, card)
+    tops.reset_launches()
+    kern = tops.paged_attention(*args)
+    plain = tpa.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 0,
+                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
+                             "paged_attention": 1, "paged_attention_ref": 1}
+    assert kern.dtype == args[0].dtype and kern.shape == args[0].shape
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert torch.all(kern[0] == 0)                  # empty context
+
+
+def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
+    q, kp, vp, bt, cl = paged_case(0, 3, 4, 2, 16, 4, 4, "float32", card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tops.paged_attention(q.half(), kp, vp, bt, cl)
+    with pytest.raises(ValueError, match="outside the pool"):
+        tops.paged_attention(q, kp, vp, torch.full_like(bt, 10_000), cl)
+    big = paged_case(0, 2, 2, 1, 272, 4, 2, "float32", card)
+    with pytest.raises(ValueError, match="head_dim"):
+        tops.paged_attention(*big)
+
+
+def test_serve_runs_on_the_card(card):
+    cfg = get_smoke("h2o-danube-3-4b")
+    tops.reset_launches()
+    r = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
+                   hbm_pages=5)
+    assert tops.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 0,
+                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
+                             "paged_attention": 3, "paged_attention_ref": 0}
+    assert r["logits_finite"] and r["kv_stats"]["demotions"] > 0
+    q, kp, vp, bt, cl = r["last_attn_inputs"]
+    assert q.is_cuda and kp.is_cuda and bt.dtype == torch.int32
+    torch.testing.assert_close(r["attn_out"][-1],
+                               tpa.paged_attention_ref(q, kp, vp, bt, cl),
+                               rtol=3e-5, atol=3e-5)
+    on_cpu = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
+                        hbm_pages=5, device="cpu")
+    assert r["kv_stats"] == on_cpu["kv_stats"]
+    assert r["tier_histogram"] == on_cpu["tier_histogram"]

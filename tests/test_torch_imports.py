@@ -16,6 +16,10 @@ from repro_torch.core.tiering_dyn import DynamicTiering
 from repro_torch.core.timing import TimingConfig
 from repro_torch.kernels import cache_sim as tkernels
 from repro_torch import workloads as tworkloads
+from repro_torch.configs import get_smoke
+from repro_torch.launch import serve as tserve
+from repro_torch.memory.kvcache import PagedKVCache
+from repro_torch.models import transformer as ttf
 from repro_torch.workloads import Workload
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -41,7 +45,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
              "JAX_PLATFORMS": "cpu"})
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 20
+    assert int(n_modules) >= 40
     assert bad.strip() == "[]"
     # chip_smoke.py imports the port inside main(): read its imports too
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
@@ -84,17 +88,11 @@ def test_cuda_backend_on_cpu_tensors_raises():
 
 
 @dataclasses.dataclass(frozen=True)
-class _KVDecode(Workload):
-    name: str = "kv_decode"
-
-
-@dataclasses.dataclass(frozen=True)
 class _MoEStream(Workload):
     name: str = "moe_stream"
 
 
 UNPORTED = {
-    "kv_decode": dict(workloads=(_KVDecode(),)),
     "moe_stream": dict(workloads=(_MoEStream(),)),
     "mesh": dict(mesh=2),
     "stream_chunk": dict(stream_chunk=512),
@@ -112,12 +110,44 @@ def test_unported_knobs_raise(knob):
 
 
 def test_unported_workloads_raise_by_name():
-    for name in ("kv_decode", "moe_stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tworkloads.get(name)
-    for attr in ("KVDecode", "MoEStream", "pollution_probe"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        tworkloads.get("moe_stream")
+    for attr in ("MoEStream", "pollution_probe"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             getattr(tworkloads, attr)
+    # ported since: by name, by attribute, and not listed as unported
+    assert tworkloads.get("kv_decode") == tworkloads.KVDecode()
+    assert "kv_decode" not in tworkloads.UNPORTED
+
+
+def test_serving_path_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    cfg = get_smoke("h2o-danube-3-4b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.run(cfg, requests=1, decode=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(cfg, n_pages=4, page_size=4, max_blocks=2,
+                     hbm_page_budget=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tworkloads.KVDecode().device_trace(16 * 1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttf.init_params(cfg)
+
+
+@pytest.mark.parametrize("arch,what", [
+    ("rwkv6-1.6b", "'rwkv' block kind"),
+    ("recurrentgemma-9b", "'rec' block kind"),
+    ("qwen3-moe-235b-a22b", "'moe' block kind"),
+    ("deepseek-v3-671b", "multi-head latent attention"),
+])
+def test_unported_block_kinds_raise_naming_their_item(arch, what):
+    cfg = get_smoke(arch)
+    with pytest.raises(NotImplementedError,
+                       match=f"{what}.*ROADMAP queue 1, item 11"):
+        ttf.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ttf.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
@@ -130,9 +160,10 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     before = build._target("k")
     (tmp_path / "b.cuh").write_text("// v2\n")
     assert build._target("k") != before
-    assert set(build.LIBRARIES) == {"mesi", "mesi_dyn"}
-    real = build.HERE / "csrc"
-    for name in build.LIBRARIES:
-        monkeypatch.setattr(build, "CSRC", real)
+    assert set(build.LIBRARIES) == {"mesi", "mesi_dyn", "paged_attention"}
+    monkeypatch.setattr(build, "CSRC", build.HERE / "csrc")
+    for name in ("mesi", "mesi_dyn"):
         assert [p.name for p in build.sources(name)] == [
             f"{name}.cu", "mesi_access.cuh"]
+    assert [p.name for p in build.sources("paged_attention")] == [
+        "paged_attention.cu"]

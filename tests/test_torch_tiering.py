@@ -36,6 +36,7 @@ from repro_torch.core import tiering_dyn as tdyn
 from repro_torch.core.machine import CPUModel
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
 from repro_torch.kernels import cache_sim as tkernels
+from repro_torch.kernels import ops as tops
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 GEOMETRY = dict(l1_bytes=8 * 1024, l1_ways=2, l2_bytes=16 * 1024, l2_ways=8)
@@ -101,10 +102,10 @@ def test_run_dynamic_matches_jax(cores, n_targets, n_p):
     jp, tp = params(**SMALL, cores=cores, n_targets=n_targets)
     trace, kw = dyn_batch(cores + n_p, n_p, cores=cores, n_targets=n_targets)
     want = jdyn.run_dynamic(jp, *trace, backend="reference", **kw)
-    tkernels.reset_launches()
+    tops.reset_launches()
     got = tdyn.run_dynamic(tp, *as_torch(*trace), **kw)
-    assert tkernels.LAUNCHES["mesi_dyn_segment_ref"] == 1
-    assert tkernels.LAUNCHES["mesi_dyn_segment"] == 0
+    assert tops.LAUNCHES["mesi_dyn_segment_ref"] == 1
+    assert tops.LAUNCHES["mesi_dyn_segment"] == 0
     assert_outputs_equal(got, want)
     slots = got.slots.numpy()
     assert slots[:3, :, 2:].sum() > 0          # the dynamic rows migrate
@@ -232,10 +233,10 @@ def test_fidelity_golden_rows_exact():
         tiering=(tdyn.DynamicTiering(epoch_len=2048, budget=16, threshold=8,
                                      cxl_capacity_pages=8),),
         distributions=(None, LatencyDistribution(n_samples=128, seed=0)))
-    tkernels.reset_launches()
+    tops.reset_launches()
     rows = tengine.run_sweep(spec, tcache.CacheParams(**GEOMETRY),
                              TimingConfig(), device="cpu")
-    assert tkernels.LAUNCHES["mesi_dyn_segment_ref"] == 1
+    assert tops.LAUNCHES["mesi_dyn_segment_ref"] == 1
     want = json.loads((GOLDEN / "fidelity.json").read_text())
     assert normalised(rows) == want
 
