@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 (sm_90a) and the CUDA toolkit (`nvcc`).  Phases, each of which passes or
 makes the script exit non-zero:
 
-1. print the card's name and power limit, and build the three kernel
+1. print the card's name and power limit, and build the six kernel
    libraries from ``src/repro_torch/kernels/csrc`` (one `nvcc` each, started
    together; timed, with the ptxas report);
 2. hold each MESI kernel against its plain PyTorch version on the card,
@@ -47,12 +47,34 @@ makes the script exit non-zero:
    empty contexts, partial last pages and out-of-range padding in the
    block tables, and the serve loop's own last step (rtol = atol = 3e-5
    in f32, 2e-2 in bf16);
+   2c. hold slice 4's kernels against their plain versions: the
+   single-level LRU cache (K6, ``cache_sim.cu``) bitwise on hits, tags and
+   clocks at the JAX test's geometries, a trace that is no multiple of 32,
+   and the Table-I L2 (2048 x 16) on the 8 x L2 triad prefix and on a
+   trace crowded into four sets; the STREAM triad (K7, ``stream_triad.cu``)
+   bitwise in f32 and bf16 with s = 2.5 and 0.1 from (8, 128) up to
+   (32768, 4096); blockwise attention (K5, ``flash_attention.cu``) on the
+   JAX test's five cases, D = 120, Sq < Sk and Sq > Sk, windows shorter
+   than a tile and longer than the sequence, and non-causal (rtol = atol =
+   3e-5 in f32, 3e-2 in bf16);
+   3b. slice 4's path through ``kernels.ops`` at full width, each call one
+   kernel launch and no plain-version call: K5 on h2o-danube-3-4b's
+   layer-0 attention on a 4096-token prompt (the served model's weights,
+   kv heads repeated to 32), and on a seeded (1, 32, 8192, 120) bf16 case
+   at the model's 4096 window, both held against the plain version
+   (rtol = atol = 5e-3, and the error's RMS within 1e-3 of the output's),
+   the first also against the port's prefill attention
+   ``blockwise_attention`` (3e-2: it rounds p to bf16); K6 over the whole 2,097,150-access
+   trace at 2048 x 16 (bitwise against the plain version, and one miss per
+   distinct line); K7 at (32768, 4096) f32;
 4. time each kernel with CUDA events at the main paths' shapes (after a
    warm-up), the plain versions on their Table-I parity batches, K4 at the
    serve loop's shapes and at a 4096-token decode beside SDPA on the
-   gathered K/V, compute the bounds, and profile the main paths once to
-   split their wall time into device kernels and the rest;
-5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+   gathered K/V, K5-K7 at slice 4's shapes beside their plain versions and
+   SDPA / ``torch.add``, compute the bounds, and profile the main paths once
+   to split their wall time into device kernels and the rest;
+5. print ``{"kernels": [...]}`` (all seven TPU kernels, K2 with K1) and,
+   last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the port's sources are not beside it.
@@ -787,6 +809,386 @@ def k4_parity(dev, gen, serve_inputs, kv):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c / 3: slice 4 — K5, K6, K7 through kernels.ops
+# ---------------------------------------------------------------------------
+TRIAD_SHAPE = (32768, 4096)        # a STREAM-sized array pair, f32
+# K5 on the main path against its plain version: both accumulate in f32 and
+# round to bf16 once, so they differ by at most one bf16 ulp (2**-8..2**-7
+# relative) where the f32 sums straddle a rounding point.  Outputs there are
+# small (RMS ~0.05 over 4096 keys), so the limit is absolute and relative
+# 5e-3, and the error's RMS at most 1e-3 of the output's: ~5e-5 when right,
+# 2.6e-3 for blockwise_attention's bf16 p on the same inputs (H100).
+K5_PATH_TOL = 5e-3
+K5_PATH_RMS = 1e-3
+# against the port's prefill attention, which rounds p to bf16 before P.V
+K5_BLOCKWISE_TOL = 3e-2
+
+
+def table1_l2():
+    """(sets, ways) of the Table-I host's L2: 2 MiB, 16 ways, 64 B lines."""
+    from repro_torch.core.cache import CacheParams
+    p = CacheParams()
+    return p.l2_sets, p.l2_ways
+
+
+def triad_trace_8x(dev):
+    """The 8 x L2 STREAM triad line trace of the Table-I host (the §IV
+    suite's largest row, 2,097,150 accesses)."""
+    from repro_torch.core import cache as cache_mod
+    from repro_torch.core import stream
+    lay8 = stream.layout_for_footprint(8 * cache_mod.CacheParams().l2_bytes)
+    return stream.stream_trace("triad", lay8, dev)[0]
+
+
+def k6_parity(dev, gen, a8):
+    """K6 against its plain version, bitwise on hits, tags and clocks: the
+    JAX test's geometries, a trace that is no multiple of 32, the Table-I
+    L2 on the first 16,384 accesses of the 8 x L2 triad trace and on a
+    trace crowded into four sets."""
+    import torch
+    from repro_torch.kernels import ops
+    cases = [(f"{s} sets x {w} ways, N={n}",
+              torch.randint(0, s * w * 4, (n,), generator=gen,
+                            dtype=torch.int32), s, w)
+             for s, w, n in ((16, 2, 256), (64, 4, 1024), (128, 8, 555),
+                             (32, 1, 333), (64, 4, 1001))]
+    sets, ways = table1_l2()
+    cases.append((f"Table-I L2 ({sets} x {ways}), 8xL2 triad prefix "
+                   f"N={PREFIX}", a8[:PREFIX].cpu(), sets, ways))
+    cases.append((f"Table-I L2, 4 sets x 64 lines each, N={PREFIX}",
+                  torch.randint(0, 4, (PREFIX,), generator=gen,
+                                dtype=torch.int32)
+                  + sets * torch.randint(0, 64, (PREFIX,), generator=gen,
+                                         dtype=torch.int32), sets, ways))
+    err = 0
+    for label, addr, s, w in cases:
+        addr = addr.to(dev)
+        kern = ops.cache_sim(addr, n_sets=s, n_ways=w)
+        plain = ops.cache_sim_ref(addr, n_sets=s, n_ways=w)
+        e = max_diff(zip(kern, plain))
+        err = max(err, e)
+        print(f"[parity K6] {label}: max|kernel - plain| = {e} over hits, "
+              f"tags and clocks; hit rate {float(kern[0].float().mean()):.4f}")
+        if e:
+            raise AssertionError(f"K6 disagrees with its plain version: "
+                                 f"{label}")
+    return err
+
+
+def k7_parity(dev, gen, largest=TRIAD_SHAPE):
+    """K7 against its plain version, bitwise: f32 and bf16, s = 2.5 and 0.1,
+    shapes from (8, 128) to the full STREAM-sized pair."""
+    import torch
+    from repro_torch.kernels import ops
+    for shape in ((8, 128), (64, 1000), (1024, 4096), largest):
+        for dtype in (torch.float32, torch.bfloat16):
+            b = torch.randn(shape, generator=gen).to(dev, dtype)
+            c = torch.randn(shape, generator=gen).to(dev, dtype)
+            for s in (2.5, 0.1):
+                kern = ops.stream_triad(b, c, s)
+                same = torch.equal(kern, ops.stream_triad_ref(b, c, s))
+                print(f"[parity K7] {shape} {str(dtype)[6:]} s={s}: kernel "
+                      f"== plain version bitwise: {same}")
+                if not same or kern.dtype != dtype:
+                    raise AssertionError(f"K7 disagrees: {shape} {dtype} {s}")
+            del b, c
+    return 0
+
+
+def k5_parity(dev, gen):
+    """K5 against its plain version: the JAX test's five cases, D = 120,
+    Sq < Sk and Sq > Sk, windows shorter than a tile and longer than the
+    sequence, non-causal (rtol = atol = 3e-5 in f32, 3e-2 in bf16)."""
+    import torch
+    from repro_torch.kernels import ops
+    tol = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(2, 4, 128, 128, 64, None, True, f32),
+             (1, 2, 128, 256, 64, None, True, f32),
+             (2, 4, 256, 256, 64, 64, True, f32),
+             (1, 2, 128, 128, 128, None, True, bf16),
+             (1, 8, 384, 384, 32, 128, True, f32),
+             (1, 4, 512, 512, 120, None, True, f32),
+             (1, 4, 512, 512, 120, None, True, bf16),
+             (1, 2, 128, 512, 120, 200, True, f32),
+             (1, 2, 512, 128, 120, None, True, f32),
+             (1, 2, 256, 256, 64, 20, True, bf16),
+             (1, 2, 256, 256, 64, 1000, True, f32),
+             (1, 2, 256, 384, 64, None, False, f32),
+             (1, 2, 256, 256, 64, 100, False, f32)]
+    for b, h, sq, sk, d, win, causal, dtype in cases:
+        q, k, v = (torch.randn(s, generator=gen).to(dev, dtype)
+                   for s in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
+        kern = ops.flash_attention(q, k, v, causal=causal, window=win)
+        plain = ops.flash_attention_ref(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        diff = (kern.float() - plain.float()).abs()
+        err = float(diff.max())
+        errs[dtype] = max(errs[dtype], err)
+        ok = (not bool((diff > tol[dtype] * (1 + plain.float().abs())).any())
+              and kern.dtype == dtype and bool(torch.isfinite(kern).all()))
+        if sq > sk and causal:
+            ok = ok and bool((kern[:, :, :sq - sk] == 0).all())
+        print(f"[parity K5] B={b} H={h} Sq={sq} Sk={sk} D={d} window={win} "
+              f"causal={causal} {str(dtype)[6:]}: max|kernel - plain| = "
+              f"{err:.3g} (tolerance {tol[dtype]:g}, rtol = atol)")
+        if not ok:
+            raise AssertionError(f"K5 disagrees with its plain version: "
+                                 f"{(b, h, sq, sk, d, win, causal, dtype)}")
+    return errs
+
+
+def danube_layer0_qkv(cfg, params, seq: int, dev):
+    """Layer 0's rotary q, k, v of `cfg` on a `seq`-token prompt of random
+    ids (seed 1): q (1, Sq, H, D), k and v (1, Sq, K, D), as the prefill's
+    attention computes them."""
+    import torch
+    from repro_torch.models import transformer as tf
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1))
+    return tf.prefill_layer0_qkv(params, cfg, tokens)
+
+
+def heads_first(q, k, v, n_heads: int):
+    """(B, S, N or K, D) -> (B, H, S, D) with the kv heads repeated to the
+    query heads (query head h reads kv head h // (H / K))."""
+    g = n_heads // k.shape[2]
+    return (q.transpose(1, 2).contiguous(),
+            k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous(),
+            v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous())
+
+
+def plain_by_heads(q, k, v, parts: int, **kw):
+    """K5's plain version over `parts` groups of heads (its f32 logits of a
+    long sequence need (S x S x 4 B) per head)."""
+    import torch
+    from repro_torch.kernels import ops
+    n = q.shape[1] // parts
+    return torch.cat([ops.flash_attention_ref(
+        q[:, i:i + n], k[:, i:i + n], v[:, i:i + n], **kw)
+        for i in range(0, q.shape[1], n)], dim=1)
+
+
+def k5_agreement(got, ref, tol: float, rms_tol):
+    """K5's output against `ref`: within rtol = atol = `tol` everywhere and,
+    unless `rms_tol` is None, RMS(got - ref) <= `rms_tol` * RMS(ref)."""
+    diff = (got.float() - ref.float()).abs()
+    ref_rms = float(ref.float().square().mean().sqrt())
+    rel_rms = float(diff.square().mean().sqrt()) / ref_rms
+    ok = bool((diff <= tol * (1 + ref.float().abs())).all())
+    if rms_tol is not None:
+        ok = ok and rel_rms <= rms_tol
+    text = (f"max|err| {float(diff.max()):.3g} (rtol = atol = {tol:g}), "
+            f"RMS(ref) {ref_rms:.4g}, RMS(err) / RMS(ref) {rel_rms:.3g}"
+            + ("" if rms_tol is None else f" (limit {rms_tol:g})"))
+    return dict(ok=ok, max=float(diff.max()), ref_rms=ref_rms,
+                rel_rms=rel_rms, text=text)
+
+
+def read_launches(kernel: str):
+    from repro_torch.kernels import ops
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if launches != {kernel: 1}:
+        raise AssertionError(f"expected one {kernel} launch and no other "
+                             f"kernel or plain-version call: {launches}")
+    return launches
+
+
+def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
+                     triad_shape=TRIAD_SHAPE):
+    """Slice 4's path through kernels.ops at full width, the launch counts
+    set to 0 just before each call and read just after: K5 on `cfg`'s
+    layer-0 attention on a `seq`-token prompt and on a seeded (1, H, 2 seq,
+    D) windowed case, K6 on the trace `a8` at the Table-I L2, K7 at
+    `triad_shape`."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import blockwise_attention
+    out = {}
+    # K5: the model's layer-0 attention on a `seq`-token prompt
+    q, k, v = danube_layer0_qkv(cfg, params, seq, dev)
+    qh, kh, vh = heads_first(q, k, v, cfg.n_heads)
+    ops.reset_launches()
+    got = ops.flash_attention(qh, kh, vh, causal=True, window=cfg.window)
+    torch.cuda.synchronize()
+    launches = read_launches("flash_attention")
+    plain = ops.flash_attention_ref(qh, kh, vh, causal=True,
+                                    window=cfg.window)
+    block = blockwise_attention(q, k, v, causal=True, window=cfg.window,
+                                kv_chunk=cfg.kv_chunk).transpose(1, 2)
+    agree = k5_agreement(got, plain, K5_PATH_TOL, K5_PATH_RMS)
+    loose = k5_agreement(got, block, K5_BLOCKWISE_TOL, None)
+    errs = {"plain": agree["max"], "blockwise": loose["max"],
+            "ref_rms": agree["ref_rms"], "rel_rms": agree["rel_rms"]}
+    ok = (got.shape == qh.shape and got.dtype == qh.dtype
+          and bool(torch.isfinite(got).all()) and agree["ok"] and loose["ok"])
+    print(f"[slice 4] K5 on {cfg.arch} layer 0, prompt {seq}: q "
+          f"{tuple(qh.shape)} {str(qh.dtype)[6:]} (kv heads "
+          f"{cfg.n_kv_heads} -> {cfg.n_heads}), window {cfg.window}; launch "
+          f"counts {launches}; against the plain version {agree['text']}; "
+          f"against blockwise_attention {loose['text']}")
+    if not ok:
+        raise AssertionError("K5 on the danube prefill disagrees")
+    out["k5"] = dict(q=qh, k=kh, v=vh, err=errs)
+    del plain, block
+    # K5 windowed: (1, 32, 8192, 120) bf16 at danube's window, seeded inputs
+    gen = torch.Generator(device=dev).manual_seed(2)
+    wq, wk, wv = (torch.randn((1, cfg.n_heads, 2 * seq, cfg.head_dim),
+                              generator=gen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(3))
+    ops.reset_launches()
+    got_w = ops.flash_attention(wq, wk, wv, causal=True, window=cfg.window)
+    torch.cuda.synchronize()
+    launches_w = read_launches("flash_attention")
+    plain_w = plain_by_heads(wq, wk, wv, 4, causal=True, window=cfg.window)
+    agree_w = k5_agreement(got_w, plain_w, K5_PATH_TOL, K5_PATH_RMS)
+    err_w = {"plain": agree_w["max"], "ref_rms": agree_w["ref_rms"],
+             "rel_rms": agree_w["rel_rms"]}
+    print(f"[slice 4] K5 windowed (1, {cfg.n_heads}, {2 * seq}, "
+          f"{cfg.head_dim}) bf16, window {cfg.window}: launch counts "
+          f"{launches_w}; against the plain version {agree_w['text']}")
+    if not (agree_w["ok"] and bool(torch.isfinite(got_w).all())):
+        raise AssertionError("K5 windowed disagrees")
+    out["k5w"] = dict(q=wq, k=wk, v=wv, err=err_w)
+    del plain_w, got_w
+    # K6 over the whole 8 x L2 triad trace at the Table-I L2
+    sets, ways = table1_l2()
+    ops.reset_launches()
+    hits, tags, use = ops.cache_sim(a8, n_sets=sets, n_ways=ways)
+    torch.cuda.synchronize()
+    launches6 = read_launches("cache_sim")
+    plain6 = ops.cache_sim_ref(a8, n_sets=sets, n_ways=ways)
+    err6 = max_diff(zip((hits, tags, use), plain6))
+    n = a8.shape[0]
+    lines = int(torch.unique(a8).numel())
+    # one pass, each line's accesses consecutive in its stream and at most
+    # three lines live per set: every line misses once, then hits
+    n_hits = int(hits.sum())
+    ok6 = err6 == 0 and n_hits == n - lines and int(use.max()) == n
+    print(f"[slice 4] K6 on the 8xL2 triad trace, N={n}, {sets} sets x "
+          f"{ways} ways: launch counts {launches6}; hits {n_hits} = N - "
+          f"{lines} distinct lines: {n_hits == n - lines}; "
+          f"max|kernel - plain| = {err6} over hits, tags and clocks")
+    if not ok6:
+        raise AssertionError("K6 on the full trace is wrong")
+    out["k6"] = dict(addr=a8, err=err6, n=n)
+    # K7 at (32768, 4096) f32
+    b = torch.randn(triad_shape, generator=gen, device=dev)
+    c = torch.randn(triad_shape, generator=gen, device=dev)
+    ops.reset_launches()
+    a = ops.stream_triad(b, c, 2.5)
+    torch.cuda.synchronize()
+    launches7 = read_launches("stream_triad")
+    same = torch.equal(a, ops.stream_triad_ref(b, c, 2.5))
+    print(f"[slice 4] K7 at {triad_shape} f32, s = 2.5: launch counts "
+          f"{launches7}; kernel == plain version bitwise: {same}")
+    if not same or not bool(torch.isfinite(a).all()):
+        raise AssertionError("K7 at full size disagrees")
+    out["k7"] = dict(b=b, c=c)
+    out["launches"] = {
+        "flash_attention": sum(launches.values()) + sum(launches_w.values()),
+        "cache_sim": sum(launches6.values()),
+        "stream_triad": sum(launches7.values())}
+    return out
+
+
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend PyTorch picks for ``scaled_dot_product_attention(q, k, v,
+    **kw)`` (asked directly, not profiled: a profiler session here would
+    change the wall times that phase 4 profiles later)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+
+
+def slice4_times(path, cfg, card):
+    """K5, K6 and K7 at the main path's shapes: kernel, plain version and
+    library call by CUDA events, and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stream_triad as st
+    from repro_torch.kernels.cache_sim import cache_sim_bound_bytes
+    out = {}
+    # K5, danube prefill (causal) and windowed
+    for name, case, kw, parts in (
+            ("causal", path["k5"], dict(causal=True, window=cfg.window), 1),
+            ("windowed", path["k5w"], dict(causal=True, window=cfg.window),
+             4)):
+        q, k, v = case["q"], case["k"], case["v"]
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), warmup=1,
+                     reps=5)
+        plain_ms = cuda_ms(lambda: plain_by_heads(q, k, v, parts, **kw),
+                           warmup=1, reps=2)
+        sq = q.shape[2]
+        if name == "causal":
+            lib_kw = dict(is_causal=True)
+            lib_note = "scaled_dot_product_attention(is_causal=True)"
+        else:
+            i = torch.arange(sq, device=q.device)
+            lib_kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                          & (i[None, :] > i[:, None] - kw["window"]))
+            lib_note = ("scaled_dot_product_attention with an explicit "
+                        "(S, S) bool band mask")
+
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, **lib_kw)
+        lib_ms = cuda_ms(lib, warmup=1, reps=5)
+        lib_err = float((lib().float() - ops.flash_attention(
+            q, k, v, **kw).float()).abs().max())
+        backend = sdpa_backend(q, k, v, **lib_kw)
+        bound, by, n_bytes, flops = fa.bound_ms(q, k, **kw)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         library=lib_note, library_backend=backend,
+                         library_err=lib_err, bound_ms=bound, bound_by=by,
+                         tflops=flops / ms / 1e9, shape=list(q.shape),
+                         flops=flops, bytes=n_bytes)
+        print(f"[time K5] {name} {tuple(q.shape)} bf16 window {kw['window']}"
+              f": kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), bound "
+              f"{bound:.4f} ms ({by}: {flops} flops at 989 TFLOP/s, "
+              f"{n_bytes} B at 3.35 TB/s), plain version {plain_ms:.3f} ms, "
+              f"{lib_note} {lib_ms:.3f} ms via {backend} (max|SDPA - "
+              f"kernel| {lib_err:.3g}) ({card})")
+    # K6 on the whole trace
+    a8 = path["k6"]["addr"]
+    n = path["k6"]["n"]
+    sets, ways = table1_l2()
+    ms = cuda_ms(lambda: ops.cache_sim(a8, n_sets=sets, n_ways=ways),
+                 warmup=1, reps=2)
+    plain_ms = cuda_ms(lambda: ops.cache_sim_ref(a8, n_sets=sets,
+                                                 n_ways=ways),
+                       warmup=1, reps=1)
+    n_bytes = cache_sim_bound_bytes(n, sets, ways)
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    out["k6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, n=n,
+                     shape=[n], geometry=[sets, ways])
+    print(f"[time K6] N={n}, {sets} x {ways}: kernel {ms:.3f} ms "
+          f"({1e6 * ms / 1e3 / n:.4f} us per access), bound {bound:.4f} ms "
+          f"({n_bytes} B at 3.35 TB/s), plain version {plain_ms:.3f} ms "
+          f"({card})")
+    # K7 at the STREAM-sized pair
+    b, c = path["k7"]["b"], path["k7"]["c"]
+    ms = cuda_ms(lambda: ops.stream_triad(b, c, 2.5), warmup=3, reps=20)
+    plain_ms = cuda_ms(lambda: ops.stream_triad_ref(b, c, 2.5), warmup=3,
+                       reps=20)
+    lib_ms = cuda_ms(lambda: torch.add(b, c, alpha=2.5), warmup=3, reps=20)
+    n_bytes = st.bound_bytes(b)
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    out["k7"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound, gbps=n_bytes / ms / 1e6,
+                     shape=list(b.shape))
+    print(f"[time K7] {tuple(b.shape)} f32: kernel {ms:.4f} ms "
+          f"({n_bytes / ms / 1e6:.1f} GB/s, {100 * bound / ms:.1f}% of the "
+          f"bound), bound {bound:.4f} ms ({n_bytes} B at 3.35 TB/s), plain "
+          f"version {plain_ms:.4f} ms, torch.add(b, c, alpha=2.5) "
+          f"{lib_ms:.4f} ms ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times
 # ---------------------------------------------------------------------------
 def k1_times(dev, table1, card):
@@ -1022,6 +1424,26 @@ def main() -> int:
                        serve["r"]["kv"])
     print(f"[parity K4] phase took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 2c. slice 4: K5, K6, K7 against their plain versions ----------
+    t0 = time.perf_counter()
+    a8 = triad_trace_8x(dev)
+    k6_err = k6_parity(dev, gen, a8)
+    k7_err = k7_parity(dev, gen)
+    k5_err = k5_parity(dev, gen)
+    print(f"[parity slice 4] phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3b. slice 4's path: K5 at danube's prefill width, K6, K7 -------
+    t0 = time.perf_counter()
+    s4 = slice4_main_path(dev, serve["cfg"], serve["params"], a8)
+    print(f"[slice 4] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s4_t = slice4_times(s4, serve["cfg"], card)
+    s4_launches = s4["launches"]
+    s4_errs = (s4["k5"]["err"], s4["k6"]["err"], s4["k5w"]["err"])
+    del s4, a8                  # free the slice's inputs before phase 4
+    torch.cuda.empty_cache()
+    print(f"[time slice 4] phase took {time.perf_counter() - t0:.1f} s")
+
     # ---- 4. times ---------------------------------------------------------
     table1 = cache_mod.CacheParams()
     k1_t = k1_times(dev, table1, card)
@@ -1091,7 +1513,45 @@ def main() -> int:
         "library_ms": k4_t["serve"]["library_ms"],
         "library": "scaled_dot_product_attention(enable_gqa=True) on the "
                    "K/V gathered beforehand (gather not timed)",
-        "ctx4096": k4_t["ctx4096"]}]}))
+        "ctx4096": k4_t["ctx4096"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:109",
+        "launches": s4_launches["flash_attention"],
+        "max_abs_err": k5_err[torch.float32],
+        "max_abs_err_bf16": k5_err[torch.bfloat16],
+        "max_abs_err_danube": s4_errs[0],
+        "max_abs_err_windowed": s4_errs[2],
+        "ms": s4_t["causal"]["ms"], "shape": s4_t["causal"]["shape"],
+        "tflops": s4_t["causal"]["tflops"],
+        "plain_ms": s4_t["causal"]["plain_ms"],
+        "bound_ms": s4_t["causal"]["bound_ms"],
+        "bound_by": s4_t["causal"]["bound_by"],
+        "library_ms": s4_t["causal"]["library_ms"],
+        "library": s4_t["causal"]["library"],
+        "library_backend": s4_t["causal"]["library_backend"],
+        "windowed": s4_t["windowed"]}, {
+        "name": "cache_sim", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cache_sim.cu",
+        "replaces": "src/repro/kernels/cache_sim.py:150",
+        "launches": s4_launches["cache_sim"],
+        "max_abs_err": max(k6_err, s4_errs[1]),
+        "ms": s4_t["k6"]["ms"], "shape": s4_t["k6"]["shape"],
+        "geometry": s4_t["k6"]["geometry"],
+        "plain_ms": s4_t["k6"]["plain_ms"],
+        "bound_ms": s4_t["k6"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "stream_triad", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stream_triad.cu",
+        "replaces": "src/repro/kernels/stream_triad.py:42",
+        "launches": s4_launches["stream_triad"],
+        "max_abs_err": k7_err,
+        "ms": s4_t["k7"]["ms"], "shape": s4_t["k7"]["shape"],
+        "gbps": s4_t["k7"]["gbps"],
+        "plain_ms": s4_t["k7"]["plain_ms"],
+        "bound_ms": s4_t["k7"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": s4_t["k7"]["library_ms"],
+        "library": "torch.add(b, c, alpha=2.5)"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

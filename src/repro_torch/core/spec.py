@@ -224,7 +224,12 @@ SSD_READ_GBPS = 6.0                  # sustained media read bandwidth
 SSD_WRITE_GBPS = 2.0                 # sustained media program bandwidth
 
 # The JAX package's planner defaults (memory/tiering.TierSpec): a TPU v5e
-# host.  Inputs of the capacity model, copied as they are; no measurement
-# of the port's card.
+# host.  Inputs of the capacity model, copied as they are; the port keeps
+# them as the named spec `memory.tiering.TPU_V5E`.
 TPU_V5E_HBM_BYTES = 16 * 2**30
 TPU_V5E_PCIE_GBPS = 32e9             # host<->chip staging path
+
+# The card the port runs on, an NVIDIA H100 SXM: data-sheet values (NVIDIA's
+# H100 data sheet), not measurements.  The default `memory.tiering.TierSpec`.
+H100_HBM_BYTES = 80 * 2**30          # 80 GB HBM3
+H100_PCIE_GBPS = 64e9                # PCIe Gen5 x16, each way (128 GB/s both)

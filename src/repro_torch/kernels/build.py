@@ -37,8 +37,10 @@ CSRC = HERE / "csrc"
 BUILD_DIR = HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIBRARIES = ("mesi", "mesi_dyn", "paged_attention")
-KERNELS = ("mesi_segment", "mesi_dyn_segment", "paged_attention")
+LIBRARIES = ("mesi", "mesi_dyn", "paged_attention", "cache_sim",
+             "stream_triad", "flash_attention")
+KERNELS = ("mesi_segment", "mesi_dyn_segment", "paged_attention",
+           "cache_sim", "stream_triad", "flash_attention")
 LAUNCHES: Dict[str, int] = {k + s: 0 for k in KERNELS for s in ("", "_ref")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -28,9 +28,19 @@ per-access body (``csrc/mesi_access.cuh``) with ``csrc/mesi.cu``, and its
 plain version, :func:`mesi_dyn_segment_ref`, loops
 :func:`repro_torch.core.tiering_dyn._slot_step` over the slots.
 
+:func:`cache_sim` (K6) is the single-level set-associative LRU cache, the
+port of the Pallas kernel ``cache_sim`` (``src/repro/kernels/cache_sim.py:
+127``, its ``pallas_call`` at line 150): per-access hits and the final tags
+and use clocks of an (N,) line trace.  Its CUDA kernel is
+``csrc/cache_sim.cu``; its plain version, :func:`cache_sim_ref`, steps all
+sets at once.  JAX's ``chunk`` (a TPU tiling parameter) does not come
+across.  Negative addresses raise: the Pallas body skips them as padding,
+its oracle ``repro.kernels.ref.cache_sim`` treats them as live lines.
+
 The wrappers count kernel launches (``"mesi_segment"``,
-``"mesi_dyn_segment"``) and plain-version calls (``"mesi_segment_ref"``,
-``"mesi_dyn_segment_ref"``) in :data:`repro_torch.kernels.build.LAUNCHES`.
+``"mesi_dyn_segment"``, ``"cache_sim"``) and plain-version calls
+(``"mesi_segment_ref"``, ``"mesi_dyn_segment_ref"``, ``"cache_sim_ref"``)
+in :data:`repro_torch.kernels.build.LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -403,3 +413,136 @@ def mesi_dyn_segment(carry, addr, is_write, core, tier, dyn_flag, n_pages,
     return _launch_dyn(carry, addr, is_write, core, tier, sc.contiguous(),
                        ptl, params=params, k_max=k_max,
                        count_bound=count_bound)
+
+
+# ---------------------------------------------------------------------------
+# The single-level LRU cache (K6)
+# ---------------------------------------------------------------------------
+#: the CUDA kernel spans the ways of a set with one warp
+MAX_WAYS = 32
+_INT32_MAX = 2**31 - 1
+
+
+def _check_cache_sim(addr: torch.Tensor, n_sets: int, n_ways: int) -> None:
+    if addr.ndim != 1:
+        raise ValueError(f"cache_sim expects an (N,) trace, got shape "
+                         f"{tuple(addr.shape)}")
+    if addr.dtype != torch.int32:
+        raise TypeError(f"addr must be int32, got {addr.dtype}")
+    if n_sets <= 0 or n_sets & (n_sets - 1) != 0:
+        raise ValueError(f"n_sets must be a power of two, got {n_sets}")
+    if n_ways < 1:
+        raise ValueError(f"n_ways must be >= 1, got {n_ways}")
+    if addr.shape[0] > _INT32_MAX:
+        raise ValueError("the use clock is int32: at most 2**31 - 1 "
+                         "accesses")
+    # one host sync.  The Pallas body treats a negative address as padding
+    # and the jnp oracle as a live line; the port takes neither side.
+    if addr.numel() and bool((addr < 0).any()):
+        raise ValueError("cache_sim takes line addresses >= 0: the trace "
+                         "holds a negative one")
+
+
+def cache_sim_ref(addr: torch.Tensor, *, n_sets: int, n_ways: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`cache_sim` (same contract).
+
+    Sets never interact, so the trace is grouped by set (keeping each
+    set's order) and stepped one access per set at a time, all sets
+    together: step k applies the k-th access of every set.  A hit takes the
+    first matching way, a miss the first way of least use clock
+    (``argmax`` / ``argmin`` return the first index), and the clock is the
+    access's 1-based position in the trace.
+    """
+    LAUNCHES["cache_sim_ref"] += 1
+    dev = addr.device
+    n = addr.shape[0]
+    tags = torch.full((n_sets, n_ways), -1, dtype=torch.int32, device=dev)
+    use = torch.zeros((n_sets, n_ways), dtype=torch.int32, device=dev)
+    sets = (addr & (n_sets - 1)).to(torch.int64)
+    order = torch.argsort(sets, stable=True)
+    counts = torch.bincount(sets, minlength=n_sets)
+    set_of = sets[order]
+    rank = torch.arange(n, device=dev) - (torch.cumsum(counts, 0)
+                                          - counts)[set_of]
+    steps = int(counts.max())
+    # (n_sets, steps): each set's addresses and clocks in trace order;
+    # clock 0 marks a step the set does not take
+    grid_addr = torch.zeros((n_sets, steps), dtype=torch.int32, device=dev)
+    grid_clock = torch.zeros((n_sets, steps), dtype=torch.int32, device=dev)
+    grid_addr[set_of, rank] = addr[order]
+    grid_clock[set_of, rank] = (order + 1).to(torch.int32)
+    grid_hit = torch.zeros((n_sets, steps), dtype=torch.int32, device=dev)
+    rows = torch.arange(n_sets, device=dev)
+    for k in range(steps):
+        a, t = grid_addr[:, k], grid_clock[:, k]
+        live = t > 0
+        match = tags == a[:, None]
+        hit = match.any(dim=1) & live
+        way = torch.where(hit, match.to(torch.int32).argmax(dim=1),
+                          use.argmin(dim=1))
+        tags[rows, way] = torch.where(live, a, tags[rows, way])
+        use[rows, way] = torch.where(live, t, use[rows, way])
+        grid_hit[:, k] = hit.to(torch.int32)
+    hits = torch.empty(n, dtype=torch.int32, device=dev)
+    hits[order] = grid_hit[set_of, rank]
+    return hits, tags, use
+
+
+def _cache_sim_library() -> ctypes.CDLL:
+    lib = build.load("cache_sim")
+    lib.cache_sim.argtypes = [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P]
+    lib.cache_sim.restype = _I
+    lib.cache_sim_error_string.argtypes = [_I]
+    lib.cache_sim_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_cache_sim(addr: torch.Tensor, n_sets: int, n_ways: int):
+    """The kernel itself, after :func:`_check_cache_sim`."""
+    if n_ways > MAX_WAYS:
+        raise ValueError(f"the kernel spans ways with one warp: n_ways "
+                         f"must be <= {MAX_WAYS}, got {n_ways}")
+    a32 = addr.contiguous()
+    dev = addr.device
+    hits = torch.empty(a32.shape[0], dtype=torch.int32, device=dev)
+    tags = torch.empty((n_sets, n_ways), dtype=torch.int32, device=dev)
+    use = torch.empty((n_sets, n_ways), dtype=torch.int32, device=dev)
+    lib = _cache_sim_library()
+    rc = lib.cache_sim(
+        a32.data_ptr(), hits.data_ptr(), tags.data_ptr(), use.data_ptr(),
+        a32.shape[0], n_sets, n_ways,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cache_sim kernel failed: CUDA error {rc} "
+                           f"({lib.cache_sim_error_string(rc).decode()})")
+    LAUNCHES["cache_sim"] += 1
+    return hits, tags, use
+
+
+def cache_sim(addr: torch.Tensor, *, n_sets: int, n_ways: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-level set-associative LRU cache over an (N,) line trace.
+
+    ``addr`` is int32 and holds no negative address; ``n_sets`` must be a
+    power of two.
+    Returns ``(hits (N,) int32, tags (n_sets, n_ways) int32, use
+    (n_sets, n_ways) int32)``: per-access hit flags, the final tags (-1 =
+    empty) and the final use clocks (the 1-based position of each way's
+    last access).  A CUDA ``addr`` launches the kernel ``csrc/cache_sim.cu``
+    (or raises); a CPU ``addr`` runs :func:`cache_sim_ref`.
+    """
+    _check_cache_sim(addr, n_sets, n_ways)
+    if addr.device.type == "cuda":
+        return _launch_cache_sim(addr, n_sets, n_ways)
+    if addr.device.type != "cpu":
+        raise ValueError(f"cache_sim runs on CUDA or CPU tensors, got "
+                         f"{addr.device}")
+    return cache_sim_ref(addr, n_sets=n_sets, n_ways=n_ways)
+
+
+def cache_sim_bound_bytes(n: int, n_sets: int, n_ways: int) -> int:
+    """Bytes one call must move at least: the trace read and the hit flags
+    written (4 B each per access), the final tags and clocks written."""
+    return 8 * n + 8 * n_sets * n_ways

@@ -37,20 +37,25 @@ class TierSpec:
     Units are explicit and match :class:`repro_torch.core.timing.TimingConfig`
     throughout: every ``*_bytes`` field is **bytes**, every ``*_gbps``
     field is **GB/s** (= bytes/ns), never the raw bytes/s of the
-    ``repro_torch.core.spec`` hardware constants (``TPU_V5E_PCIE_GBPS`` et al.
+    ``repro_torch.core.spec`` hardware constants (``H100_PCIE_GBPS`` et al.
     are bytes/s and get converted exactly once, here).  Both the static
     planner below and the dynamic tierer
     (:class:`repro_torch.core.tiering_dyn.DynamicTiering`, via
     :func:`dynamic_tiering`) draw their DRAM/CXL capacities from this
     spec instead of re-declaring constants.
+
+    The default describes the card the port runs on, one H100 SXM per host
+    (its data sheet's HBM and PCIe figures); the host's DRAM and CXL pool
+    are the JAX package's.  :data:`TPU_V5E` is the JAX package's default,
+    a TPU v5e host, field for field.
     """
-    hbm_bytes_per_device: int = int(spec.TPU_V5E_HBM_BYTES)
+    hbm_bytes_per_device: int = int(spec.H100_HBM_BYTES)
     hbm_reserved_frac: float = 0.10          # runtime/fragmentation reserve
-    devices_per_host: int = 4                # v5e host topology
+    devices_per_host: int = 1                # one card
     host_dram_bytes: int = 128 * GiB         # bytes
     cxl_bytes: int = 512 * GiB               # bytes
     # chip<->host staging path, GB/s (spec constant is bytes/s)
-    host_staging_gbps: float = spec.TPU_V5E_PCIE_GBPS / 1e9
+    host_staging_gbps: float = spec.H100_PCIE_GBPS / 1e9
 
     @property
     def hbm_budget(self) -> int:
@@ -65,6 +70,12 @@ class TierSpec:
     def cxl_pages(self) -> int:
         """CXL-pool capacity in 4 KiB pages."""
         return self.cxl_bytes // PAGE_BYTES
+
+
+#: The JAX package's ``TierSpec()``: a TPU v5e host of four chips.
+TPU_V5E = TierSpec(hbm_bytes_per_device=int(spec.TPU_V5E_HBM_BYTES),
+                   devices_per_host=4,
+                   host_staging_gbps=spec.TPU_V5E_PCIE_GBPS / 1e9)
 
 
 def dynamic_tiering(tier: Optional[TierSpec] = None,

@@ -149,7 +149,10 @@ def _reduce(x: torch.Tensor, cfg):
     return x.dtype if cfg.tp_reduce_bf16 else None
 
 
-def _projected(params: Dict, x: torch.Tensor, cfg, positions, seq_shard):
+def projected_qkv(params: Dict, x: torch.Tensor, cfg, positions,
+                  seq_shard: bool):
+    """The attention's q (B, S, H, D), k and v (B, S, K, D) of the
+    normalised input `x`: projected, qk-normed, with positions applied."""
     q, k, v = _qkv(params, x, cfg)
     if cfg.qk_norm:
         q = rmsnorm(params["qnorm"], q, cfg.norm_eps)
@@ -166,7 +169,7 @@ def attention(params: Dict, x: torch.Tensor, cfg, positions,
               seq_shard: bool = False) -> torch.Tensor:
     """Full/SWA attention over a whole sequence."""
     b, s, _ = x.shape
-    q, k, v = _projected(params, x, cfg, positions, seq_shard)
+    q, k, v = projected_qkv(params, x, cfg, positions, seq_shard)
     win = window if window is not None else cfg.window
     o = blockwise_attention(q, k, v, causal=True, window=win)
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
@@ -184,7 +187,7 @@ def attention_prefill(params: Dict, x: torch.Tensor, cfg, positions,
     (p mod window) carries token p — the invariant :func:`attention_decode`
     maintains."""
     b, s, _ = x.shape
-    q, k, v = _projected(params, x, cfg, positions, seq_shard)
+    q, k, v = projected_qkv(params, x, cfg, positions, seq_shard)
     win = window if window is not None else cfg.window
     o = blockwise_attention(q, k, v, causal=True, window=win,
                             kv_chunk=cfg.kv_chunk)

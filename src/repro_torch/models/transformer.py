@@ -200,6 +200,29 @@ def _positions(cfg, batch: int, seq: int,
                         device=device).expand(batch, seq)
 
 
+def _prefill_inputs(params: Dict, cfg, tokens: torch.Tensor,
+                    positions: Optional[torch.Tensor],
+                    vision: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prefill's embedded tokens (B, S, d) and their positions."""
+    x = _embed_inputs(params, cfg, tokens, vision)
+    return x, _positions(cfg, x.shape[0], tokens.shape[-1], positions,
+                         x.device)
+
+
+def prefill_layer0_qkv(params: Dict, cfg, tokens: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Layer 0's q (B, S, H, D), k and v (B, S, K, D) on `tokens`, with
+    positions applied, as :func:`forward_prefill` hands them to its first
+    attention (an attention block)."""
+    _check_ported(segments(cfg)[0].pattern[0], cfg)
+    x, pos = _prefill_inputs(params, cfg, tokens, None, None)
+    p = params["segments"][0][0]["b0"]
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    return attn_mod.projected_qkv(p["attn"], h, cfg, pos,
+                                  cfg.attn_seq_shard)
+
+
 def _head(params: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         table = params["embed"]["table"].to(x.dtype)
@@ -234,9 +257,7 @@ def forward_prefill(params: Dict, cfg, tokens: torch.Tensor,
                     vision: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, List]:
     """Returns (last-token logits (B, 1, V), caches[seg][period])."""
-    b, s = tokens.shape[0], tokens.shape[-1]
-    x = _embed_inputs(params, cfg, tokens, vision)
-    pos = _positions(cfg, b, s, positions, x.device)
+    x, pos = _prefill_inputs(params, cfg, tokens, positions, vision)
     caches: List = []
     for seg, seg_params in zip(segments(cfg), params["segments"]):
         seg_cache = []

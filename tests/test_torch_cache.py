@@ -82,9 +82,8 @@ def test_mesi_cache_sim_plain_counts_calls():
     trace = mixed_batch(3, 200, 2, 2)
     tops.reset_launches()
     got = tkernels.mesi_cache_sim(*as_torch(*trace), params=tp)
-    assert tops.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 1,
-                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
-                             "paged_attention": 0, "paged_attention_ref": 0}
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                  mesi_segment_ref=1)
     assert_same(got, jengine.run_traces(jp, *trace))
 
 

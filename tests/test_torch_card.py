@@ -2,7 +2,9 @@
 versions, bitwise; paged attention (K4) against its plain version within
 rtol = atol = 3e-5 (f32 pools and queries) or 2e-2 (bf16: the kernel and
 the plain version round the bf16 output of the same f32 sums; one bf16
-ulp at |x| < 2 is 7.8e-3 or less), and the serving loop on the card.
+ulp at |x| < 2 is 7.8e-3 or less), and the serving loop on the card; the
+single-level LRU cache (K6) and the STREAM triad (K7) bitwise, and the
+blockwise attention (K5) within the JAX test's 3e-5 (f32) or 3e-2 (bf16).
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one.  The file imports no JAX, so it runs on a machine that has
@@ -26,6 +28,8 @@ from repro_torch.core.machine import CPUModel
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import cache_sim as tkernels
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import stream_triad as ttriad
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.launch import serve as tserve
@@ -70,9 +74,8 @@ def test_kernel_matches_plain_version(card, cores, n_targets):
     tops.reset_launches()
     kern = tkernels.mesi_cache_sim(*trace, params=p)
     plain = tkernels.mesi_cache_sim(*trace, params=p, backend="reference")
-    assert tops.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 1,
-                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
-                             "paged_attention": 0, "paged_attention_ref": 0}
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                  mesi_segment=1, mesi_segment_ref=1)
     assert_same(kern, plain)
 
 
@@ -112,9 +115,8 @@ def test_main_path_runs_on_the_kernel(card):
         cpus=(CPUModel(kind="inorder"), CPUModel(kind="o3")))
     tops.reset_launches()
     on_card = tengine.run_sweep(spec, p, TimingConfig())
-    assert tops.LAUNCHES == {"mesi_segment": 1, "mesi_segment_ref": 0,
-                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
-                             "paged_attention": 0, "paged_attention_ref": 0}
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                  mesi_segment=1)
     assert on_card == tengine.run_sweep(spec, p, TimingConfig(), device="cpu")
 
 
@@ -218,9 +220,8 @@ def test_paged_attention_kernel_matches_plain_version(card, d, groups, dtype):
     kern = tops.paged_attention(*args)
     plain = tpa.paged_attention_ref(*args)
     torch.cuda.synchronize()
-    assert tops.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 0,
-                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
-                             "paged_attention": 1, "paged_attention_ref": 1}
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                  paged_attention=1, paged_attention_ref=1)
     assert kern.dtype == args[0].dtype and kern.shape == args[0].shape
     tol = 3e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
@@ -244,9 +245,8 @@ def test_serve_runs_on_the_card(card):
     tops.reset_launches()
     r = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
                    hbm_pages=5)
-    assert tops.LAUNCHES == {"mesi_segment": 0, "mesi_segment_ref": 0,
-                             "mesi_dyn_segment": 0, "mesi_dyn_segment_ref": 0,
-                             "paged_attention": 3, "paged_attention_ref": 0}
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                  paged_attention=3)
     assert r["logits_finite"] and r["kv_stats"]["demotions"] > 0
     q, kp, vp, bt, cl = r["last_attn_inputs"]
     assert q.is_cuda and kp.is_cuda and bt.dtype == torch.int32
@@ -257,3 +257,89 @@ def test_serve_runs_on_the_card(card):
                         hbm_pages=5, device="cpu")
     assert r["kv_stats"] == on_cpu["kv_stats"]
     assert r["tier_histogram"] == on_cpu["tier_histogram"]
+
+
+@pytest.mark.parametrize("n_sets,n_ways,n,span", [
+    (16, 2, 256, 4), (64, 4, 1024, 4), (128, 8, 555, 4), (32, 1, 333, 4),
+    (2048, 16, 5000, 3), (4, 32, 777, 2)])
+def test_cache_sim_kernel_matches_plain_version(card, n_sets, n_ways, n,
+                                                span):
+    rng = np.random.default_rng(n)
+    addr = torch.from_numpy(rng.integers(0, n_sets * n_ways * span, n)
+                            .astype(np.int32)).to(card)
+    tops.reset_launches()
+    kern = tops.cache_sim(addr, n_sets=n_sets, n_ways=n_ways)
+    plain = tops.cache_sim_ref(addr, n_sets=n_sets, n_ways=n_ways)
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                 cache_sim=1, cache_sim_ref=1)
+    for k, p in zip(kern, plain):
+        assert k.is_cuda and torch.equal(k, p)
+    bad = addr.clone()
+    bad[n // 2] = -1
+    with pytest.raises(ValueError, match="negative"):
+        tops.cache_sim(bad, n_sets=n_sets, n_ways=n_ways)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (16, 1000), (64, 4097)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [2.5, 0.1])
+def test_stream_triad_kernel_matches_plain_version(card, shape, dtype, s):
+    rng = np.random.default_rng(shape[1])
+    b, c = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(card, getattr(torch, dtype)) for _ in range(2))
+    tops.reset_launches()
+    kern = tops.stream_triad(b, c, s)
+    plain = tops.stream_triad_ref(b, c, s)
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                 stream_triad=1, stream_triad_ref=1)
+    assert kern.dtype == b.dtype and torch.equal(kern, plain)
+    # a misaligned view takes the kernel's scalar path
+    off = ttriad.stream_triad(b.view(-1)[1:1 + 8 * 100].view(8, 100),
+                              c.view(-1)[3:3 + 8 * 100].view(8, 100), s)
+    assert torch.equal(off, ttriad.stream_triad_ref(
+        b.view(-1)[1:801].view(8, 100), c.view(-1)[3:803].view(8, 100), s))
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,win,causal,dtype", [
+    (2, 4, 128, 128, 64, None, True, "float32"),
+    (1, 2, 128, 256, 64, None, True, "float32"),
+    (2, 4, 256, 256, 64, 64, True, "float32"),
+    (1, 2, 128, 128, 128, None, True, "bfloat16"),
+    (1, 8, 384, 384, 32, 128, True, "float32"),
+    (1, 2, 256, 256, 120, None, True, "float32"),
+    (1, 2, 256, 128, 120, None, True, "bfloat16"),
+    (1, 2, 128, 256, 64, None, False, "float32"),
+    (1, 2, 256, 256, 64, 20, True, "float32"),
+    (1, 2, 128, 128, 32, 1000, True, "float32"),
+    (1, 1, 24, 24, 16, None, True, "float32"),
+])
+def test_flash_attention_kernel_matches_plain_version(card, b, h, sq, sk, d,
+                                                      win, causal, dtype):
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(card, getattr(torch, dtype))
+               for s in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
+    tops.reset_launches()
+    kern = tops.flash_attention(q, k, v, causal=causal, window=win)
+    plain = tfa.flash_attention_ref(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                 flash_attention=1, flash_attention_ref=1)
+    assert kern.dtype == q.dtype and kern.shape == q.shape
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    if sq > sk and causal:
+        assert torch.all(kern[:, :, :sq - sk] == 0)
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
+    q = torch.zeros((1, 2, 128, 16), device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="share a dtype"):
+        tops.flash_attention(q, q.bfloat16(), q)
+    big = torch.zeros((1, 1, 128, 136), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        tops.flash_attention(big, big, big)
+

@@ -160,10 +160,40 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     before = build._target("k")
     (tmp_path / "b.cuh").write_text("// v2\n")
     assert build._target("k") != before
-    assert set(build.LIBRARIES) == {"mesi", "mesi_dyn", "paged_attention"}
+    assert set(build.LIBRARIES) == {"mesi", "mesi_dyn", "paged_attention",
+                                    "cache_sim", "stream_triad",
+                                    "flash_attention"}
     monkeypatch.setattr(build, "CSRC", build.HERE / "csrc")
-    for name in ("mesi", "mesi_dyn"):
+    for name in ("mesi", "mesi_dyn", "cache_sim"):
         assert [p.name for p in build.sources(name)] == [
             f"{name}.cu", "mesi_access.cuh"]
-    assert [p.name for p in build.sources("paged_attention")] == [
-        "paged_attention.cu"]
+    for name in ("paged_attention", "stream_triad", "flash_attention"):
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu"]
+
+
+_BUILD_PROBE = """
+import importlib, pkgutil, subprocess
+def refuse(*a, **k):
+    raise AssertionError("a module ran a process while it was imported")
+subprocess.Popen = refuse
+import repro_torch
+from repro_torch.kernels import build
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+from repro_torch.kernels import cache_sim, flash_attention, ops, stream_triad
+assert build.load.cache_info().currsize == 0
+for mod in (flash_attention, stream_triad):
+    assert mod._library.cache_info().currsize == 0
+print(sorted(n for n in dir(ops) if not n.startswith("_")))
+"""
+
+
+def test_importing_the_kernels_builds_nothing():
+    out = subprocess.run(
+        [sys.executable, "-c", _BUILD_PROBE], capture_output=True, text=True,
+        check=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    names = set(ast.literal_eval(out.stdout))
+    for k in ("cache_sim", "stream_triad", "flash_attention",
+              "paged_attention"):
+        assert {k, k + "_ref"} <= names

@@ -264,18 +264,44 @@ def test_memory_planner_matches_jax(arch):
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert ttiering.kv_bytes_per_token(tcfg) == \
         jtiering.kv_bytes_per_token(jcfg)
+    # the port's default describes its card; the JAX default is its
+    # named v5e spec, which the port is held to here
+    v5e = ttiering.TPU_V5E
+    assert dataclasses.asdict(v5e) == dataclasses.asdict(jtiering.TierSpec())
     for kw in (dict(), dict(n_devices=16, batch=8, context=4096)):
         want = jtiering.plan_serving(jcfg, **kw)
-        assert dataclasses.asdict(ttiering.plan_serving(tcfg, **kw)) == \
-            dataclasses.asdict(want)
+        assert dataclasses.asdict(ttiering.plan_serving(
+            tcfg, tier=v5e, **kw)) == dataclasses.asdict(want)
     for kw in (dict(), dict(n_devices=16, step_compute_s=0.5)):
         want = jtiering.plan_training(jcfg, **kw)
-        got = ttiering.plan_training(tcfg, **kw)
+        got = ttiering.plan_training(tcfg, tier=v5e, **kw)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert dataclasses.asdict(toffload.schedule(
             got, n_layers=tcfg.n_layers, step_compute_s=0.5)) == \
             dataclasses.asdict(joffload.schedule(
                 want, n_layers=jcfg.n_layers, step_compute_s=0.5))
     assert dataclasses.asdict(ttiering.dynamic_tiering(
-        dram_share=0.25, budget=8)) == dataclasses.asdict(
+        v5e, dram_share=0.25, budget=8)) == dataclasses.asdict(
         jtiering.dynamic_tiering(dram_share=0.25, budget=8))
+
+
+def test_tier_spec_default_describes_the_card():
+    """The port's planner defaults to one H100 SXM per host (its data
+    sheet's 80 GB of HBM and PCIe Gen5 x16), not the JAX package's v5e."""
+    from repro_torch.core import spec as tspec
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.memory import tiering as ttiering
+    card, v5e = ttiering.TierSpec(), ttiering.TPU_V5E
+    assert card.hbm_bytes_per_device == tspec.H100_HBM_BYTES == 80 * 2**30
+    assert card.devices_per_host == 1 and card.host_staging_gbps == 64.0
+    assert (card.host_dram_bytes, card.cxl_bytes) == (v5e.host_dram_bytes,
+                                                      v5e.cxl_bytes)
+    assert card.dram_pages == v5e.dram_pages
+    # danube's weights (7.9 GB) and a 16 x 32k-token KV cache on one card:
+    # the v5e's 14.4 GiB budget spills KV to CXL, the card's 72 GiB less
+    cfg = tget_config("h2o-danube-3-4b")
+    kw = dict(n_devices=1, batch=16, context=32768)
+    on_card = ttiering.plan_serving(cfg, **kw)
+    on_v5e = ttiering.plan_serving(cfg, tier=v5e, **kw)
+    assert on_card.hbm_bytes > on_v5e.hbm_bytes
+    assert on_card.cxl_bytes < on_v5e.cxl_bytes
