@@ -8,7 +8,9 @@ makes the script exit non-zero:
 
 1. print the card's name and power limit, and build the six kernel
    libraries from ``src/repro_torch/kernels/csrc`` (one `nvcc` each, started
-   together; timed, with the ptxas report);
+   together; timed, with the ptxas report); count the tensor-core
+   instructions (``HGMMA``, ``HMMA``) in the flash-attention library's SASS
+   (``cuobjdump -sass``), and fail if it has no ``HGMMA``;
 2. hold each MESI kernel against its plain PyTorch version on the card,
    bitwise.  The MESI kernel (K1/K2, ``mesi.cu``): random small-geometry
    batches (1, 2 and 4 cores, 2 and 3 targets, sentinel tails) resident
@@ -53,12 +55,14 @@ makes the script exit non-zero:
    and the Table-I L2 (2048 x 16) on the 8 x L2 triad prefix and on a
    trace crowded into four sets; the STREAM triad (K7, ``stream_triad.cu``)
    bitwise in f32 and bf16 with s = 2.5 and 0.1 from (8, 128) up to
-   (32768, 4096); blockwise attention (K5, ``flash_attention.cu``) on the
-   JAX test's five cases, D = 120, Sq < Sk and Sq > Sk, windows shorter
-   than a tile and longer than the sequence, and non-causal (rtol = atol =
-   3e-5 in f32, 3e-2 in bf16);
+   (32768, 4096); blockwise attention (K5, ``flash_attention.cu``: bf16
+   with D % 8 == 0 on its tensor-core kernel, the rest on its CUDA-core
+   kernel) on the JAX test's five cases, D = 120, Sq < Sk and Sq > Sk,
+   windows shorter than a tile and longer than the sequence, and
+   non-causal (rtol = atol = 3e-5 in f32, 3e-2 in bf16);
    3b. slice 4's path through ``kernels.ops`` at full width, each call one
-   kernel launch and no plain-version call: K5 on h2o-danube-3-4b's
+   kernel launch and no plain-version call (K5's on its tensor-core
+   variant, by the per-variant count): K5 on h2o-danube-3-4b's
    layer-0 attention on a 4096-token prompt (the served model's weights,
    kv heads repeated to 32), and on a seeded (1, 32, 8192, 120) bf16 case
    at the model's 4096 window, both held against the plain version
@@ -71,8 +75,11 @@ makes the script exit non-zero:
    warm-up), the plain versions on their Table-I parity batches, K4 at the
    serve loop's shapes and at a 4096-token decode beside SDPA on the
    gathered K/V, K5-K7 at slice 4's shapes beside their plain versions and
-   SDPA / ``torch.add``, compute the bounds, and profile the main paths once
-   to split their wall time into device kernels and the rest;
+   SDPA / ``torch.add`` (K5's tensor-core kernel also beside its CUDA-core
+   kernel on the same bf16 inputs; K7 in three rounds between
+   ``torch.add`` calls), compute
+   the bounds, and profile the main paths once to split their wall time
+   into device kernels and the rest;
 5. print ``{"kernels": [...]}`` (all seven TPU kernels, K2 with K1) and,
    last, ``{"ok": true, "device": ...}``.
 
@@ -107,6 +114,17 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def tensor_core_instructions(name: str = "flash_attention"):
+    """Counts of the tensor-core instructions in library `name`'s SASS:
+    ``{"HGMMA": n, "HMMA": n}`` (wgmma and mma.sync)."""
+    from repro_torch.kernels import build
+    cuobjdump = pathlib.Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build._target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {op: sass.count(op + ".") for op in ("HGMMA", "HMMA")}
 
 
 def cuda_ms(fn, warmup: int = 1, reps: int = 1) -> float:
@@ -898,8 +916,10 @@ def k7_parity(dev, gen, largest=TRIAD_SHAPE):
 def k5_parity(dev, gen):
     """K5 against its plain version: the JAX test's five cases, D = 120,
     Sq < Sk and Sq > Sk, windows shorter than a tile and longer than the
-    sequence, non-causal (rtol = atol = 3e-5 in f32, 3e-2 in bf16)."""
+    sequence, non-causal, a 24-row sequence, and bf16 at D = 12 (on the
+    CUDA cores) (rtol = atol = 3e-5 in f32, 3e-2 in bf16)."""
     import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     tol = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -916,7 +936,12 @@ def k5_parity(dev, gen):
              (1, 2, 256, 256, 64, 20, True, bf16),
              (1, 2, 256, 256, 64, 1000, True, f32),
              (1, 2, 256, 384, 64, None, False, f32),
-             (1, 2, 256, 256, 64, 100, False, f32)]
+             (1, 2, 256, 256, 64, 100, False, f32),
+             (1, 1, 24, 24, 16, None, True, bf16),
+             (1, 2, 512, 128, 120, None, True, bf16),
+             (1, 2, 256, 384, 64, None, False, bf16),
+             (1, 2, 256, 256, 128, 1000, True, bf16),
+             (1, 2, 128, 128, 12, None, True, bf16)]
     for b, h, sq, sk, d, win, causal, dtype in cases:
         q, k, v = (torch.randn(s, generator=gen).to(dev, dtype)
                    for s in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
@@ -931,7 +956,8 @@ def k5_parity(dev, gen):
         if sq > sk and causal:
             ok = ok and bool((kern[:, :, :sq - sk] == 0).all())
         print(f"[parity K5] B={b} H={h} Sq={sq} Sk={sk} D={d} window={win} "
-              f"causal={causal} {str(dtype)[6:]}: max|kernel - plain| = "
+              f"causal={causal} {str(dtype)[6:]} ({fa.variant(dtype, d)}): "
+              f"max|kernel - plain| = "
               f"{err:.3g} (tolerance {tol[dtype]:g}, rtol = atol)")
         if not ok:
             raise AssertionError(f"K5 disagrees with its plain version: "
@@ -996,6 +1022,24 @@ def read_launches(kernel: str):
     return launches
 
 
+def reset_k5_launches():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    fa.reset_variant_launches()
+
+
+def read_k5_launches():
+    """One K5 launch, on its tensor-core variant (the danube shapes are
+    bf16 with D = 120)."""
+    from repro_torch.kernels import flash_attention as fa
+    launches = read_launches("flash_attention")
+    if fa.VARIANT_LAUNCHES != {"tensor_cores": 1, "cuda_cores": 0}:
+        raise AssertionError(f"K5 on the main path ran the variants "
+                             f"{fa.VARIANT_LAUNCHES}, not the tensor cores")
+    return dict(launches, variants=dict(fa.VARIANT_LAUNCHES))
+
+
 def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
                      triad_shape=TRIAD_SHAPE):
     """Slice 4's path through kernels.ops at full width, the launch counts
@@ -1010,10 +1054,10 @@ def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
     # K5: the model's layer-0 attention on a `seq`-token prompt
     q, k, v = danube_layer0_qkv(cfg, params, seq, dev)
     qh, kh, vh = heads_first(q, k, v, cfg.n_heads)
-    ops.reset_launches()
+    reset_k5_launches()
     got = ops.flash_attention(qh, kh, vh, causal=True, window=cfg.window)
     torch.cuda.synchronize()
-    launches = read_launches("flash_attention")
+    launches = read_k5_launches()
     plain = ops.flash_attention_ref(qh, kh, vh, causal=True,
                                     window=cfg.window)
     block = blockwise_attention(q, k, v, causal=True, window=cfg.window,
@@ -1038,10 +1082,10 @@ def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
     wq, wk, wv = (torch.randn((1, cfg.n_heads, 2 * seq, cfg.head_dim),
                               generator=gen, device=dev,
                               dtype=torch.bfloat16) for _ in range(3))
-    ops.reset_launches()
+    reset_k5_launches()
     got_w = ops.flash_attention(wq, wk, wv, causal=True, window=cfg.window)
     torch.cuda.synchronize()
-    launches_w = read_launches("flash_attention")
+    launches_w = read_k5_launches()
     plain_w = plain_by_heads(wq, wk, wv, 4, causal=True, window=cfg.window)
     agree_w = k5_agreement(got_w, plain_w, K5_PATH_TOL, K5_PATH_RMS)
     err_w = {"plain": agree_w["max"], "ref_rms": agree_w["ref_rms"],
@@ -1088,7 +1132,11 @@ def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
         raise AssertionError("K7 at full size disagrees")
     out["k7"] = dict(b=b, c=c)
     out["launches"] = {
-        "flash_attention": sum(launches.values()) + sum(launches_w.values()),
+        "flash_attention": (launches["flash_attention"]
+                            + launches_w["flash_attention"]),
+        "flash_attention_variants": {
+            k: launches["variants"][k] + launches_w["variants"][k]
+            for k in launches["variants"]},
         "cache_sim": sum(launches6.values()),
         "stream_triad": sum(launches7.values())}
     return out
@@ -1101,6 +1149,29 @@ def sdpa_backend(q, k, v, **kw) -> str:
     import torch
     from torch.nn.attention import SDPBackend
     return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+
+
+def cuda_core_k5(q, k, v, window):
+    """K5's CUDA-core kernel (the first port's) on contiguous causal bf16
+    inputs, which the wrapper sends to the tensor-core kernel: called
+    through the library's own symbol, as the yardstick that the tensor-core
+    kernel is timed against."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    device = (q.device.index if q.device.index is not None
+              else torch.cuda.current_device())
+    lib = fa._library()
+    rc = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
+        k.shape[2], d, 1, 1, window, d ** -0.5, 1, device,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the CUDA-core flash_attention kernel failed: "
+                           f"CUDA error {rc} "
+                           f"({lib.flash_attention_error_string(rc).decode()})")
+    return out
 
 
 def slice4_times(path, cfg, card):
@@ -1121,6 +1192,10 @@ def slice4_times(path, cfg, card):
         q, k, v = case["q"], case["k"], case["v"]
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), warmup=1,
                      reps=5)
+        # the CUDA-core kernel it replaces on bf16, on the same inputs
+        qkv = [x.contiguous() for x in (q, k, v)]
+        cc_ms = cuda_ms(lambda: cuda_core_k5(*qkv, kw["window"]), warmup=1,
+                        reps=2)
         plain_ms = cuda_ms(lambda: plain_by_heads(q, k, v, parts, **kw),
                            warmup=1, reps=2)
         sq = q.shape[2]
@@ -1141,13 +1216,15 @@ def slice4_times(path, cfg, card):
             q, k, v, **kw).float()).abs().max())
         backend = sdpa_backend(q, k, v, **lib_kw)
         bound, by, n_bytes, flops = fa.bound_ms(q, k, **kw)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        out[name] = dict(ms=ms, cuda_cores_ms=cc_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms,
                          library=lib_note, library_backend=backend,
                          library_err=lib_err, bound_ms=bound, bound_by=by,
                          tflops=flops / ms / 1e9, shape=list(q.shape),
                          flops=flops, bytes=n_bytes)
         print(f"[time K5] {name} {tuple(q.shape)} bf16 window {kw['window']}"
-              f": kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), bound "
+              f": tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+              f"TFLOP/s), CUDA-core kernel {cc_ms:.3f} ms, bound "
               f"{bound:.4f} ms ({by}: {flops} flops at 989 TFLOP/s, "
               f"{n_bytes} B at 3.35 TB/s), plain version {plain_ms:.3f} ms, "
               f"{lib_note} {lib_ms:.3f} ms via {backend} (max|SDPA - "
@@ -1169,22 +1246,33 @@ def slice4_times(path, cfg, card):
           f"({1e6 * ms / 1e3 / n:.4f} us per access), bound {bound:.4f} ms "
           f"({n_bytes} B at 3.35 TB/s), plain version {plain_ms:.3f} ms "
           f"({card})")
-    # K7 at the STREAM-sized pair
+    # K7 at the STREAM-sized pair, timed in rounds between torch.add calls
     b, c = path["k7"]["b"], path["k7"]["c"]
-    ms = cuda_ms(lambda: ops.stream_triad(b, c, 2.5), warmup=3, reps=20)
+    times, add_ms = [], []
+    for _ in range(3):
+        add_ms.append(cuda_ms(lambda: torch.add(b, c, alpha=2.5), warmup=3,
+                              reps=20))
+        times.append(cuda_ms(lambda: ops.stream_triad(b, c, 2.5), warmup=3,
+                             reps=20))
+        add_ms.append(cuda_ms(lambda: torch.add(b, c, alpha=2.5), warmup=3,
+                              reps=20))
+    ms = sum(times) / len(times)
     plain_ms = cuda_ms(lambda: ops.stream_triad_ref(b, c, 2.5), warmup=3,
                        reps=20)
-    lib_ms = cuda_ms(lambda: torch.add(b, c, alpha=2.5), warmup=3, reps=20)
+    lib_ms = sum(add_ms) / len(add_ms)
     n_bytes = st.bound_bytes(b)
     bound = n_bytes / HBM_BYTES_PER_S * 1e3
-    out["k7"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+    out["k7"] = dict(ms=ms, runs=times, plain_ms=plain_ms,
+                     library_ms=lib_ms, library_runs=add_ms,
                      bound_ms=bound, gbps=n_bytes / ms / 1e6,
                      shape=list(b.shape))
-    print(f"[time K7] {tuple(b.shape)} f32: kernel {ms:.4f} ms "
-          f"({n_bytes / ms / 1e6:.1f} GB/s, {100 * bound / ms:.1f}% of the "
+    print(f"[time K7] {tuple(b.shape)} f32: kernel {ms:.4f} ms over three "
+          f"rounds (" + ", ".join(f"{x:.4f}" for x in times) + f"; "
+          f"{n_bytes / ms / 1e6:.1f} GB/s, {100 * bound / ms:.1f}% of the "
           f"bound), bound {bound:.4f} ms ({n_bytes} B at 3.35 TB/s), plain "
           f"version {plain_ms:.4f} ms, torch.add(b, c, alpha=2.5) "
-          f"{lib_ms:.4f} ms ({card})")
+          f"{lib_ms:.4f} ms (runs " + ", ".join(f"{x:.4f}" for x in add_ms)
+          + f") ({card})")
     return out
 
 
@@ -1392,8 +1480,13 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "setmaxnreg" in line:
                 print(f"[build] {name}: {line.strip()}")
+    sass = tensor_core_instructions("flash_attention")
+    print(f"[build] flash_attention SASS: {sass['HGMMA']} HGMMA (wgmma), "
+          f"{sass['HMMA']} HMMA (mma.sync) instructions")
+    if not sass["HGMMA"]:
+        fail("the flash-attention library has no HGMMA instruction")
 
     # ---- 2. kernels against plain versions, on the card ----------------
     sim = CXLRAMSim(SimConfig())               # the Table-I host, on cuda
@@ -1522,8 +1615,11 @@ def main() -> int:
         "max_abs_err_bf16": k5_err[torch.bfloat16],
         "max_abs_err_danube": s4_errs[0],
         "max_abs_err_windowed": s4_errs[2],
+        "variant_launches": s4_launches["flash_attention_variants"],
+        "sass": sass,
         "ms": s4_t["causal"]["ms"], "shape": s4_t["causal"]["shape"],
         "tflops": s4_t["causal"]["tflops"],
+        "cuda_cores_ms": s4_t["causal"]["cuda_cores_ms"],
         "plain_ms": s4_t["causal"]["plain_ms"],
         "bound_ms": s4_t["causal"]["bound_ms"],
         "bound_by": s4_t["causal"]["bound_by"],
@@ -1547,6 +1643,8 @@ def main() -> int:
         "launches": s4_launches["stream_triad"],
         "max_abs_err": k7_err,
         "ms": s4_t["k7"]["ms"], "shape": s4_t["k7"]["shape"],
+        "runs_ms": s4_t["k7"]["runs"],
+        "library_runs_ms": s4_t["k7"]["library_runs"],
         "gbps": s4_t["k7"]["gbps"],
         "plain_ms": s4_t["k7"]["plain_ms"],
         "bound_ms": s4_t["k7"]["bound_ms"], "bound_by": "bytes",

@@ -20,11 +20,16 @@
 // negligible.  At (32768, 4096) f32 that is 1.61 GB, 0.481 ms.
 //
 // What the design does about it: 16-byte vector loads and stores (four
-// f32 or eight bf16 per thread per step), neighbouring threads on
-// neighbouring addresses, a grid-stride loop over the whole array with
-// enough 256-thread blocks (8 per SM) to keep every SM's loads in flight;
-// a scalar tail for the last n mod (16 / sizeof(T)) elements, and a scalar
-// path for arrays that are not 16-byte aligned.
+// f32 or eight bf16 per thread), neighbouring threads on neighbouring
+// addresses, and a grid sized to the work: one vector per thread and no
+// grid-stride loop, as PyTorch's vectorised elementwise launch does; a
+// scalar tail for the last n mod (16 / sizeof(T)) elements, and a scalar
+// path for arrays that are not 16-byte aligned.  The first port's
+// grid-stride loop over 8 blocks per SM took 4.8-7.8% longer than
+// torch.add; the sized grid reads level with it.  More loads in flight
+// per thread, streaming cache hints, 128-thread blocks and TMA bulk loads
+// moved it no further, and the sized-grid variants tie, so this is the
+// simplest of them (tools/k7_variants.py times them all; PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,7 +39,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
 
 __device__ __forceinline__ float triad(float b, float c, float s) {
   return __fadd_rn(b, __fmul_rn(c, s));
@@ -57,19 +61,16 @@ __global__ void __launch_bounds__(kThreads)
   const long long first = static_cast<long long>(blockIdx.x) * kThreads +
                           threadIdx.x;
   const long long n_vec = vectorised ? n / kVec : 0;
-  const uint4* bv = reinterpret_cast<const uint4*>(b);
-  const uint4* cv = reinterpret_cast<const uint4*>(c);
-  uint4* av = reinterpret_cast<uint4*>(a);
-  for (long long i = first; i < n_vec; i += stride) {
-    const uint4 bx = bv[i];
-    const uint4 cx = cv[i];
+  if (first < n_vec) {
+    const uint4 bx = reinterpret_cast<const uint4*>(b)[first];
+    const uint4 cx = reinterpret_cast<const uint4*>(c)[first];
     uint4 ax;
     const T* bp = reinterpret_cast<const T*>(&bx);
     const T* cp = reinterpret_cast<const T*>(&cx);
     T* ap = reinterpret_cast<T*>(&ax);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) ap[j] = triad(bp[j], cp[j], s);
-    av[i] = ax;
+    reinterpret_cast<uint4*>(a)[first] = ax;
   }
   for (long long i = n_vec * kVec + first; i < n; i += stride)
     a[i] = triad(b[i], c[i], s);
@@ -77,21 +78,16 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch(const void* b, const void* c, void* a, float s, long long n,
-           int device, cudaStream_t stream) {
-  int sms = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
+           cudaStream_t stream) {
   const bool vectorised =
       ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
         reinterpret_cast<uintptr_t>(c)) & 15) == 0;
+  // a thread a vector (a scalar when misaligned); the scalar loop covers
+  // the tail from the first threads on
   const long long per_thread = vectorised ? 16 / sizeof(T) : 1;
   const long long work = (n + per_thread - 1) / per_thread;
-  const long long want = (work + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(
-      want < static_cast<long long>(sms) * kBlocksPerSm
-          ? want : static_cast<long long>(sms) * kBlocksPerSm);
-  triad_kernel<T><<<blocks, kThreads, 0, stream>>>(
+  const long long blocks = (work + kThreads - 1) / kThreads;
+  triad_kernel<T><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(b), static_cast<const T*>(c), static_cast<T*>(a),
       s, n, vectorised ? 1 : 0);
   return cudaGetLastError();
@@ -109,8 +105,8 @@ extern "C" int stream_triad(const void* b, const void* c, void* a, float s,
   if (n < 0 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(b, c, a, s, n, device, st);
-  return launch<__nv_bfloat16>(b, c, a, s, n, device, st);
+  if (dtype == 0) return launch<float>(b, c, a, s, n, st);
+  return launch<__nv_bfloat16>(b, c, a, s, n, st);
 }
 
 extern "C" const char* stream_triad_error_string(int code) {

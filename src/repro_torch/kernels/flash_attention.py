@@ -17,19 +17,24 @@ oracle ``repro.kernels.ref.flash_attention`` does (the Pallas body scales
 multiples of ``min(128, S)``, or :class:`ValueError`.
 
 :func:`flash_attention` dispatches on the device of ``q``: a CUDA tensor
-launches the hand-written kernel ``csrc/flash_attention.cu`` (built with
+launches a hand-written kernel of ``csrc/flash_attention.cu`` (built with
 `nvcc` at first use, see :mod:`repro_torch.kernels.build`) or raises; a CPU
-tensor runs :func:`flash_attention_ref`.  The kernel takes f32 and bf16
-(q, k and v of one type), D <= 128, and accumulates in f32.
+tensor runs :func:`flash_attention_ref`.  The library holds two variants,
+and :func:`variant` picks one from the dtype and D alone: bf16 with
+``D % 8 == 0`` goes to the tensor-core kernel (wgmma, TMA), f32 and any
+other bf16 D to the CUDA-core kernel.  Both take D <= 128 (q, k and v of one
+type) and accumulate in f32.  No variant is ever tried because the other
+failed.
 
 Bound: the larger of the bytes (q, k, v read and the output written once)
 over 3.35 TB/s and the operations (4 * D flops per live (row, key) pair,
 :func:`live_pairs`) over the card's peak for the type; see
 :func:`bound_ms`.
 
-The wrapper counts kernel launches (``"flash_attention"``) and
-plain-version calls (``"flash_attention_ref"``) in
-:data:`repro_torch.kernels.build.LAUNCHES`.
+The wrapper counts kernel launches of either variant
+(``"flash_attention"``) and plain-version calls (``"flash_attention_ref"``)
+in :data:`repro_torch.kernels.build.LAUNCHES`, and the launches of each
+variant apart in :data:`VARIANT_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -53,6 +58,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: products for each input type (bf16 dense tensor cores, f32 CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: launches of each kernel variant (``LAUNCHES["flash_attention"]`` counts
+#: them together)
+VARIANT_LAUNCHES = {"tensor_cores": 0, "cuda_cores": 0}
+
+
+def reset_variant_launches() -> None:
+    """Set the count of each variant to 0."""
+    for key in VARIANT_LAUNCHES:
+        VARIANT_LAUNCHES[key] = 0
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes (dtype, head_dim): ``"tensor_cores"`` for bf16
+    with ``head_dim % 8 == 0`` (TMA needs 16-byte rows, wgmma depths of 16
+    are padded with zeros), ``"cuda_cores"`` otherwise (f32 is held to
+    3e-5, which no tensor-core input type meets)."""
+    if dtype == torch.bfloat16 and head_dim % 8 == 0:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -128,13 +152,23 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention.argtypes = ([_P] * 4 + [_I] * 7 + [ctypes.c_float]
                                     + [_I] * 2 + [_P])
     lib.flash_attention.restype = _I
+    lib.flash_attention_tc.argtypes = ([_P] * 4 + [_I] * 7 + [ctypes.c_float]
+                                       + [_I] + [_P])
+    lib.flash_attention_tc.restype = _I
     lib.flash_attention_error_string.argtypes = [_I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """`x` contiguous and 16-byte aligned, as TMA reads it."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
-    """The kernel itself, after :func:`_check`."""
+    """The kernel itself, after :func:`_check`: the variant :func:`variant`
+    picks."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -150,22 +184,27 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     # at most -(Sq + Sk) like -infinity): clamp it into int32
     span = sq + sk
     win = 0 if window is None else max(-span, min(int(window), span))
-    q_c, k_c, v_c = (x.contiguous() for x in (q, k, v))
+    which = variant(q.dtype, d)
+    q_c, k_c, v_c = (_aligned(x) for x in (q, k, v))
     out = torch.empty_like(q_c)
     device = q.device
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    stream = torch.cuda.current_stream(device).cuda_stream
     lib = _library()
-    rc = lib.flash_attention(
-        q_c.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), out.data_ptr(),
-        b * h, sq, sk, d, int(bool(causal)), int(window is not None), win,
-        d ** -0.5, _DTYPES[q.dtype],
-        device.index if device.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(device).cuda_stream)
+    args = (q_c.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), out.data_ptr(),
+            b * h, sq, sk, d, int(bool(causal)), int(window is not None), win,
+            d ** -0.5)
+    if which == "tensor_cores":
+        rc = lib.flash_attention_tc(*args, index, stream)
+    else:
+        rc = lib.flash_attention(*args, _DTYPES[q.dtype], index, stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention kernel failed: CUDA error {rc} "
-                           f"({msg})")
+        raise RuntimeError(f"flash_attention kernel ({which}) failed: CUDA "
+                           f"error {rc} ({msg})")
     LAUNCHES["flash_attention"] += 1
+    VARIANT_LAUNCHES[which] += 1
     return out
 
 

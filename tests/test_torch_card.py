@@ -3,8 +3,10 @@ versions, bitwise; paged attention (K4) against its plain version within
 rtol = atol = 3e-5 (f32 pools and queries) or 2e-2 (bf16: the kernel and
 the plain version round the bf16 output of the same f32 sums; one bf16
 ulp at |x| < 2 is 7.8e-3 or less), and the serving loop on the card; the
-single-level LRU cache (K6) and the STREAM triad (K7) bitwise, and the
-blockwise attention (K5) within the JAX test's 3e-5 (f32) or 3e-2 (bf16).
+single-level LRU cache (K6) and the STREAM triad (K7)
+bitwise, and the blockwise attention (K5, both kernel variants) within the
+JAX test's 3e-5 (f32) or 3e-2 (bf16), and on a (1, 4, 1024, 120) bf16 case
+within the main path's 5e-3 and an error RMS of 1e-3 of the output's.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one.  The file imports no JAX, so it runs on a machine that has
@@ -342,4 +344,101 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
     big = torch.zeros((1, 1, 128, 136), device=card)
     with pytest.raises(ValueError, match="head_dim"):
         tops.flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("case", ["aligned", "misaligned", "ragged", "bf16"])
+def test_stream_triad_sized_grid_matches_plain_version(card, case):
+    """The sized-grid launch bitwise: aligned f32; views 1 and 3 elements
+    off 16 bytes (the scalar path); n = 8008, no multiple of a 4-vector
+    chunk's block (the tail); bf16."""
+    rng = np.random.default_rng(len(case))
+    shape, dtype = {"aligned": ((64, 4096), torch.float32),
+                    "misaligned": ((64, 4096), torch.float32),
+                    "ragged": ((8, 1001), torch.float32),
+                    "bf16": ((64, 1000), torch.bfloat16)}[case]
+    b, c = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(card, dtype) for _ in range(2))
+    if case == "misaligned":
+        b = b.view(-1)[1:1 + 8 * 1000].view(8, 1000)
+        c = c.view(-1)[3:3 + 8 * 1000].view(8, 1000)
+    for s in (2.5, 0.1):
+        got = ttriad._launch(b, c, s)
+        assert got.dtype == dtype and torch.equal(
+            got, ttriad.stream_triad_ref(b, c, s))
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,win,causal", [
+    (1, 1, 24, 24, 16, None, True),       # a sequence shorter than a tile
+    (1, 2, 256, 128, 32, None, True),     # Sq > Sk: rows with no key
+    (1, 2, 128, 256, 64, None, True),     # Sq < Sk
+    (1, 2, 256, 256, 120, 20, True),      # a window shorter than a tile
+    (1, 2, 256, 256, 128, 1000, True),    # one longer than the sequence
+    (1, 2, 128, 256, 120, None, False),   # non-causal
+    (1, 2, 128, 512, 120, 200, True),     # a window over a longer Sk
+    (2, 4, 384, 384, 64, 128, True),
+    (1, 1, 24, 24, 128, None, False),
+])
+def test_flash_attention_tensor_core_kernel_matches_plain_version(
+        card, b, h, sq, sk, d, win, causal):
+    """bf16 with D % 8 == 0 runs the wgmma kernel (its own count says so),
+    within the JAX test's bf16 tolerance of the plain version."""
+    rng = np.random.default_rng(7 * sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(card, torch.bfloat16)
+               for s in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
+    tops.reset_launches()
+    tfa.reset_variant_launches()
+    kern = tops.flash_attention(q, k, v, causal=causal, window=win)
+    plain = tfa.flash_attention_ref(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1, "cuda_cores": 0}
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                 flash_attention=1, flash_attention_ref=1)
+    assert kern.dtype == q.dtype and kern.shape == q.shape
+    torch.testing.assert_close(kern.float(), plain.float(), rtol=3e-2,
+                               atol=3e-2)
+    if sq > sk and causal:
+        assert torch.all(kern[:, :, :sq - sk] == 0)
+
+
+def test_flash_attention_tensor_core_kernel_meets_the_main_path_limits(card):
+    """(1, 4, 1024, 120) bf16, causal, danube's window: within rtol = atol
+    = 5e-3 of the plain version and RMS(err) <= 1e-3 RMS(ref), the limits
+    chip_smoke.py holds the danube prefill to (a bf16 p would miss them)."""
+    rng = np.random.default_rng(1024)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 1024, 120))
+                                .astype(np.float32)).to(card, torch.bfloat16)
+               for _ in range(3))
+    tfa.reset_variant_launches()
+    got = tops.flash_attention(q, k, v, causal=True, window=4096).float()
+    ref = tfa.flash_attention_ref(q, k, v, causal=True, window=4096).float()
+    assert tfa.VARIANT_LAUNCHES["tensor_cores"] == 1
+    diff = (got - ref).abs()
+    assert bool((diff <= 5e-3 * (1 + ref.abs())).all())
+    assert float(diff.square().mean().sqrt()) <= 1e-3 * float(
+        ref.square().mean().sqrt())
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    ("bfloat16", 64, "tensor_cores"), ("bfloat16", 12, "cuda_cores"),
+    ("float32", 64, "cuda_cores")])
+def test_flash_attention_variant_on_the_card(card, dtype, d, want):
+    """The wrapper launches the variant that (dtype, D) picks, and the
+    tensor-core kernel refuses what it does not take."""
+    q = torch.randn((1, 2, 128, d), device=card).to(getattr(torch, dtype))
+    tfa.reset_variant_launches()
+    got = tops.flash_attention(q, q, q)
+    torch.testing.assert_close(
+        got.float(), tfa.flash_attention_ref(q, q, q).float(),
+        rtol=3e-2 if dtype == "bfloat16" else 3e-5,
+        atol=3e-2 if dtype == "bfloat16" else 3e-5)
+    assert tfa.VARIANT_LAUNCHES == dict(
+        dict.fromkeys(tfa.VARIANT_LAUNCHES, 0), **{want: 1})
+    if want == "cuda_cores" and dtype == "bfloat16":
+        out = torch.empty_like(q)
+        rc = tfa._library().flash_attention_tc(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 2, 128,
+            128, d, 1, 0, 0, d ** -0.5, card.index or 0,
+            torch.cuda.current_stream(card).cuda_stream)
+        assert rc == 1  # cudaErrorInvalidValue
 

@@ -167,8 +167,10 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     for name in ("mesi", "mesi_dyn", "cache_sim"):
         assert [p.name for p in build.sources(name)] == [
             f"{name}.cu", "mesi_access.cuh"]
-    for name in ("paged_attention", "stream_triad", "flash_attention"):
+    for name in ("paged_attention", "stream_triad"):
         assert [p.name for p in build.sources(name)] == [f"{name}.cu"]
+    assert [p.name for p in build.sources("flash_attention")] == [
+        "flash_attention.cu", "hopper.cuh"]
 
 
 _BUILD_PROBE = """

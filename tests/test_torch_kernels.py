@@ -7,6 +7,8 @@ interpret mode) and its oracles `repro.kernels.ref`, on the same seeded
 numpy inputs.  The CUDA kernels themselves are held against these plain
 versions on the card (`tests/test_torch_card.py`, `chip_smoke.py`).
 """
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,6 +132,31 @@ def test_stream_triad_matches_jax(shape, dtype, s):
         np.testing.assert_array_equal(pallas, fused)
 
 
+@pytest.mark.parametrize("tool", ["k5_variants", "k7_variants"])
+def test_variant_tools_match_their_sources(tool):
+    """The design-variant tools still fit the sources they build: every
+    named edit of K5's applies to the committed kernel once, and K7's
+    variant names cover its study kernel's launch table."""
+    import importlib.util
+    root = pathlib.Path(__file__).resolve().parent.parent / "tools"
+    spec = importlib.util.spec_from_file_location(tool, root / f"{tool}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if tool == "k5_variants":
+        texts = mod.sources()
+        assert list(texts) == [name for name, _, _ in mod.VARIANTS]
+        assert texts["committed"] == (mod.CSRC / "flash_attention.cu"
+                                      ).read_text()
+        assert len(set(texts.values())) == len(texts)
+    else:
+        cu = (root / "k7_variants.cu").read_text()
+        table = cu[cu.index("constexpr Config kConfigs[] = {"):]
+        table = table[:table.index("};")]
+        assert table.count("{") - 1 == len(mod.VARIANTS)
+        for name in mod.VARIANTS:
+            assert f"// {name}" in table or f", {name}" in table
+
+
 def test_stream_triad_keeps_the_jax_contract():
     x = torch.zeros((8, 16))
     with pytest.raises(ValueError, match="equal-shape 2-D"):
@@ -181,6 +208,33 @@ def test_flash_attention_matches_jax(b, h, sq, sk, d, win, causal, dtype):
         np.testing.assert_allclose(to_np(got), to_np(w), rtol=tol, atol=tol)
     if sq > sk and causal:          # rows before the first key see none
         assert not to_np(got)[:, :, :sq - sk].any()
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    ("bfloat16", 120, "tensor_cores"), ("bfloat16", 128, "tensor_cores"),
+    ("bfloat16", 16, "tensor_cores"), ("bfloat16", 8, "tensor_cores"),
+    ("bfloat16", 12, "cuda_cores"), ("bfloat16", 100, "cuda_cores"),
+    ("float32", 120, "cuda_cores"), ("float32", 64, "cuda_cores"),
+])
+def test_flash_attention_variant_follows_dtype_and_head_dim(dtype, d, want):
+    """bf16 with D % 8 == 0 goes to the tensor cores; f32, and bf16 at any
+    other D, to the CUDA cores: a function of (dtype, D) alone."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.variant(getattr(torch, dtype), d) == want
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_on_cpu_tensors_launches_no_variant(dtype):
+    """A CPU q runs the plain version and counts neither kernel variant."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.ones((1, 2, 128, 120), dtype=getattr(torch, dtype))
+    tops.reset_launches()
+    fa.reset_variant_launches()
+    got = tops.flash_attention(q, q, q, window=64)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert tops.LAUNCHES["flash_attention_ref"] == 1
+    assert tops.LAUNCHES["flash_attention"] == 0
+    assert fa.VARIANT_LAUNCHES == {"tensor_cores": 0, "cuda_cores": 0}
 
 
 def test_flash_attention_keeps_the_jax_contract():
