@@ -62,7 +62,7 @@ from repro_torch.core.device import resolve_device  # noqa: F401  (engine API)
 from repro_torch.core.machine import CPUModel, RunResult, time_batch
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.cache_sim import pad_trace
+from repro_torch.kernels.cache_sim import check_chunk, pad_trace
 from repro_torch.workloads.base import Stream, Workload
 
 SENTINEL = cache_mod.SENTINEL   # padded trace entries: addr == SENTINEL
@@ -231,17 +231,24 @@ def stack_traces(traces: Sequence[Tuple]) -> TraceBatch:
                       n_valid=n_valid)
 
 
-def stack_device_traces(traces: Sequence[Tuple]) -> TraceBatch:
+def stack_device_traces(traces: Sequence[Tuple], pad_to_multiple: int = 1
+                        ) -> TraceBatch:
     """Device-resident :func:`stack_traces`: pad + stack with torch ops.
 
     The traces stay on their device (that of the first address tensor);
-    `n_valid` stays host-side (shape metadata).
+    `n_valid` stays host-side (shape metadata).  The common length is
+    rounded up to a multiple of `pad_to_multiple` with sentinel entries,
+    as the JAX package's stacker does for its kernel's chunk size.
     """
     if not traces:
         raise ValueError("no traces to stack (empty sweep grid?)")
+    if pad_to_multiple < 1:
+        raise ValueError(f"pad_to_multiple must be >= 1, got "
+                         f"{pad_to_multiple}")
     device = traces[0][0].device
     n_valid = np.asarray([int(t[0].shape[0]) for t in traces], np.int64)
     n_max = int(n_valid.max())
+    n_max = -(-n_max // pad_to_multiple) * pad_to_multiple
 
     def field(i, fill=0):
         rows = []
@@ -300,7 +307,7 @@ def run_batch_segment(p: cache_mod.CacheParams, carry, addr, is_write,
 
 def run_traces(p: cache_mod.CacheParams, addr, is_write=None,
                core=None, tier=None, *, backend: Optional[str] = None,
-               segment: Optional[int] = None,
+               chunk: int = 512, segment: Optional[int] = None,
                ) -> Tuple[torch.Tensor, cache_mod.CacheState]:
     """Simulate a (B, N) batch of sentinel-padded traces in one call.
 
@@ -311,6 +318,8 @@ def run_traces(p: cache_mod.CacheParams, addr, is_write=None,
       is_write/core/tier: (B, N) int32 tensors (or None for zeros).
       backend: ``None`` (follow the device), ``'reference'`` (plain
         PyTorch) or ``'cuda'`` (the MESI kernel).
+      chunk: the JAX package's trace elements per Pallas grid step, a TPU
+        tiling parameter: accepted (>= 1) and ignored.
       segment: thread the trace through the carry in (B, segment) slices
         — one call per slice instead of one over the whole length.  The
         trace is sentinel-padded up to a multiple; stats and final state
@@ -318,6 +327,7 @@ def run_traces(p: cache_mod.CacheParams, addr, is_write=None,
 
     Returns: (stats (B, nstats(p.n_targets)) int32, batched CacheState).
     """
+    check_chunk(chunk)
     addr = torch.as_tensor(addr).to(torch.int32)
     if addr.ndim != 2:
         raise ValueError("run_traces expects a (B, N) batch; "

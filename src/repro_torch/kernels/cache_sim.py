@@ -33,14 +33,20 @@ port of the Pallas kernel ``cache_sim`` (``src/repro/kernels/cache_sim.py:
 127``, its ``pallas_call`` at line 150): per-access hits and the final tags
 and use clocks of an (N,) line trace.  Its CUDA kernel is
 ``csrc/cache_sim.cu``; its plain version, :func:`cache_sim_ref`, steps all
-sets at once.  JAX's ``chunk`` (a TPU tiling parameter) does not come
-across.  Negative addresses raise: the Pallas body skips them as padding,
+sets at once.  Negative addresses raise: the Pallas body skips them as padding,
 its oracle ``repro.kernels.ref.cache_sim`` treats them as live lines.
 
 The wrappers count kernel launches (``"mesi_segment"``,
 ``"mesi_dyn_segment"``, ``"cache_sim"``) and plain-version calls
 (``"mesi_segment_ref"``, ``"mesi_dyn_segment_ref"``, ``"cache_sim_ref"``)
 in :data:`repro_torch.kernels.build.LAUNCHES`.
+
+Both MESI kernels split each row into ``2**chain_bits(params)``
+independent set chains (:func:`chain_bits`; K3's plan may take fewer), one
+warp each, and gather each chain's accesses with a bucket pre-pass
+(:func:`bucket`) before they walk them.  ``chunk``, the JAX package's
+trace elements per Pallas grid step, is a TPU tiling parameter: the entry
+points accept it (>= 1) and ignore it.
 """
 from __future__ import annotations
 
@@ -59,6 +65,45 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import LAUNCHES
 
 BACKENDS = ("reference", "cuda")
+#: a row splits into at most 2**MAX_CHAIN_BITS chains
+MAX_CHAIN_BITS = 12
+
+
+def check_chunk(chunk: int) -> None:
+    """Accept the JAX package's ``chunk`` keyword (trace elements per
+    Pallas grid step, a TPU tiling parameter): it must be >= 1 and changes
+    nothing here."""
+    if int(chunk) < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def chain_bits(params: CacheParams) -> int:
+    """log2 of the chain count m a MESI kernel splits each row into.
+
+    Set counts are powers of two and set indices are address masks, so the
+    accesses of line ``a`` touch only sets whose index is ``a`` modulo
+    ``min(l1_sets, l2_sets)``; with m that minimum (at most
+    ``2**MAX_CHAIN_BITS``), chain ``a & (m - 1)`` shares no cache state with
+    the others.  128 chains at the Table-I geometry.
+    """
+    m = min(params.l1_sets, params.l2_sets)
+    return min(m.bit_length() - 1, MAX_CHAIN_BITS)
+
+
+def bucket_tile(bits: int) -> int:
+    """Trace entries per tile of the bucket pre-pass: at least 4096, and
+    enough that the per-tile chain counts take no more room than the
+    trace."""
+    return max(4096, 32 << bits)
+
+
+def bucket_scratch(b: int, n: int, bits: int, device):
+    """The bucket pre-pass's buffers for a (b, n) trace split into at most
+    ``2**bits`` chains: ``(hist, start, rec, tile)``, uninitialised."""
+    m, tile = 1 << bits, bucket_tile(bits)
+    empty = functools.partial(torch.empty, dtype=torch.int32, device=device)
+    return (empty((b, -(-n // tile), m)), empty((b, m + 1)),
+            empty((b, n, 4)), tile)
 
 
 def resolve_backend(backend: Optional[str], device: torch.device) -> str:
@@ -125,15 +170,70 @@ def mesi_segment_ref(carry, addr, is_write, core, tier, *,
 # ---------------------------------------------------------------------------
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("mesi")
-    lib.mesi_segment.argtypes = [_P] * 8 + [_I] * 9 + [_P]
+    lib.mesi_plan.argtypes = [_P] + [_I] * 8
+    lib.mesi_plan.restype = _I
+    lib.mesi_bucket.argtypes = [_P] * 4 + [_I, _L, _I, _I] + [_P] * 3 + [
+        _I, _P]
+    lib.mesi_bucket.restype = _I
+    lib.mesi_segment.argtypes = [_P] * 11 + [_I] * 11 + [_P]
     lib.mesi_segment.restype = _I
     lib.mesi_error_string.argtypes = [_I]
     lib.mesi_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def _raise_on(rc: int, what: str, error_string) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} "
+                           f"({error_string(rc).decode()})")
+
+
+PLAN_FIELDS = ("bits", "warps_per_block", "blocks_per_row",
+               "l1_in_smem", "l2_in_smem", "smem_bytes", "sms")
+
+
+def mesi_plan(params: CacheParams, device):
+    """The MESI kernel's launch shape for `params` on CUDA `device`:
+    ``{field: int for field in PLAN_FIELDS}`` (chain count ``2**bits``)."""
+    lib = _library()
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    rc = lib.mesi_plan(out, params.cores, params.l1_sets, params.l1_ways,
+                       params.l2_sets, params.l2_ways, params.n_targets,
+                       chain_bits(params),
+                       _device_index(torch.device(device)))
+    _raise_on(rc, "mesi_plan", lib.mesi_error_string)
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def bucket(addr, is_write, core, tier, bits: int):
+    """The bucket pre-pass that both MESI kernels run first, alone (to time
+    it): a (B, N) int32 CUDA trace split into ``2**bits`` chains, each
+    row's live accesses as (pos, addr, is_write | core << 1, tier) records
+    grouped by chain, in row order within a chain.  Returns ``(rec (B, N,
+    4), start (B, 2**bits + 1))``: chain k of row r is ``rec[r, start[r,
+    k]:start[r, k + 1]]``."""
+    addr, is_write, core, tier = _as_int32(addr, is_write, core, tier)
+    b, n = addr.shape
+    device = addr.device
+    hist, start, rec, tile = bucket_scratch(b, n, bits, device)
+    lib = _library()
+    rc = lib.mesi_bucket(
+        addr.data_ptr(), is_write.data_ptr(), core.data_ptr(),
+        tier.data_ptr(), b, n, bits, tile, hist.data_ptr(), start.data_ptr(),
+        rec.data_ptr(), _device_index(device),
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "the bucket pre-pass", lib.mesi_error_string)
+    return rec, start
 
 
 def _check_inputs(carry, trace, params: CacheParams) -> None:
@@ -171,21 +271,20 @@ def _check_inputs(carry, trace, params: CacheParams) -> None:
 def _launch(carry, addr, is_write, core, tier, params: CacheParams):
     """Launch the kernel on copies of the carry; return the advanced carry."""
     _check_inputs(carry, (addr, is_write, core, tier), params)
+    bits = chain_bits(params)
     l1p, l2p, stats, t = (x.clone() for x in carry)
     b, n = addr.shape
     lib = _library()
     device = addr.device
-    stream = torch.cuda.current_stream(device).cuda_stream
+    hist, start, rec, tile = bucket_scratch(b, n, bits, device)
     rc = lib.mesi_segment(
         addr.data_ptr(), is_write.data_ptr(), core.data_ptr(),
-        tier.data_ptr(), t.data_ptr(), l1p.data_ptr(), l2p.data_ptr(),
-        stats.data_ptr(), b, n, params.cores, params.l1_sets,
-        params.l1_ways, params.l2_sets, params.l2_ways, params.n_targets,
-        device.index if device.index is not None else
-        torch.cuda.current_device(), stream)
-    if rc != 0:
-        raise RuntimeError(f"mesi_segment kernel failed: CUDA error {rc} "
-                           f"({lib.mesi_error_string(rc).decode()})")
+        tier.data_ptr(), t.data_ptr(), hist.data_ptr(), start.data_ptr(),
+        rec.data_ptr(), l1p.data_ptr(), l2p.data_ptr(), stats.data_ptr(), b,
+        n, params.cores, params.l1_sets, params.l1_ways, params.l2_sets,
+        params.l2_ways, params.n_targets, bits, tile, _device_index(device),
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "mesi_segment kernel", lib.mesi_error_string)
     LAUNCHES["mesi_segment"] += 1
     return l1p, l2p, stats, t + n
 
@@ -195,7 +294,8 @@ def _as_int32(*xs: torch.Tensor):
 
 
 def mesi_segment(carry, addr, is_write, core, tier, *,
-                 params: CacheParams, backend: Optional[str] = None):
+                 params: CacheParams, backend: Optional[str] = None,
+                 chunk: int = 512):
     """Advance the packed batch carry over one (B, N) trace segment.
 
     Args:
@@ -206,10 +306,12 @@ def mesi_segment(carry, addr, is_write, core, tier, *,
       is_write/core/tier: (B, N) integer tensors on the same device.
       params: cache geometry.
       backend: ``None`` (follow the device), ``"reference"`` or ``"cuda"``.
+      chunk: the JAX package's Pallas grid step, accepted and ignored.
 
     Returns the advanced carry (new tensors; the input is unchanged).  The
     clock advances by N.
     """
+    check_chunk(chunk)
     if addr.ndim != 2:
         raise ValueError("mesi_segment expects a (B, N) batch")
     backend = resolve_backend(backend, addr.device)
@@ -221,13 +323,15 @@ def mesi_segment(carry, addr, is_write, core, tier, *,
 
 
 def mesi_cache_sim(addr, is_write, core, tier, *, params: CacheParams,
-                   backend: Optional[str] = None
+                   backend: Optional[str] = None, chunk: int = 512
                    ) -> Tuple[torch.Tensor, CacheState]:
     """Two-level MESI + tier simulation of a (B, N) trace batch.
 
-    :func:`mesi_segment` from a fresh carry.  Returns
-    ``(stats (B, nstats(params.n_targets)) int32, batched CacheState)``.
+    :func:`mesi_segment` from a fresh carry (``chunk`` is accepted and
+    ignored).  Returns ``(stats (B, nstats(params.n_targets)) int32,
+    batched CacheState)``.
     """
+    check_chunk(chunk)
     if addr.ndim != 2:
         raise ValueError("mesi_cache_sim expects a (B, N) batch")
     carry = init_batch_carry(params, addr.shape[0], device=addr.device)
@@ -289,11 +393,44 @@ def mesi_dyn_segment_ref(carry, addr, is_write, core, tier, dyn_flag,
 
 def _dyn_library() -> ctypes.CDLL:
     lib = build.load("mesi_dyn")
-    lib.mesi_dyn_segment.argtypes = [_P] * 16 + [_I] * 13 + [_P]
+    lib.mesi_dyn_plan.argtypes = [_P] + [_I] * 11
+    lib.mesi_dyn_plan.restype = _I
+    lib.mesi_dyn_segment.argtypes = [_P] * 20 + [_I] * 16 + [_P]
     lib.mesi_dyn_segment.restype = _I
     lib.mesi_dyn_error_string.argtypes = [_I]
     lib.mesi_dyn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+DYN_PLAN_FIELDS = ("bits", "warps_per_block", "blocks_per_row",
+                   "rows_per_launch", "l1_in_smem", "l2_in_smem",
+                   "page_map_in_smem", "smem_bytes", "sms", "blocks_per_sm")
+
+
+def mesi_dyn_plan(params: CacheParams, b: int, n_pages: int, device, *,
+                  meet: bool):
+    """The epoch kernel's launch shape for `b` rows of `n_pages` pages on
+    CUDA `device`, as the kernel's entry plans it: ``{field: int for field
+    in DYN_PLAN_FIELDS}``.  `meet` says whether some row migrates at a
+    boundary inside the segment (its chains must then be resident
+    together, which may cut the chain count below ``2**chain_bits(params)``
+    or split the rows over several launches)."""
+    lib = _dyn_library()
+    out = (ctypes.c_int * len(DYN_PLAN_FIELDS))()
+    rc = lib.mesi_dyn_plan(out, b, n_pages, params.cores, params.l1_sets,
+                           params.l1_ways, params.l2_sets, params.l2_ways,
+                           params.n_targets, chain_bits(params), int(meet),
+                           _device_index(torch.device(device)))
+    _raise_on(rc, "mesi_dyn_plan", lib.mesi_dyn_error_string)
+    return dict(zip(DYN_PLAN_FIELDS, out))
+
+
+def meets(budget, period, eidx0, e: int) -> bool:
+    """Whether some row migrates at an epoch boundary inside an `e`-slot
+    segment: budget > 0 and a slot index eidx0 + j (j < e) with
+    (eidx0 + j + 1) % period == 0; (B,) tensors.  One host sync."""
+    period, eidx0 = period.long(), eidx0.long()
+    return bool(((budget > 0) & (eidx0 % period + e >= period)).any())
 
 
 def _check_dyn_inputs(tensors, params: CacheParams) -> None:
@@ -343,24 +480,25 @@ def _launch_dyn(carry, addr, is_write, core, tier, sc, ptl, *,
     l1p, l2p, stats, pmap, counts, mig_rd, mig_wr = (
         x.clone() for x in (l1p, l2p, stats, pmap, counts, mig_rd, mig_wr))
     device = addr.device
-    slots = torch.empty((b, e, 4), dtype=torch.int32, device=device)
-    snaps = torch.empty((b, e, ns), dtype=torch.int32, device=device)
+    zeros = functools.partial(torch.zeros, dtype=torch.int32, device=device)
+    slots, snaps, bar = zeros((b, e, 4)), zeros((b, e, ns)), zeros((b, 2))
     meas = torch.empty((b, e), dtype=torch.int32, device=device)
+    meet = meets(sc[:, 2], sc[:, 4], sc[:, 12], e)
+    bits = chain_bits(params)    # the most chains; the plan may take fewer
+    hist, start, rec, tile = bucket_scratch(b, e * slot_len, bits, device)
     lib = _dyn_library()
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.mesi_dyn_segment(
         addr.data_ptr(), is_write.data_ptr(), core.data_ptr(),
-        tier.data_ptr(), sc.data_ptr(), ptl.data_ptr(), l1p.data_ptr(),
-        l2p.data_ptr(), stats.data_ptr(), pmap.data_ptr(),
+        tier.data_ptr(), sc.data_ptr(), ptl.data_ptr(), hist.data_ptr(),
+        start.data_ptr(), rec.data_ptr(), bar.data_ptr(),
+        l1p.data_ptr(), l2p.data_ptr(), stats.data_ptr(), pmap.data_ptr(),
         counts.data_ptr(), mig_rd.data_ptr(), mig_wr.data_ptr(),
         slots.data_ptr(), snaps.data_ptr(), meas.data_ptr(),
         b, e, slot_len, n_p, k_max, count_bound, params.cores,
         params.l1_sets, params.l1_ways, params.l2_sets, params.l2_ways,
-        n_t, device.index if device.index is not None else
-        torch.cuda.current_device(), stream)
-    if rc != 0:
-        raise RuntimeError(f"mesi_dyn_segment kernel failed: CUDA error {rc} "
-                           f"({lib.mesi_dyn_error_string(rc).decode()})")
+        n_t, bits, tile, int(meet), _device_index(device), stream)
+    _raise_on(rc, "mesi_dyn_segment kernel", lib.mesi_dyn_error_string)
     LAUNCHES["mesi_dyn_segment"] += 1
     carry = (l1p, l2p, stats, t + e * slot_len, pmap, counts, mig_rd,
              mig_wr, eidx + e)
@@ -521,7 +659,8 @@ def _launch_cache_sim(addr: torch.Tensor, n_sets: int, n_ways: int):
     return hits, tags, use
 
 
-def cache_sim(addr: torch.Tensor, *, n_sets: int, n_ways: int
+def cache_sim(addr: torch.Tensor, *, n_sets: int, n_ways: int,
+              chunk: int = 512
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-level set-associative LRU cache over an (N,) line trace.
 
@@ -531,8 +670,10 @@ def cache_sim(addr: torch.Tensor, *, n_sets: int, n_ways: int
     (n_sets, n_ways) int32)``: per-access hit flags, the final tags (-1 =
     empty) and the final use clocks (the 1-based position of each way's
     last access).  A CUDA ``addr`` launches the kernel ``csrc/cache_sim.cu``
-    (or raises); a CPU ``addr`` runs :func:`cache_sim_ref`.
+    (or raises); a CPU ``addr`` runs :func:`cache_sim_ref`.  ``chunk`` (the
+    JAX package's Pallas grid step) is accepted and ignored.
     """
+    check_chunk(chunk)
     _check_cache_sim(addr, n_sets, n_ways)
     if addr.device.type == "cuda":
         return _launch_cache_sim(addr, n_sets, n_ways)

@@ -9,123 +9,170 @@
 // repro_torch.core.cache._packed_step (and repro.core.cache._packed_step).
 //
 // What bounds it: the serial dependency chain, not bytes.  Every access
-// reads the cache state the previous access wrote, so a row is one long
-// chain of dependent loads, compares and stores; the trace itself is
-// 16 bytes per access and the state is read and written once.
+// reads the cache state an earlier access of the same sets wrote; the trace
+// is 16 bytes per access and the state is read and written once.
 //
-// What the design does about it:
-//   * one warp (32 lanes) per batch row, one block per row; lanes span
-//     the ways (the per-access body, shared with mesi_dyn.cu, is in
-//     mesi_access.cuh);
-//   * the L1 planes (3 * cores * l1_sets * l1_ways ints, 12 KiB per core at
-//     the Table-I geometry) live in shared memory when they fit, else in
-//     global memory; the L2 planes (640 KiB at Table-I) stay in global
-//     memory, where the card's 50 MB L2 cache holds them for B <= ~70 rows;
-//   * the trace is fetched 32 accesses at a time by coalesced loads and
-//     broadcast from registers by shuffles, so no trace load sits on the
-//     chain; an L1 hit and a sentinel touch no L2 state at all;
-//   * only B SMs are busy: the card is mostly idle at B <= 12.  Spreading a
-//     row over several SMs is later work.
+// What the design does about it: it splits each row into independent set
+// chains (mesi_chain.cuh) and walks them in parallel.
+//   * m = 2**bits chains per row (the wrapper picks min(l1_sets, l2_sets),
+//     128 at the Table-I geometry); one warp per chain, lanes spanning the
+//     ways (the per-access body, shared with mesi_dyn.cu, is in
+//     mesi_access.cuh); four chain warps per block, the grid over (chain
+//     group, row): the Table-I STREAM suite's B = 4 rows give 512 warps
+//     where one warp per row gave 4;
+//   * a chain's sets (at Table-I one L1 set per core and 16 L2 sets, about
+//     5 KiB) live in shared memory for the whole launch, so no L1 miss
+//     walks global memory; where they do not fit, the row's planes stay in
+//     global memory, where chains touch disjoint cells;
+//   * each chain's accesses come from the bucket pre-pass
+//     (mesi_chain.cuh), which this entry runs before the chains: in row
+//     order, 16-byte records read 32 at a time, the next batch loaded
+//     while this one runs;
+//   * the clock of the access at row position i is t0 + i, as in the
+//     whole-row walk; counters are kept per chain in shared memory and
+//     added into the row's with integer atomics at the end.
 //
-// Sentinel entries (addr == -1) change nothing, but the clock advances
-// across them.
+// Sentinel entries (addr == -1) change nothing; the clock counts them.
 
-#include "mesi_access.cuh"
+#include "mesi_chain.cuh"
 
 namespace {
 
 using mesi::Geometry;
 using mesi::kFull;
-using mesi::kSentinel;
+using mesi::Rec;
 
-__global__ void __launch_bounds__(32) mesi_segment_kernel(
-    const int* __restrict__ addr, const int* __restrict__ is_write,
-    const int* __restrict__ core, const int* __restrict__ tier,
-    const int* __restrict__ t0, int n, int* __restrict__ l1p,
-    int* __restrict__ l2p, int* __restrict__ stats, Geometry g,
-    int l1_in_smem) {
+__global__ void __launch_bounds__(mesi::kChainWarps * 32) mesi_chain_kernel(
+    const int* __restrict__ t0, const Rec* __restrict__ rec,
+    const int* __restrict__ start, int n, int* __restrict__ l1p,
+    int* __restrict__ l2p, int* __restrict__ stats, Geometry g, int bits,
+    int l1_smem, int l2_smem) {
   extern __shared__ int smem[];
-  const int lane = threadIdx.x;
-  const long row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long row = blockIdx.y;
+  const int m = 1 << bits;
+  const int chain = blockIdx.x * blockDim.x / 32 + warp;
+  if (chain >= m) return;  // no block-wide barrier below
   const int ns = 8 + 2 * g.n_targets;
   const long l1_len = static_cast<long>(g.cores) * g.s1 * g.w1 * 3;
   const long l2_len = static_cast<long>(g.s2) * g.w2 * 5;
+  const int words = mesi::stats_words(g)
+                    + l1_smem * mesi::l1_chain_words(g, bits)
+                    + l2_smem * mesi::l2_chain_words(g, bits);
 
-  int* st = smem;  // the row's counters
-  int* l1 = l1p + row * l1_len;
-  int* const l2 = l2p + row * l2_len;
-  for (int k = lane; k < ns; k += 32) st[k] = stats[row * ns + k];
-  if (l1_in_smem) {
-    int* l1s = smem + ((ns + 3) & ~3);
-    for (long k = lane; k < l1_len; k += 32) l1s[k] = l1[k];
-    l1 = l1s;
-  }
-  __syncwarp();
+  int* st = smem + warp * words;  // the chain's counter deltas
+  for (int k = lane; k < ns; k += 32) st[k] = 0;
+  int* g_l1 = l1p + row * l1_len;
+  int* g_l2 = l2p + row * l2_len;
+  const mesi::Planes pl =
+      mesi::load_chain(st + mesi::stats_words(g), g_l1, g_l2, g, bits, chain,
+                       l1_smem, l2_smem, lane);
+  const unsigned t_row = static_cast<unsigned>(t0[row]);
+  auto access = [&](int pos, int a, bool w, int c, int tr) {
+    mesi::mesi_access(a, w, c, tr, static_cast<int>(t_row + pos), 1, pl, st,
+                      g, lane);
+  };
 
-  const int* ra = addr + row * n;
-  const int* rw = is_write + row * n;
-  const int* rc = core + row * n;
-  const int* rt = tier + row * n;
-  int t = t0[row];
-
-  for (int base = 0; base < n; base += 32) {
-    int ca = kSentinel, cw = 0, cc = 0, ct = 0;
-    if (base + lane < n) {
-      ca = ra[base + lane];
-      cw = rw[base + lane];
-      cc = rc[base + lane];
-      ct = rt[base + lane];
-    }
-    const int m = min(32, n - base);
-    for (int j = 0; j < m; ++j, ++t) {
-      const int a = __shfl_sync(kFull, ca, j);
-      const bool w = __shfl_sync(kFull, cw, j) != 0;
-      const int c = __shfl_sync(kFull, cc, j);
-      const int tr = __shfl_sync(kFull, ct, j);
-      if (a == kSentinel) continue;  // warp-uniform: padding touches nothing
-      mesi::mesi_access(a, w, c, tr, t, 1, l1, l2, st, g, lane);
-    }
+  const Rec* rr = rec + row * n;
+  long cur = start[row * (m + 1) + chain];
+  const long hi = start[row * (m + 1) + chain + 1];
+  Rec r = mesi::load_rec(rr, cur, hi, lane);
+  while (cur < hi) {
+    const long cnt = hi - cur < 32 ? hi - cur : 32;
+    const Rec next = mesi::load_rec(rr, cur + 32, hi, lane);
+    mesi::run_batch(cnt == 32 ? kFull : (1u << cnt) - 1, r, access);
+    cur += 32;
+    r = next;
   }
 
-  for (int k = lane; k < ns; k += 32) stats[row * ns + k] = st[k];
-  if (l1_in_smem) {
-    int* out = l1p + row * l1_len;
-    for (long k = lane; k < l1_len; k += 32) out[k] = l1[k];
-  }
+  mesi::store_chain(pl, g_l1, g_l2, g, bits, chain, lane);
+  for (int k = lane; k < ns; k += 32)
+    if (st[k] != 0) atomicAdd(stats + row * ns + k, st[k]);
+}
+
+mesi::Layout plan(const Geometry& g, int bits, int device, int* sms,
+                  cudaError_t* err) {
+  int smem_max = 0;
+  *err = cudaDeviceGetAttribute(&smem_max,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                device);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                  device);
+  const mesi::Layout lay =
+      mesi::choose_layout(g, bits, static_cast<size_t>(smem_max));
+  if (*err == cudaSuccess && !lay.fits) *err = cudaErrorLaunchOutOfResources;
+  return lay;
 }
 
 }  // namespace
 
-// Advance the carry (l1p, l2p, stats) of `b` rows in place over an
-// (b, n) int32 trace; `t0` holds each row's clock before the segment.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int mesi_segment(const int* addr, const int* is_write,
-                            const int* core, const int* tier, const int* t0,
-                            int* l1p, int* l2p, int* stats, int b, int n,
-                            int cores, int l1_sets, int l1_ways, int l2_sets,
-                            int l2_ways, int n_targets, int device,
-                            void* stream) {
+// The launch's shape for rows split into 2**bits chains: out[0..6] =
+// bits, chain warps per block, blocks per row, L1 sets in shared memory
+// (0/1), L2 sets in shared memory, shared-memory bytes per block, the
+// card's SM count.  Returns a CUDA error code (0 on success).
+extern "C" int mesi_plan(int* out, int cores, int l1_sets,
+                         int l1_ways, int l2_sets, int l2_ways, int n_targets,
+                         int bits, int device) {
+  const Geometry g{cores, l1_sets, l1_ways, l2_sets, l2_ways, n_targets};
+  cudaError_t err;
+  int sms = 0;
+  const mesi::Layout lay = plan(g, bits, device, &sms, &err);
+  const int groups = ((1 << bits) + lay.warps - 1) / lay.warps;
+  const int vals[7] = {bits, lay.warps, groups, lay.l1_smem, lay.l2_smem,
+                       static_cast<int>(lay.smem), sms};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return err;
+}
+
+// The bucket pre-pass alone (mesi_segment and mesi_dyn_segment run it
+// first), for timing it: fills rec (b, n, 4) and start (b, 2**bits + 1)
+// of a (b, n) int32 trace split into 2**bits chains, with hist
+// (b, ceil(n / tile), 2**bits) as scratch.  Launches on `stream`.
+extern "C" int mesi_bucket(const int* addr, const int* is_write,
+                           const int* core, const int* tier, int b,
+                           long long n, int bits, int tile, int* hist,
+                           int* start, int* rec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (b == 0 || n == 0) return cudaSuccess;
-  int smem_max = 0;
-  err = cudaDeviceGetAttribute(&smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return mesi::launch_bucket(addr, is_write, core, tier, b, n, bits, tile,
+                             hist, start, rec,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Advance the carry (l1p, l2p, stats) of `b` rows in place over an
+// (b, n) int32 trace; `t0` holds each row's clock before the segment.  Each
+// row splits into 2**bits chains, whose accesses the bucket pre-pass
+// gathers first into rec (b, n, 4) and start (b, 2**bits + 1), with hist
+// (b, ceil(n / tile), 2**bits) as scratch.  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
+extern "C" int mesi_segment(const int* addr, const int* is_write,
+                            const int* core, const int* tier, const int* t0,
+                            int* hist, int* start, int* rec, int* l1p,
+                            int* l2p, int* stats, int b, int n, int cores,
+                            int l1_sets, int l1_ways, int l2_sets,
+                            int l2_ways, int n_targets, int bits, int tile,
+                            int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (b == 0 || n == 0) return cudaSuccess;
   const Geometry g{cores, l1_sets, l1_ways, l2_sets, l2_ways, n_targets};
-  const size_t stats_bytes = static_cast<size_t>((8 + 2 * n_targets + 3) & ~3)
-                             * sizeof(int);
-  const size_t l1_bytes =
-      static_cast<size_t>(cores) * l1_sets * l1_ways * 3 * sizeof(int);
-  const int l1_in_smem =
-      stats_bytes + l1_bytes <= static_cast<size_t>(smem_max) ? 1 : 0;
-  const size_t smem = stats_bytes + (l1_in_smem ? l1_bytes : 0);
-  err = cudaFuncSetAttribute(mesi_segment_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  int sms = 0;
+  const mesi::Layout lay = plan(g, bits, device, &sms, &err);
   if (err != cudaSuccess) return err;
-  mesi_segment_kernel<<<b, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      addr, is_write, core, tier, t0, n, l1p, l2p, stats, g, l1_in_smem);
+  err = cudaFuncSetAttribute(mesi_chain_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(lay.smem));
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = mesi::launch_bucket(addr, is_write, core, tier, b, n, bits, tile,
+                            hist, start, rec, s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((1 << bits) + lay.warps - 1) / lay.warps, b);
+  mesi_chain_kernel<<<grid, lay.warps * 32, lay.smem, s>>>(
+      t0, reinterpret_cast<const Rec*>(rec), start, n, l1p, l2p, stats, g,
+      bits, lay.l1_smem, lay.l2_smem);
   return cudaGetLastError();
 }
 

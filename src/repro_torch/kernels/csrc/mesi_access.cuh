@@ -4,11 +4,18 @@
 // port of `_mesi_access` in src/repro/kernels/cache_sim.py.  The reference
 // it must equal bit for bit is repro_torch.core.cache._packed_step.
 //
-// The calling block is one warp (32 lanes); lanes span the ways, so the
-// tag compare is one ballot and the LRU victim one 5-step shuffle
-// reduction on (use, way) pairs that prefers the lower way on ties, like
-// argmin/argmax in the reference.  Every lane must call `mesi_access` with
-// the same arguments; lane 0 writes the counters.
+// The caller is one warp (32 lanes); lanes span the ways, so the tag
+// compare is one ballot and the LRU victim one 5-step shuffle reduction on
+// (use, way) pairs that prefers the lower way on ties, like argmin/argmax
+// in the reference.  Every lane must call `mesi_access` with the same
+// arguments; lane 0 writes the counters.
+//
+// The warp may hold only some of a row's sets (`Planes`): the sets of one
+// chain, those whose index is congruent to the chain's number modulo the
+// chain count m = 2**sh.  Every set an access touches (its L1 set in each
+// core, its L2 set, its L1 victim's L2 set and its L2 victim's L1 sets)
+// has the access's own address modulo m, so a chain's accesses touch its
+// sets alone; a held set's slot is its global index >> sh.
 //
 // Access order follows the reference step for step: the write-invalidation
 // of other cores' copies before the L1 victim is used, the L1 victim's
@@ -31,6 +38,15 @@ struct Geometry {
   int cores, s1, w1, s2, w2, n_targets;
 };
 
+// The cache state one warp walks: `l1` holds (cores, l1_sets, w1, 3) ints,
+// `l2` (s2 >> sh2, w2, 5); global set index s sits in slot s >> sh1 (L1)
+// or s >> sh2 (L2).  A whole row's planes are the case sh1 = sh2 = 0.
+struct Planes {
+  int* l1;
+  int* l2;
+  int l1_sets, sh1, sh2;
+};
+
 // Lane holding the smallest `v` among active lanes; ties go to the lowest
 // lane.  Every lane of the warp must call it and every lane gets the answer.
 __device__ __forceinline__ int warp_argmin(int v, bool active) {
@@ -49,13 +65,13 @@ __device__ __forceinline__ int warp_argmin(int v, bool active) {
 }
 
 // One live access (a != kSentinel) of line `a` by core `c` to memory target
-// `tr` at clock `t`.  `l1` holds the row's (cores, s1, w1, 3) planes, `l2`
-// its (s2, w2, 5) planes and `st` its counters.  `gate` (0 or 1) gates
-// every counter increment: 0 is a functional-warming access, whose state
-// changes are kept and whose counts are not.
+// `tr` at clock `t`, on the planes `pl` (which hold the access's sets), with
+// counters `st`.  `gate` (0 or 1) gates every counter increment: 0 is a
+// functional-warming access, whose state changes are kept and whose counts
+// are not.
 __device__ __forceinline__ void mesi_access(int a, bool w, int c, int tr,
-                                            int t, int gate, int* l1,
-                                            int* l2, int* st,
+                                            int t, int gate,
+                                            const Planes& pl, int* st,
                                             const Geometry& g, int lane) {
   const bool l1_lane = lane < g.w1;
   const bool l2_lane = lane < g.w2;
@@ -63,8 +79,9 @@ __device__ __forceinline__ void mesi_access(int a, bool w, int c, int tr,
   const int cbase = kMemRead + 2 * g.n_targets;  // upgrades, inval, binval, wb
 
   // ---------------- L1 lookup ----------------
-  const int set1 = a & (g.s1 - 1);
-  int* row1 = l1 + (static_cast<long>(c) * g.s1 + set1) * g.w1 * 3;
+  int* const l1 = pl.l1;
+  const int set1 = (a & (g.s1 - 1)) >> pl.sh1;   // the L1 set's slot
+  int* row1 = l1 + (static_cast<long>(c) * pl.l1_sets + set1) * g.w1 * 3;
   int tag1 = 0, use1 = 0, st1 = kI;
   if (l1_lane) {
     tag1 = row1[lane * 3];
@@ -83,7 +100,7 @@ __device__ __forceinline__ void mesi_access(int a, bool w, int c, int tr,
   int n_other = 0;
   for (int k = 0; k < g.cores; ++k) {
     if (k == c) continue;
-    int* rk = l1 + (static_cast<long>(k) * g.s1 + set1) * g.w1 * 3;
+    int* rk = l1 + (static_cast<long>(k) * pl.l1_sets + set1) * g.w1 * 3;
     const bool copy = l1_lane && rk[lane * 3] == a && rk[lane * 3 + 2] != kI;
     n_other += __popc(__ballot_sync(kFull, copy));
     if (copy && w) rk[lane * 3 + 2] = kI;
@@ -93,7 +110,8 @@ __device__ __forceinline__ void mesi_access(int a, bool w, int c, int tr,
   const bool evict_valid = !l1_hit && cur_state != kI;
   const bool evict_dirty = evict_valid && cur_state == kM;
   if (evict_valid) {
-    int* erow = l2 + static_cast<long>(evict_tag & (g.s2 - 1)) * g.w2 * 5;
+    int* erow = pl.l2 + static_cast<long>((evict_tag & (g.s2 - 1)) >> pl.sh2)
+                * g.w2 * 5;
     const unsigned eh =
         __ballot_sync(kFull, l2_lane && erow[lane * 5] == evict_tag);
     if (eh != 0 && lane == 0) {
@@ -108,7 +126,8 @@ __device__ __forceinline__ void mesi_access(int a, bool w, int c, int tr,
   bool l2_hit = false, l2_miss = false, v_valid = false, v_dirty = false;
   int n_v = 0, v_tier = 0;
   if (!l1_hit) {
-    int* row2 = l2 + static_cast<long>(a & (g.s2 - 1)) * g.w2 * 5;
+    int* row2 = pl.l2 + static_cast<long>((a & (g.s2 - 1)) >> pl.sh2)
+                * g.w2 * 5;
     int tag2 = 0, use2 = 0, st2 = kI, tier2 = 0;
     if (l2_lane) {
       tag2 = row2[lane * 5];
@@ -126,10 +145,10 @@ __device__ __forceinline__ void mesi_access(int a, bool w, int c, int tr,
     v_valid = l2_miss && v_state != kI && v_tag != a;
     if (v_valid) {
       // back-invalidate every L1 copy of the L2 victim (inclusion)
-      const int vset1 = v_tag & (g.s1 - 1);
+      const int vset1 = (v_tag & (g.s1 - 1)) >> pl.sh1;
       bool v_l1_dirty = false;
       for (int k = 0; k < g.cores; ++k) {
-        int* rk = l1 + (static_cast<long>(k) * g.s1 + vset1) * g.w1 * 3;
+        int* rk = l1 + (static_cast<long>(k) * pl.l1_sets + vset1) * g.w1 * 3;
         int sk = kI;
         bool copy = false;
         if (l1_lane) {

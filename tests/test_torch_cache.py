@@ -158,3 +158,79 @@ def test_cache_params_bounds_cores():
     with pytest.raises(ValueError, match="cores"):
         tcache.CacheParams(cores=32)
     assert tcache.CacheParams(cores=31).cores == 31
+
+
+def unequal_rows(seed, n_targets, negative=True):
+    """Three traces of unequal length, the shortest with a live negative
+    address (only -1 is padding) where `negative`."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for n in (300, 137, 45):
+        rows.append((rng.integers(0, 600, n).astype(np.int32),
+                     rng.integers(0, 2, n).astype(np.int32),
+                     rng.integers(0, 2, n).astype(np.int32),
+                     rng.integers(0, n_targets, n).astype(np.int32)))
+    if negative:
+        rows[2][0][5] = -7
+    return rows
+
+
+def test_stack_device_traces_pads_to_a_multiple_like_jax():
+    rows = unequal_rows(4, 3)
+    want = jengine.stack_device_traces(rows, pad_to_multiple=512)
+    got = tengine.stack_device_traces([as_torch(*r) for r in rows],
+                                      pad_to_multiple=512)
+    for f in ("addr", "is_write", "core", "tier"):
+        assert tuple(getattr(got, f).shape) == (3, 512)
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+    np.testing.assert_array_equal(got.n_valid, want.n_valid)
+    with pytest.raises(ValueError, match="pad_to_multiple"):
+        tengine.stack_device_traces([as_torch(*rows[0])], pad_to_multiple=0)
+
+
+@pytest.mark.parametrize("backend", ["reference", "pallas"])
+def test_run_traces_takes_chunk_like_jax(backend):
+    """The probe's call (`workloads/pollution.py`): rows stacked with
+    `pad_to_multiple` and run with `chunk`, on both packages."""
+    jp, tp = params(**SMALL, cores=2, n_targets=3)
+    # the Pallas body takes every negative address for padding (a standing
+    # split: the references and the port take only -1)
+    rows = unequal_rows(9, 3, negative=backend == "reference")
+    jb = jengine.stack_device_traces(rows, pad_to_multiple=512)
+    tb = tengine.stack_device_traces([as_torch(*r) for r in rows],
+                                     pad_to_multiple=512)
+    want = jengine.run_traces(jp, jb.addr, jb.is_write, core=jb.core,
+                              tier=jb.tier, backend=backend, chunk=64)
+    got = tengine.run_traces(tp, tb.addr, tb.is_write, core=tb.core,
+                             tier=tb.tier, chunk=64, backend="reference")
+    assert tuple(got[0].shape) == tuple(np.asarray(want[0]).shape)
+    assert_same(got, want)
+    with pytest.raises(ValueError, match="chunk"):
+        tengine.run_traces(tp, tb.addr, tb.is_write, chunk=0)
+
+
+def test_kernel_entry_points_take_chunk_like_jax():
+    jp, tp = params(**SMALL, cores=2, n_targets=3)
+    trace = mixed_batch(13, 128, 2, 3)
+    want = jops.mesi_cache_sim(*trace, params=jp, chunk=64)
+    got = tops.mesi_cache_sim(*as_torch(*trace), params=tp, chunk=64)
+    assert_same(got, want)
+    jcarry = jengine.init_batch_carry(jp, trace[0].shape[0])
+    want = jops.mesi_run_segment(jcarry, *trace, params=jp, chunk=64)
+    got = tops.mesi_run_segment(
+        tcache.init_batch_carry(tp, trace[0].shape[0]), *as_torch(*trace),
+        params=tp, chunk=64)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    addr = np.random.default_rng(3).integers(0, 300, 200).astype(np.int32)
+    want = jops.cache_sim(addr, n_sets=16, n_ways=4, chunk=64)
+    got = tops.cache_sim(as_torch(addr)[0], n_sets=16, n_ways=4, chunk=64)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for fn, args in ((tops.mesi_cache_sim, as_torch(*trace)),
+                     (tops.cache_sim, as_torch(addr))):
+        kw = dict(params=tp) if fn is tops.mesi_cache_sim else \
+            dict(n_sets=16, n_ways=4)
+        with pytest.raises(ValueError, match="chunk"):
+            fn(*args, chunk=0, **kw)

@@ -175,6 +175,83 @@ def test_dyn_kernel_matches_plain_version(card, n_p, n_targets):
         assert torch.equal(getattr(segmented, field), getattr(kern, field))
 
 
+# The chain split's edge cases: L1 sets equal to L2 sets (16 each); one L1
+# set (m = 1: one chain per row, the Table-I L2's planes in global memory);
+# every access in one chain of the golden geometry (the worst imbalance);
+# 31 cores with the Table-I L1 over a 4-set L2 (4 chains of 31 x 32 L1
+# sets, 381 KB a block: the L1 sets in global memory, where the block's
+# 4 warps write disjoint cells).  Each case's cores, and where its chains
+# keep their L1 and L2 sets (1: shared memory).
+SPLIT = {
+    "equal": (dict(l1_bytes=2048, l1_ways=2, l2_bytes=8192, l2_ways=8),
+              2, (1, 1)),
+    "one_set": (dict(l1_bytes=512, l1_ways=8), 2, (1, 0)),
+    "one_chain": (dict(l1_bytes=8 * 1024, l1_ways=2, l2_bytes=16 * 1024,
+                       l2_ways=8), 2, (1, 1)),
+    "l1_global": (dict(l2_bytes=4 * 16 * 64, l2_ways=16), 31, (0, 1)),
+}
+
+
+def split_params(case):
+    kw, cores, layout = SPLIT[case]
+    return tcache.CacheParams(**kw, cores=cores, n_targets=3), layout
+
+
+def into_one_chain(addr, p, chain=3):
+    m = 1 << tkernels.chain_bits(p)
+    return torch.where(addr == tcache.SENTINEL, addr, addr // m * m + chain)
+
+
+@pytest.mark.parametrize("case", list(SPLIT))
+def test_chain_split_kernel_matches_plain_version(card, case):
+    p, layout = split_params(case)
+    plan = tkernels.mesi_plan(p, card)
+    assert (plan["l1_in_smem"], plan["l2_in_smem"]) == layout
+    assert plan["warps_per_block"] == min(4, 1 << plan["bits"])
+    addr, wr, core, tier = batch(11, 900, p.cores, 3, card)
+    addr = torch.where(addr == tcache.SENTINEL, addr, addr - 40)  # negatives
+    if case == "one_chain":
+        addr = into_one_chain(addr, p)
+    trace = [addr, wr, core, tier]
+    want = tkernels.mesi_cache_sim(*trace, params=p, backend="reference")
+    assert_same(tkernels.mesi_cache_sim(*trace, params=p), want)
+
+
+@pytest.mark.parametrize("case", list(SPLIT))
+def test_chain_split_dyn_kernel_matches_plain_version(card, case):
+    """The batch holds a sampled row with period 2 and a three-tier row
+    (the SSD stage)."""
+    p, layout = split_params(case)
+    plan = tkernels.mesi_dyn_plan(p, 4, 12, card, meet=True)
+    assert (plan["l1_in_smem"], plan["l2_in_smem"]) == layout
+    trace, kw = dyn_batch(21, 12, card, cores=p.cores)
+    if case == "one_chain":
+        trace[0] = into_one_chain(trace[0], p)
+    kern = tdyn.run_dynamic(p, *trace, **kw)
+    plain = tdyn.run_dynamic(p, *trace, backend="reference", **kw)
+    for field in kern._fields:
+        assert torch.equal(getattr(kern, field), getattr(plain, field)), field
+    assert bool((kern.slots[:3, :, 2:].sum(dim=(1, 2)) > 0).all())
+
+
+def test_dyn_kernel_splits_rows_over_cooperative_launches(card):
+    """More migrating rows than the card holds at once: the plan runs them
+    in several cooperative launches."""
+    p, _ = split_params("one_chain")
+    trace, kw = dyn_batch(5, 12, card, n=128)
+    b, pick = 320, torch.arange(320) % 4
+    trace = [x[pick.to(card)].contiguous() for x in trace]
+    kw = {k: (v[pick] if isinstance(v, torch.Tensor)
+              else [v[i] for i in pick.tolist()] if isinstance(v, list)
+              else v) for k, v in kw.items()}
+    plan = tkernels.mesi_dyn_plan(p, b, 12, card, meet=True)
+    assert plan["rows_per_launch"] < b
+    kern = tdyn.run_dynamic(p, *trace, **kw)
+    plain = tdyn.run_dynamic(p, *trace, backend="reference", **kw)
+    for field in kern._fields:
+        assert torch.equal(getattr(kern, field), getattr(plain, field)), field
+
+
 def test_fidelity_golden_on_the_card(card):
     golden = pathlib.Path(__file__).resolve().parent / "golden"
     spec = tengine.SweepSpec(

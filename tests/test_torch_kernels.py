@@ -132,11 +132,13 @@ def test_stream_triad_matches_jax(shape, dtype, s):
         np.testing.assert_array_equal(pallas, fused)
 
 
-@pytest.mark.parametrize("tool", ["k5_variants", "k7_variants"])
+@pytest.mark.parametrize("tool", ["k5_variants", "k7_variants",
+                                  "mesi_variants"])
 def test_variant_tools_match_their_sources(tool):
     """The design-variant tools still fit the sources they build: every
-    named edit of K5's applies to the committed kernel once, and K7's
-    variant names cover its study kernel's launch table."""
+    named edit of K5's and of the MESI kernels' applies to the committed
+    sources once, and K7's variant names cover its study kernel's launch
+    table."""
     import importlib.util
     root = pathlib.Path(__file__).resolve().parent.parent / "tools"
     spec = importlib.util.spec_from_file_location(tool, root / f"{tool}.py")
@@ -148,6 +150,18 @@ def test_variant_tools_match_their_sources(tool):
         assert texts["committed"] == (mod.CSRC / "flash_attention.cu"
                                       ).read_text()
         assert len(set(texts.values())) == len(texts)
+    elif tool == "mesi_variants":
+        from repro_torch.core.cache import CacheParams
+        from repro_torch.kernels import build, cache_sim
+        texts = mod.sources()
+        assert list(texts) == [name for name, _, _ in mod.VARIANTS]
+        assert texts["committed"] == {f: (mod.CSRC / f).read_text()
+                                      for f in mod.FILES}
+        assert len({tuple(t.values()) for t in texts.values()}) == len(texts)
+        # the variants' library sources: every quoted include is copied
+        for lib in ("mesi", "mesi_dyn"):
+            assert {p.name for p in build.sources(lib)} <= set(mod.FILES)
+        assert cache_sim.chain_bits(CacheParams()) == 7     # 128 chains
     else:
         cu = (root / "k7_variants.cu").read_text()
         table = cu[cu.index("constexpr Config kConfigs[] = {"):]
