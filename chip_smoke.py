@@ -56,13 +56,17 @@ makes the script exit non-zero:
    2b. hold K4 (``paged_attention.cu``) against its plain version: head
    dims 16/64/120/128, 1 and 4 query heads per kv head, f32 and bf16, with
    empty contexts, partial last pages and out-of-range padding in the
-   block tables, and the serve loop's own last step (rtol = atol = 3e-5
-   in f32, 2e-2 in bf16);
+   block tables; split over the context (6 sequences of 4096 positions'
+   capacity, contexts 0, 1, L - 1, L, L + 1 and 4096 for partition
+   length L, 1, 4 and 16 query heads per kv head, two calls bitwise
+   equal); and the serve loop's own last step (rtol = atol = 3e-5 in f32,
+   2e-2 in bf16);
    2c. hold slice 4's kernels against their plain versions: the
    single-level LRU cache (K6, ``cache_sim.cu``) bitwise on hits, tags and
    clocks at the JAX test's geometries, a trace that is no multiple of 32,
-   and the Table-I L2 (2048 x 16) on the 8 x L2 triad prefix and on a
-   trace crowded into four sets; the STREAM triad (K7, ``stream_triad.cu``)
+   the Table-I L2 (2048 x 16) on the 8 x L2 triad prefix and on a trace
+   crowded into four sets, and the set chains' edge cases (1, 2 and 8192
+   sets, 1 and 32 ways, an empty trace, every access in one set); the STREAM triad (K7, ``stream_triad.cu``)
    bitwise in f32 and bf16 with s = 2.5 and 0.1 from (8, 128) up to
    (32768, 4096); blockwise attention (K5, ``flash_attention.cu``: bf16
    with D % 8 == 0 on its tensor-core kernel, the rest on its CUDA-core
@@ -87,7 +91,12 @@ makes the script exit non-zero:
    migrating sweeps again with every budget 0 (the boundaries' share); the plain
    versions on their Table-I parity batches, K4 at the
    serve loop's shapes and at a 4096-token decode beside SDPA on the
-   gathered K/V, K5-K7 at slice 4's shapes beside their plain versions and
+   gathered K/V (its partitions and blocks, and by the profiler the
+   device time of its partition and combine passes),
+   K6 with its chain count, longest chain, the device time of its bucket
+   pre-pass and of its chain kernel by the profiler, and the time per
+   access on a chain and on one chain alone, K5-K7 at
+   slice 4's shapes beside their plain versions and
    SDPA / ``torch.add`` (K5's tensor-core kernel also beside its CUDA-core
    kernel on the same bf16 inputs; K7 in three rounds between
    ``torch.add`` calls), compute
@@ -154,6 +163,34 @@ def cuda_ms(fn, warmup: int = 1, reps: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_times(fn, reps: int = 20) -> dict:
+    """Device time per call of each kernel that `fn()` launches, by
+    torch.profiler: {kernel name: ms}, after a warm-up call (empty where
+    the profiler sees no device time).  Unlike `cuda_ms` over back-to-back
+    calls, it leaves out the host's time between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # device events only: a CPU op also reports its kernels' device time
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def kernel_label(key: str) -> str:
+    """A profiler kernel name without its return type, anonymous namespace
+    and argument list."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.removeprefix("void ").split("(")[0]
 
 
 def max_diff(pairs) -> int:
@@ -922,6 +959,24 @@ def paged_case(gen, b, h, kh, d, page, nblk, dtype, dev):
                                                       cl.to(dev)]
 
 
+def contexts_case(gen, ctxs, h, kh, d, page, nblk, dtype, dev):
+    """K4 inputs with one sequence per context in `ctxs`, nblk pages each;
+    entries past the live blocks out of range."""
+    import torch
+    b = len(ctxs)
+    n_pages = b * nblk
+    q = torch.randn((b, h, d), generator=gen)
+    kp = torch.randn((n_pages, page, kh, d), generator=gen)
+    vp = torch.randn((n_pages, page, kh, d), generator=gen)
+    bt = torch.randperm(n_pages, generator=gen).to(torch.int32).reshape(
+        b, nblk)
+    cl = torch.tensor(ctxs, dtype=torch.int32)
+    live = (cl + page - 1) // page
+    bt[torch.arange(nblk)[None, :] >= live[:, None]] = n_pages + 7
+    return [x.to(dev, dtype) for x in (q, kp, vp)] + [bt.to(dev),
+                                                      cl.to(dev)]
+
+
 def k4_parity(dev, gen, serve_inputs, kv):
     """K4 against its plain version on the card."""
     import torch
@@ -956,6 +1011,31 @@ def k4_parity(dev, gen, serve_inputs, kv):
                              dtype)
                 if not bool((kern[0] == 0).all()):
                     raise AssertionError("K4: an empty context is not 0")
+    # split-K over the context: 6 sequences of 256 pages of 16, contexts
+    # 0, 1, L - 1, L, L + 1 and 4096 (L the partition length), 1, 4 and 16
+    # query heads per kv head; two calls give the same bits
+    for dtype in (torch.float32, torch.bfloat16):
+        for groups in (1, 4, 16):
+            # the wrapper's plan for these shapes (only shapes, dtypes and
+            # alignment count)
+            pool = torch.empty((1, 16, 2, 120), dtype=dtype, device=dev)
+            plan = pa.launch_plan(
+                torch.empty((6, 2 * groups, 120), dtype=dtype, device=dev),
+                pool, pool, torch.empty((6, 256), dtype=torch.int32))
+            parts, part_len = plan["parts"], plan["part_len"]
+            if parts < 2:
+                raise AssertionError("K4's split cases did not split")
+            ctxs = [0, 1, part_len - 1, part_len, part_len + 1, 4096]
+            args = contexts_case(gen, ctxs, 2 * groups, 2, 120, 16, 256,
+                                 dtype, dev)
+            kern = check(f"{str(dtype)[6:]} D=120 groups={groups}, split "
+                         f"into {parts} partitions of {part_len}, contexts "
+                         f"{ctxs}", args, dtype)
+            if not torch.equal(kern, pa.paged_attention(*args)):
+                raise AssertionError("K4: two calls on the same inputs "
+                                     "differ")
+            if not bool((kern[0] == 0).all()):
+                raise AssertionError("K4: an empty context is not 0")
     q, kp, vp, bt, cl = serve_inputs
     check(f"the serve loop's last step: q {tuple(q.shape)}, f32 pools "
           f"{tuple(kp.shape)}, block table {tuple(bt.shape)}, contexts "
@@ -1001,7 +1081,7 @@ def k6_parity(dev, gen, a8):
     """K6 against its plain version, bitwise on hits, tags and clocks: the
     JAX test's geometries, a trace that is no multiple of 32, the Table-I
     L2 on the first 16,384 accesses of the 8 x L2 triad trace and on a
-    trace crowded into four sets."""
+    trace crowded into four sets, and the set chains' edge cases."""
     import torch
     from repro_torch.kernels import ops
     cases = [(f"{s} sets x {w} ways, N={n}",
@@ -1017,6 +1097,19 @@ def k6_parity(dev, gen, a8):
                                 dtype=torch.int32)
                   + sets * torch.randint(0, 64, (PREFIX,), generator=gen,
                                          dtype=torch.int32), sets, ways))
+    # the chain split's edge cases: one chain (1 set), two chains, several
+    # sets per chain (8192 sets, 2 per chain in shared memory), 1 and 32
+    # ways, an empty trace, every access in one set of the Table-I L2
+    for s_, w_, n_ in ((1, 16, 20_000), (2, 32, 20_000), (8192, 16, 200_000),
+                       (sets, 1, 50_000), (sets, 32, 50_000)):
+        cases.append((f"chains: {s_} sets x {w_} ways, N={n_}",
+                      torch.randint(0, s_ * w_ * 3, (n_,), generator=gen,
+                                    dtype=torch.int32), s_, w_))
+    cases.append(("chains: an empty trace at the Table-I L2",
+                  torch.zeros(0, dtype=torch.int32), sets, ways))
+    cases.append((f"chains: one set of the Table-I L2, 64 lines, N={PREFIX}",
+                  sets * torch.randint(0, 64, (PREFIX,), generator=gen,
+                                       dtype=torch.int32) + 7, sets, ways))
     err = 0
     for label, addr, s, w in cases:
         addr = addr.to(dev)
@@ -1024,8 +1117,9 @@ def k6_parity(dev, gen, a8):
         plain = ops.cache_sim_ref(addr, n_sets=s, n_ways=w)
         e = max_diff(zip(kern, plain))
         err = max(err, e)
+        rate = float(kern[0].float().mean()) if addr.numel() else 0.0
         print(f"[parity K6] {label}: max|kernel - plain| = {e} over hits, "
-              f"tags and clocks; hit rate {float(kern[0].float().mean()):.4f}")
+              f"tags and clocks; hit rate {rate:.4f}")
         if e:
             raise AssertionError(f"K6 disagrees with its plain version: "
                                  f"{label}")
@@ -1320,6 +1414,7 @@ def slice4_times(path, cfg, card):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import cache_sim as cs
     from repro_torch.kernels import stream_triad as st
     from repro_torch.kernels.cache_sim import cache_sim_bound_bytes
     out = {}
@@ -1372,19 +1467,65 @@ def slice4_times(path, cfg, card):
     a8 = path["k6"]["addr"]
     n = path["k6"]["n"]
     sets, ways = table1_l2()
-    ms = cuda_ms(lambda: ops.cache_sim(a8, n_sets=sets, n_ways=ways),
-                 warmup=1, reps=2)
+    # the kernel alone, and through the wrapper (whose check for negative
+    # addresses syncs with the host)
+    ms = cuda_ms(lambda: cs._launch_cache_sim(a8, sets, ways), warmup=2,
+                 reps=10)
+    wrapper_ms = cuda_ms(lambda: ops.cache_sim(a8, n_sets=sets, n_ways=ways),
+                         warmup=2, reps=10)
     plain_ms = cuda_ms(lambda: ops.cache_sim_ref(a8, n_sets=sets,
                                                  n_ways=ways),
                        warmup=1, reps=1)
     n_bytes = cache_sim_bound_bytes(n, sets, ways)
     bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    # the set chains: the longest, the device time of the pre-pass's kernels
+    # and of the chain kernel, and one chain alone (a 65,536-access trace of
+    # one set) for the latency of an access on a chain
+    plan = cs.cache_sim_plan(sets, ways, a8.device)
+    m = 1 << plan["bits"]
+    longest = int(torch.bincount((a8 & (m - 1)).long(), minlength=m).max())
+    one = a8[:65_536].remainder(48)
+    one_ms = cuda_ms(lambda: cs._launch_cache_sim(one, 1, ways), warmup=1,
+                     reps=3)
+    one_us = 1e3 * one_ms / one.numel()
+    dev6 = device_times(lambda: cs._launch_cache_sim(a8, sets, ways), 10)
+    chain_dev = sum(v for k, v in dev6.items() if "chain_kernel" in k)
+    total_dev = sum(dev6.values())
+    measured = total_dev > 0
     out["k6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, n=n,
-                     shape=[n], geometry=[sets, ways])
-    print(f"[time K6] N={n}, {sets} x {ways}: kernel {ms:.3f} ms "
-          f"({1e6 * ms / 1e3 / n:.4f} us per access), bound {bound:.4f} ms "
-          f"({n_bytes} B at 3.35 TB/s), plain version {plain_ms:.3f} ms "
-          f"({card})")
+                     shape=[n], geometry=[sets, ways], wrapper_ms=wrapper_ms,
+                     device_ms=total_dev if measured else None,
+                     chain_device_ms=chain_dev if measured else None,
+                     prepass_device_ms=(total_dev - chain_dev if measured
+                                        else None),
+                     chains=m, longest_chain=longest,
+                     us_per_access_on_chain=(1e3 * chain_dev / longest
+                                             if measured else None),
+                     one_chain_us_per_access=one_us,
+                     chain_floor_ms=longest * one_us / 1e3)
+    print(f"[time K6] N={n}, {sets} x {ways}: kernel {ms:.4f} ms "
+          f"({1e6 * ms / 1e3 / n:.5f} us per access of the trace), "
+          f"{wrapper_ms:.4f} ms through the wrapper; bytes bound "
+          f"{bound:.4f} ms ({n_bytes} B at 3.35 TB/s); plain version "
+          f"{plain_ms:.3f} ms ({card})")
+    print(f"[time K6]   {m} chains ({plan['blocks']} blocks of "
+          f"{plan['warps_per_block']} warps, sets in "
+          f"{'registers' if plan['in_regs'] else 'memory'}), the longest "
+          f"{longest} accesses; one chain alone {one_us:.4f} us per access, "
+          f"so the chain floor is {longest} x {one_us:.4f} us = "
+          f"{longest * one_us / 1e3:.4f} ms beside the bytes bound")
+    if measured:
+        print(f"[time K6]   device time per launch by the profiler: "
+              f"{total_dev:.4f} ms: the chain kernel {chain_dev:.4f} ms "
+              f"({1e3 * chain_dev / longest:.4f} us per access on the "
+              f"longest chain), the bucket pre-pass "
+              f"{total_dev - chain_dev:.4f} ms "
+              f"({100 * (total_dev - chain_dev) / total_dev:.1f}%): "
+              + ", ".join(f"{kernel_label(k)} {v:.4f}" for k, v in
+                          sorted(dev6.items(), key=lambda kv: -kv[1])))
+    else:
+        print("[time K6]   the profiler saw no device time (the pre-pass's "
+              "share and the time per access on a chain not measured)")
     # K7 at the STREAM-sized pair, timed in rounds between torch.add calls
     b, c = path["k7"]["b"], path["k7"]["c"]
     times, add_ms = [], []
@@ -1590,6 +1731,11 @@ def k4_times(dev, gen, serve_inputs, card):
             return F.scaled_dot_product_attention(
                 q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)
         lib_ms = cuda_ms(sdpa, warmup=3, reps=50)
+        plan = pa.launch_plan(q, kp, vp, bt)
+        dev4 = device_times(lambda: pa._launch(q, kp, vp, bt, cl))
+        part_dev = sum(v for k, v in dev4.items() if "paged_attention" in k)
+        combine_dev = sum(v for k, v in dev4.items() if "paged_combine" in k)
+        device_ms = sum(dev4.values())
         lib_err = float((sdpa()[:, :, 0] - pa._launch(
             q, kp, vp, bt, cl)).abs().max())
         n_bytes = pa.bound_bytes(q, kp, bt, cl)
@@ -1603,7 +1749,11 @@ def k4_times(dev, gen, serve_inputs, card):
                          else "operations",
                          shape=dict(B=bb, H=hh, K=kvh, D=dd, page=pg,
                                     nblk=nb, ctx=cl.tolist(),
-                                    pool=str(kp.dtype)[6:]))
+                                    pool=str(kp.dtype)[6:]),
+                         parts=plan["parts"], part_len=plan["part_len"],
+                         blocks=plan["blocks"], device_ms=device_ms,
+                         partition_device_ms=part_dev,
+                         combine_device_ms=combine_dev)
         print(f"[time K4] {name}: B={bb} H={hh} K={kvh} D={dd} page {pg} "
               f"nblk {nb}, contexts {sorted(set(cl.tolist()))}, "
               f"{str(kp.dtype)[6:]} pool: kernel {ms:.4f} ms, bound "
@@ -1613,6 +1763,19 @@ def k4_times(dev, gen, serve_inputs, card):
               f"the wrapper {wrapper_ms:.4f} ms; plain "
               f"version {plain_ms:.4f} ms; SDPA on the gathered K/V "
               f"{lib_ms:.4f} ms (max|SDPA - kernel| {lib_err:.3g}) ({card})")
+        split = "the profiler saw no device time (not measured)"
+        if device_ms > 0:
+            split = (f"device time per call by the profiler {device_ms:.4f} "
+                     f"ms: the partition pass {part_dev:.4f} ms, "
+                     + (f"the combine pass {combine_dev:.4f} ms "
+                        f"({100 * combine_dev / device_ms:.1f}%)"
+                        if plan["parts"] > 1 else "no combine pass")
+                     + f", {100 * max(bytes_ms, ops_ms) / device_ms:.1f}% "
+                     f"of the bound")
+        print(f"[time K4]   {name}: S = {plan['parts']} partition(s) of "
+              f"{plan['part_len']} positions, {plan['blocks']} blocks "
+              f"({plan['resident']} resident per SM); {split}; by events "
+              f"{100 * max(bytes_ms, ops_ms) / ms:.1f}% of the bound")
     return out
 
 
@@ -1628,9 +1791,12 @@ def profile(fn, label, kernel=None, note="a kernel counts as busy time "
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events only: a CPU op (aten::mm, ...) also reports the device
+    # time of the kernels it launched, which would count them twice
     device_us = sorted(((e.self_device_time_total, e.key, e.count)
                         for e in prof.key_averages()
-                        if e.self_device_time_total > 0), reverse=True)
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(us for us, _, _ in device_us) / 1e3
     if busy_ms <= 0:
         print(f"[profile] {label}: wall {wall_ms:.1f} ms; the profiler saw "
@@ -1804,6 +1970,8 @@ def main() -> int:
         "max_abs_err": k4_err[torch.float32],
         "max_abs_err_bf16": k4_err[torch.bfloat16],
         "ms": k4_t["serve"]["ms"], "shape": k4_t["serve"]["shape"],
+        "parts": k4_t["serve"]["parts"], "blocks": k4_t["serve"]["blocks"],
+        "device_ms": k4_t["serve"]["device_ms"],
         "wrapper_ms": k4_t["serve"]["wrapper_ms"],
         "plain_ms": k4_t["serve"]["plain_ms"],
         "bound_ms": k4_t["serve"]["bound_ms"],
@@ -1839,6 +2007,15 @@ def main() -> int:
         "max_abs_err": max(k6_err, s4_errs[1]),
         "ms": s4_t["k6"]["ms"], "shape": s4_t["k6"]["shape"],
         "geometry": s4_t["k6"]["geometry"],
+        "wrapper_ms": s4_t["k6"]["wrapper_ms"],
+        "device_ms": s4_t["k6"]["device_ms"],
+        "chain_device_ms": s4_t["k6"]["chain_device_ms"],
+        "prepass_device_ms": s4_t["k6"]["prepass_device_ms"],
+        "chains": s4_t["k6"]["chains"],
+        "longest_chain": s4_t["k6"]["longest_chain"],
+        "us_per_access_on_chain": s4_t["k6"]["us_per_access_on_chain"],
+        "one_chain_us_per_access": s4_t["k6"]["one_chain_us_per_access"],
+        "chain_floor_ms": s4_t["k6"]["chain_floor_ms"],
         "plain_ms": s4_t["k6"]["plain_ms"],
         "bound_ms": s4_t["k6"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None}, {

@@ -32,9 +32,12 @@ plain version, :func:`mesi_dyn_segment_ref`, loops
 port of the Pallas kernel ``cache_sim`` (``src/repro/kernels/cache_sim.py:
 127``, its ``pallas_call`` at line 150): per-access hits and the final tags
 and use clocks of an (N,) line trace.  Its CUDA kernel is
-``csrc/cache_sim.cu``; its plain version, :func:`cache_sim_ref`, steps all
-sets at once.  Negative addresses raise: the Pallas body skips them as padding,
-its oracle ``repro.kernels.ref.cache_sim`` treats them as live lines.
+``csrc/cache_sim.cu``: a bucket pre-pass groups the trace by set, then one
+warp walks each set's accesses (:func:`cache_sim_bits` gives the chain
+count, :func:`cache_sim_tile` the pre-pass's tile); its plain version,
+:func:`cache_sim_ref`, steps all sets at once.  Negative addresses raise:
+the Pallas body skips them as padding, its oracle
+``repro.kernels.ref.cache_sim`` treats them as live lines.
 
 The wrappers count kernel launches (``"mesi_segment"``,
 ``"mesi_dyn_segment"``, ``"cache_sim"``) and plain-version calls
@@ -629,11 +632,55 @@ def cache_sim_ref(addr: torch.Tensor, *, n_sets: int, n_ways: int
 
 def _cache_sim_library() -> ctypes.CDLL:
     lib = build.load("cache_sim")
-    lib.cache_sim.argtypes = [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P]
+    lib.cache_sim_plan.argtypes = [_P] + [_I] * 4
+    lib.cache_sim_plan.restype = _I
+    lib.cache_sim.argtypes = [_P] * 7 + [_L] + [_I] * 5 + [_P]
     lib.cache_sim.restype = _I
     lib.cache_sim_error_string.argtypes = [_I]
     lib.cache_sim_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def cache_sim_bits(n_sets: int) -> int:
+    """log2 of the chain count K6 splits a trace into: one set per chain up
+    to ``2**MAX_CHAIN_BITS`` sets (2048 chains at the Table-I L2), then
+    ``n_sets / 2**MAX_CHAIN_BITS`` sets per chain."""
+    return min(n_sets.bit_length() - 1, MAX_CHAIN_BITS)
+
+
+def cache_sim_tile(bits: int) -> int:
+    """Trace entries per tile of K6's bucket pre-pass: at least 1024, and
+    enough that the per-tile chain counts take no more room than the trace.
+
+    K6's own rule: its scan runs across the chains' columns, so small tiles
+    cost it little, and each scatter warp walks one tile.  The MESI
+    kernels' rule (:func:`bucket_tile`) keeps the counts 32 times smaller
+    than the trace, which at 2048 chains leaves a 2 M-access trace 32
+    tiles, one scatter warp each."""
+    return max(1024, 1 << bits)
+
+
+CACHE_SIM_PLAN_FIELDS = ("bits", "warps_per_block", "blocks", "in_regs",
+                         "in_smem", "smem_bytes", "sms")
+
+
+def cache_sim_plan(n_sets: int, n_ways: int, device):
+    """K6's launch shape on CUDA `device`: ``{field: int for field in
+    CACHE_SIM_PLAN_FIELDS}`` (chain count ``2**bits``; where each chain
+    keeps its sets: registers, shared memory, or the outputs)."""
+    lib = _cache_sim_library()
+    out = (ctypes.c_int * len(CACHE_SIM_PLAN_FIELDS))()
+    rc = lib.cache_sim_plan(out, n_sets, n_ways, cache_sim_bits(n_sets),
+                            _device_index(torch.device(device)))
+    _raise_on(rc, "cache_sim_plan", lib.cache_sim_error_string)
+    return dict(zip(CACHE_SIM_PLAN_FIELDS, out))
+
+
+def _cache_sim_scratch(n: int, bits: int, device):
+    """The pre-pass's buffers: ``(hist, start, rec, tile)``."""
+    m, tile = 1 << bits, cache_sim_tile(bits)
+    empty = functools.partial(torch.empty, dtype=torch.int32, device=device)
+    return empty((-(-n // tile), m)), empty(m + 1), empty((n, 4)), tile
 
 
 def _launch_cache_sim(addr: torch.Tensor, n_sets: int, n_ways: int):
@@ -643,18 +690,18 @@ def _launch_cache_sim(addr: torch.Tensor, n_sets: int, n_ways: int):
                          f"must be <= {MAX_WAYS}, got {n_ways}")
     a32 = addr.contiguous()
     dev = addr.device
-    hits = torch.empty(a32.shape[0], dtype=torch.int32, device=dev)
+    n, bits = a32.shape[0], cache_sim_bits(n_sets)
+    hist, start, rec, tile = _cache_sim_scratch(n, bits, dev)
+    hits = torch.empty(n, dtype=torch.int32, device=dev)
     tags = torch.empty((n_sets, n_ways), dtype=torch.int32, device=dev)
     use = torch.empty((n_sets, n_ways), dtype=torch.int32, device=dev)
     lib = _cache_sim_library()
     rc = lib.cache_sim(
-        a32.data_ptr(), hits.data_ptr(), tags.data_ptr(), use.data_ptr(),
-        a32.shape[0], n_sets, n_ways,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        a32.data_ptr(), hist.data_ptr(), start.data_ptr(), rec.data_ptr(),
+        hits.data_ptr(), tags.data_ptr(), use.data_ptr(), n,
+        n_sets, n_ways, bits, tile, _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cache_sim kernel failed: CUDA error {rc} "
-                           f"({lib.cache_sim_error_string(rc).decode()})")
+    _raise_on(rc, "cache_sim kernel", lib.cache_sim_error_string)
     LAUNCHES["cache_sim"] += 1
     return hits, tags, use
 

@@ -23,30 +23,48 @@
 //           + (live table entries + B) * 4 + B*H*D*sizeof(out)
 //   bound = bytes / 3.35 TB/s.
 //
-// What the design does about it (a simple first kernel, not yet a fast one):
-//   * one block of 256 threads per (kv head, sequence): grid K x B.  The G
-//     query heads of the kv head sit in shared memory, so each K/V row is
-//     read from device memory once for all G heads;
-//   * the context is walked in tiles of 32 consecutive positions, which may
-//     span pages: each position's row pointer comes from the block table,
-//     and the tile's K and V rows are loaded by coalesced row reads (a row
-//     is D contiguous elements), all of the tile's loads issued into
-//     registers before any is stored (the first version staged the row
-//     offsets in shared memory, so each load waited for the store before
-//     it: 10 us per tile), then into shared memory, rows padded to an odd
-//     stride so the per-position dot products are free of bank conflicts;
-//   * warp g computes the 32 logits of query head g (lane = position),
-//     its max and sum by shuffles, and updates (m, l); every thread then
-//     rescales the accumulator elements it owns, kept in registers;
-//   * B x K blocks (64 at the serve shapes) fill under half of the 132 SMs,
-//     and each block waits on its tile loads: split-K over the context,
-//     cp.async/TMA double buffering and wgmma are later work.
+// What the design does about it (flash-decoding):
+//   * split-K over the context: each (kv head, sequence) context is cut
+//     into `parts` partitions of `part_len` positions (a whole number of
+//     tiles and pages), one block of 256 threads each: grid K x B x parts.
+//     The wrapper's split_plan picks them from the shapes and from how
+//     many blocks an SM holds at once (paged_attention_resident): at least
+//     two blocks per SM where the contexts allow, and as few tiles on the
+//     busiest SM as the waves of blocks give.  A block wholly past its
+//     sequence's context exits at once.  The G query heads of the kv head
+//     sit in shared memory, so each K/V row is read from device memory
+//     once for all G heads;
+//   * with one partition the block normalises and writes the output; with
+//     more, each block writes its (m, l, acc[G][D]) in f32 to a workspace
+//     (B, H, parts, D + 2) and a second kernel combines the non-empty
+//     partitions of each (sequence, head) in partition order, rescaled by
+//     their largest m: no float atomics, so two runs give the same bits,
+//     and an empty partition is never read;
+//   * the partition is walked in tiles of 32 positions (which may span
+//     pages: each row pointer comes from the block table), double-buffered
+//     in shared memory: the next tile's K and V rows are in flight by
+//     cp.async (16-byte vectors, one per lane and row chunk) while this
+//     tile's logits and P.V run.  Where a row is no multiple of 16 bytes
+//     or a pool is not 16-byte aligned, plain loads fill the buffer
+//     instead.  Rows sit at a stride of an odd number of 16-byte units (an
+//     odd number of elements on the plain path), so the per-position reads
+//     below are free of bank conflicts;
+//   * logits: every warp works.  A query head's D is cut into 8 / G pieces
+//     (G <= 8, else 1); warp w takes (head, piece) pairs, lane = position,
+//     and the pieces' partial dot products meet in shared memory; warp g
+//     then forms head g's 32 logits, scales them after the product, takes
+//     their max and sum by shuffles and updates (m, l) online in f32;
+//   * P.V: each thread rescales and updates the accumulator elements it
+//     owns, kept in registers: pairs of adjacent elements of a head where
+//     rows are whole vectors (each p read once for both; a full tile's p
+//     read four at a time), single elements on the plain path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -56,7 +74,7 @@ constexpr int kTile = 32;        // positions per tile (one per lane)
 constexpr int kMaxDim = 256;     // head_dim limit
 constexpr int kMaxGroups = 16;   // query heads per kv head limit
 constexpr int kAccPerThread = kMaxGroups * kMaxDim / kThreads;
-constexpr int kRowsPerWarp = kTile / kWarps;
+constexpr int kCombineThreads = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -71,33 +89,183 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ float lo_bf16(unsigned word) {
+  return __uint_as_float(word << 16);
+}
+__device__ __forceinline__ float hi_bf16(unsigned word) {
+  return __uint_as_float(word & 0xffff0000u);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 struct Shape {
   int b, h, d, page, kv_heads, nblk, groups;
+  int part_len, parts;  // positions per partition; partitions per context
+  int row_bytes;        // stride of K and V rows in shared memory
+  int pieces;           // pieces of D per query head in the logits
   float scale;
 };
 
-template <typename TQ, typename TKV>
+__host__ __device__ inline int align16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// Shared memory: q (G, D) f32 | K, V of two stages (2, 2, kTile rows) |
+// partial logits (G * pieces, kTile) | p (G, kTile) | m, l, alpha (G).
+__host__ __device__ inline int kv_offset(const Shape& s) {
+  return align16(s.groups * s.d * 4);
+}
+__host__ __device__ inline int part_offset(const Shape& s) {
+  return kv_offset(s) + 4 * kTile * s.row_bytes;
+}
+size_t smem_bytes(const Shape& s) {
+  return part_offset(s) +
+         (static_cast<size_t>(s.groups) * (s.pieces + 1) * kTile +
+          3 * s.groups) * sizeof(float);
+}
+
+// Elements of one chunk of a row: a 16-byte vector, or one element on the
+// plain path.
+template <typename T, bool kVec>
+__host__ __device__ constexpr int chunk_elems() {
+  return kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+}
+
+// Positions [base, base + n_t) of kv head `kh` into the stage's K and V
+// rows: cp.async 16-byte vectors, or plain loads and stores.  Warp w takes
+// rows w, w + 8, ...; its lanes look up those rows' pages together first,
+// so the block-table reads of a tile are in flight at once.
+template <typename TKV, bool kVec>
+__device__ __forceinline__ void load_tile(const TKV* __restrict__ k_pages,
+                                          const TKV* __restrict__ v_pages,
+                                          const int* __restrict__ bt,
+                                          int base, int n_t, int kh,
+                                          char* ks, char* vs, const Shape& s,
+                                          int warp, int lane) {
+  const int rows = warp < n_t ? (n_t - warp + kWarps - 1) / kWarps : 0;
+  long long mine = 0;
+  if (lane < rows) {
+    const int pos = base + warp + lane * kWarps;
+    mine = ((static_cast<long long>(bt[pos / s.page]) * s.page +
+             pos % s.page) * s.kv_heads + kh) * s.d;
+  }
+  for (int r = 0; r < rows; ++r) {
+    const int t = warp + r * kWarps;
+    const long long row = __shfl_sync(0xffffffffu, mine, r);
+    char* kd = ks + t * s.row_bytes;
+    char* vd = vs + t * s.row_bytes;
+    if constexpr (kVec) {
+      const char* kg = reinterpret_cast<const char*>(k_pages + row);
+      const char* vg = reinterpret_cast<const char*>(v_pages + row);
+      const int chunks = s.d * static_cast<int>(sizeof(TKV)) / 16;
+      for (int c = lane; c < chunks; c += 32) {
+        cp_async16(kd + 16 * c, kg + 16 * c);
+        cp_async16(vd + 16 * c, vg + 16 * c);
+      }
+    } else {
+      for (int e = lane; e < s.d; e += 32) {
+        reinterpret_cast<TKV*>(kd)[e] = k_pages[row + e];
+        reinterpret_cast<TKV*>(vd)[e] = v_pages[row + e];
+      }
+    }
+  }
+}
+
+// kPv adjacent elements of a V row in shared memory, as floats.
+template <int kPv>
+struct Floats {
+  float v[kPv];
+};
+template <typename TKV, int kPv>
+__device__ __forceinline__ Floats<kPv> load_pv(const char* at) {
+  Floats<kPv> f;
+  if constexpr (kPv == 1) {
+    f.v[0] = to_f32(*reinterpret_cast<const TKV*>(at));
+  } else if constexpr (sizeof(TKV) == 4) {
+    const float2 x = *reinterpret_cast<const float2*>(at);
+    f.v[0] = x.x;
+    f.v[1] = x.y;
+  } else {
+    const unsigned x = *reinterpret_cast<const unsigned*>(at);
+    f.v[0] = lo_bf16(x);
+    f.v[1] = hi_bf16(x);
+  }
+  return f;
+}
+
+// <q chunk c, K row chunk c>: q_g is the head's f32 row in shared memory.
+template <typename TKV, bool kVec>
+__device__ __forceinline__ float chunk_dot(const float* q_g, const char* kr,
+                                           int c) {
+  if constexpr (kVec && sizeof(TKV) == 4) {
+    const float4 k = reinterpret_cast<const float4*>(kr)[c];
+    const float4 q = reinterpret_cast<const float4*>(q_g)[c];
+    return fmaf(q.w, k.w, fmaf(q.z, k.z, fmaf(q.y, k.y, q.x * k.x)));
+  } else if constexpr (kVec) {
+    // eight bf16, two to a word, low half first; a bf16 is the high half
+    // of its f32
+    const uint4 raw = reinterpret_cast<const uint4*>(kr)[c];
+    const float4 q0 = reinterpret_cast<const float4*>(q_g)[2 * c];
+    const float4 q1 = reinterpret_cast<const float4*>(q_g)[2 * c + 1];
+    float dot = q0.x * lo_bf16(raw.x);
+    dot = fmaf(q0.y, hi_bf16(raw.x), dot);
+    dot = fmaf(q0.z, lo_bf16(raw.y), dot);
+    dot = fmaf(q0.w, hi_bf16(raw.y), dot);
+    dot = fmaf(q1.x, lo_bf16(raw.z), dot);
+    dot = fmaf(q1.y, hi_bf16(raw.z), dot);
+    dot = fmaf(q1.z, lo_bf16(raw.w), dot);
+    return fmaf(q1.w, hi_bf16(raw.w), dot);
+  } else {
+    return q_g[c] * to_f32(reinterpret_cast<const TKV*>(kr)[c]);
+  }
+}
+
+// One partition of one (kv head, sequence): grid K x B x parts.  With one
+// partition `out` gets the normalised result; with more, `ws` gets
+// (m, l, acc) per query head.
+template <typename TQ, typename TKV, bool kVec>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const int* __restrict__ block_table,
-    const int* __restrict__ context_lens, TQ* __restrict__ out, Shape s) {
-  extern __shared__ float smem[];
+    const int* __restrict__ context_lens, TQ* __restrict__ out,
+    float* __restrict__ ws, Shape s) {
+  extern __shared__ __align__(16) char smem[];
   const int kh = blockIdx.x;
   const int seq = blockIdx.y;
+  const int part = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int d = s.d;
   const int g_n = s.groups;
-  const int ds = d | 1;                       // odd row stride in smem
 
-  float* q_s = smem;                          // [G][D]
-  float* k_s = q_s + g_n * d;                 // [kTile][ds]
-  float* v_s = k_s + kTile * ds;              // [kTile][ds]
-  float* p_s = v_s + kTile * ds;              // [G][kTile]
-  float* m_s = p_s + g_n * kTile;             // [G]
-  float* l_s = m_s + g_n;                     // [G]
-  float* alpha_s = l_s + g_n;                 // [G]
+  const int capacity = s.nblk * s.page;
+  const int ctx = min(max(context_lens[seq], 0), capacity);
+  const int lo = part * s.part_len;
+  if (s.parts > 1 && lo >= ctx) return;  // whole block: no barrier passed
+  const int hi = min(lo + s.part_len, ctx);
+  const int n_tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
+
+  float* q_s = reinterpret_cast<float*>(smem);            // [G][D]
+  char* kv = smem + kv_offset(s);                         // [2][K|V][kTile]
+  const int stage_bytes = 2 * kTile * s.row_bytes;
+  float* part_s = reinterpret_cast<float*>(smem + part_offset(s));
+  float* p_s = part_s + g_n * s.pieces * kTile;           // [G][kTile]
+  float* m_s = p_s + g_n * kTile;                         // [G]
+  float* l_s = m_s + g_n;                                 // [G]
+  float* alpha_s = l_s + g_n;                             // [G]
 
   const int h0 = kh * g_n;
   const TQ* qb = q + (static_cast<long long>(seq) * s.h + h0) * d;
@@ -111,59 +279,56 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
   for (int i = 0; i < kAccPerThread; ++i) acc[i] = 0.0f;
 
-  const int capacity = s.nblk * s.page;
-  const int ctx = min(max(context_lens[seq], 0), capacity);
   const int* bt = block_table + static_cast<long long>(seq) * s.nblk;
-  __syncthreads();
+  if (n_tiles > 0)
+    load_tile<TKV, kVec>(k_pages, v_pages, bt, lo, min(kTile, hi - lo), kh,
+                         kv, kv + kTile * s.row_bytes, s, warp, lane);
+  cp_async_commit();
+  __syncthreads();  // q, m and l, also where the partition is empty
 
-  for (int base = 0; base < ctx; base += kTile) {
-    const int n_t = min(kTile, ctx - base);
-    // the tile's K and V rows: warp w loads rows w, w + 8, w + 16, w + 24,
-    // lane l elements l, l + 32, ...; every load of the tile is issued
-    // into registers before the first store to shared memory, so they are
-    // in flight together.  Only live block-table entries are read.
-    float kr[kRowsPerWarp][kMaxDim / 32], vr[kRowsPerWarp][kMaxDim / 32];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int t = warp + rr * kWarps;
-      if (t < n_t) {
-        const int pos = base + t;
-        const long long row =
-            ((static_cast<long long>(bt[pos / s.page]) * s.page +
-              pos % s.page) * s.kv_heads + kh) * d;
-#pragma unroll
-        for (int j = 0; j < kMaxDim / 32; ++j) {
-          const int e = lane + 32 * j;
-          if (e < d) {
-            kr[rr][j] = to_f32(k_pages[row + e]);
-            vr[rr][j] = to_f32(v_pages[row + e]);
-          }
-        }
-      }
+  constexpr int E = chunk_elems<TKV, kVec>();
+  const int chunks = d / E;
+  // P.V items: kPv adjacent elements of a head's D (two where rows are
+  // whole 16-byte vectors, so D is even), kItems items per thread
+  constexpr int kPv = kVec ? 2 : 1;
+  constexpr int kItems = kAccPerThread / kPv;
+  const int items = g_n * s.pieces;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int base = lo + it * kTile;
+    const int n_t = min(kTile, hi - base);
+    char* ks = kv + (it & 1) * stage_bytes;
+    const char* vs = ks + kTile * s.row_bytes;
+    if (it + 1 < n_tiles) {
+      char* nk = kv + ((it + 1) & 1) * stage_bytes;
+      load_tile<TKV, kVec>(k_pages, v_pages, bt, base + kTile,
+                           min(kTile, hi - base - kTile), kh, nk,
+                           nk + kTile * s.row_bytes, s, warp, lane);
     }
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int t = warp + rr * kWarps;
-      if (t < n_t) {
-#pragma unroll
-        for (int j = 0; j < kMaxDim / 32; ++j) {
-          const int e = lane + 32 * j;
-          if (e < d) {
-            k_s[t * ds + e] = kr[rr][j];
-            v_s[t * ds + e] = vr[rr][j];
-          }
-        }
+    cp_async_commit();
+    cp_async_wait_one();  // this tile's copies, by this thread
+    __syncthreads();      // ... and by every thread
+    // partial logits: item = piece * G + g, lane = position
+    for (int item = warp; item < items; item += kWarps) {
+      const int g = item % g_n, piece = item / g_n;
+      float dot = 0.0f;
+      if (lane < n_t) {
+        const float* qg = q_s + g * d;
+        const char* kr = ks + lane * s.row_bytes;
+        const int c1 = (piece + 1) * chunks / s.pieces;
+#pragma unroll 4
+        for (int c = piece * chunks / s.pieces; c < c1; ++c)
+          dot += chunk_dot<TKV, kVec>(qg, kr, c);
       }
+      part_s[item * kTile + lane] = dot;
     }
     __syncthreads();
     // logits, online softmax: warp g owns query head g, lane t position t
     for (int g = warp; g < g_n; g += kWarps) {
       float sc = -INFINITY;
       if (lane < n_t) {
-        const float* qg = q_s + g * d;
-        const float* kt = k_s + lane * ds;
         float dot = 0.0f;
-        for (int e = 0; e < d; ++e) dot = fmaf(qg[e], kt[e], dot);
+        for (int piece = 0; piece < s.pieces; ++piece)
+          dot += part_s[(piece * g_n + g) * kTile + lane];
         sc = dot * s.scale;
       }
       float mx = sc;
@@ -187,85 +352,230 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       }
     }
     __syncthreads();
-    // acc[g][e] = acc[g][e] * alpha[g] + sum_t p[g][t] * v[t][e]
+    // acc[g][e] = acc[g][e] * alpha[g] + sum_t p[g][t] * v[t][e], for the
+    // kPv adjacent elements of each item the thread owns; a full tile reads
+    // p four positions at a time
 #pragma unroll
-    for (int i = 0; i < kAccPerThread; ++i) {
-      const int idx = tid + i * kThreads;
-      if (idx < g_n * d) {
-        const int g = idx / d, e = idx - g * d;
+    for (int i = 0; i < kItems; ++i) {
+      const int el = (tid + i * kThreads) * kPv;
+      if (el < g_n * d) {
+        const int g = el / d;
         const float* pg = p_s + g * kTile;
-        float upd = 0.0f;
-        for (int t = 0; t < n_t; ++t) upd = fmaf(pg[t], v_s[t * ds + e], upd);
-        acc[i] = acc[i] * alpha_s[g] + upd;
+        const char* ve = vs + (el - g * d) * static_cast<int>(sizeof(TKV));
+        float u[kPv] = {};
+        auto step = [&](float p, int t) {
+          const Floats<kPv> v = load_pv<TKV, kPv>(ve + t * s.row_bytes);
+#pragma unroll
+          for (int j = 0; j < kPv; ++j) u[j] = fmaf(p, v.v[j], u[j]);
+        };
+        if (n_t == kTile) {
+#pragma unroll
+          for (int t = 0; t < kTile; t += 4) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pg + t);
+            step(p4.x, t);
+            step(p4.y, t + 1);
+            step(p4.z, t + 2);
+            step(p4.w, t + 3);
+          }
+        } else {
+          for (int t = 0; t < n_t; ++t) step(pg[t], t);
+        }
+        const float alpha = alpha_s[g];
+#pragma unroll
+        for (int j = 0; j < kPv; ++j)
+          acc[i * kPv + j] = acc[i * kPv + j] * alpha + u[j];
       }
     }
-    __syncthreads();
+    __syncthreads();  // the stage and p are free for the next tiles
   }
 
-  TQ* ob = out + (static_cast<long long>(seq) * s.h + h0) * d;
+  // slot i * kPv + j of acc is element (tid + i * kThreads) * kPv + j of
+  // the (G, D) block of heads
+  if (s.parts == 1) {
+    TQ* ob = out + (static_cast<long long>(seq) * s.h + h0) * d;
 #pragma unroll
-  for (int i = 0; i < kAccPerThread; ++i) {
-    const int idx = tid + i * kThreads;
-    if (idx < g_n * d) {
-      const float l = l_s[idx / d];
-      ob[idx] = from_f32<TQ>(acc[i] / (l == 0.0f ? 1.0f : l));
+    for (int i = 0; i < kItems; ++i) {
+      const int el = (tid + i * kThreads) * kPv;
+      if (el < g_n * d) {
+        const float l = l_s[el / d];
+#pragma unroll
+        for (int j = 0; j < kPv; ++j)
+          ob[el + j] = from_f32<TQ>(acc[i * kPv + j] /
+                                    (l == 0.0f ? 1.0f : l));
+      }
+    }
+    return;
+  }
+  // (m, l, acc) of each query head of this partition
+  const int w = d + 2;
+  float* wb = ws + (static_cast<long long>(seq) * s.h + h0) * s.parts * w +
+              static_cast<long long>(part) * w;
+  const long long head_stride = static_cast<long long>(s.parts) * w;
+  for (int g = tid; g < g_n; g += kThreads) {
+    wb[g * head_stride] = m_s[g];
+    wb[g * head_stride + 1] = l_s[g];
+  }
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int el = (tid + i * kThreads) * kPv;
+    if (el < g_n * d) {
+      const int g = el / d, e = el - g * d;
+#pragma unroll
+      for (int j = 0; j < kPv; ++j)
+        wb[g * head_stride + 2 + e + j] = acc[i * kPv + j];
     }
   }
 }
 
-size_t smem_bytes(int groups, int d) {
-  return (static_cast<size_t>(groups) * d + 2 * kTile * (d | 1) +
-          groups * kTile + 3 * groups) * sizeof(float);
+// Combine the non-empty partitions of each (head, sequence) in partition
+// order: grid H x B.
+template <typename TQ>
+__global__ void __launch_bounds__(kCombineThreads) paged_combine_kernel(
+    const float* __restrict__ ws, const int* __restrict__ context_lens,
+    TQ* __restrict__ out, Shape s) {
+  const int hh = blockIdx.x, seq = blockIdx.y;
+  const int d = s.d, w = d + 2;
+  const int ctx = min(max(context_lens[seq], 0), s.nblk * s.page);
+  const int live = (ctx + s.part_len - 1) / s.part_len;
+  const float* wb = ws + (static_cast<long long>(seq) * s.h + hh) * s.parts * w;
+  float mx = -INFINITY;
+  for (int p = 0; p < live; ++p) mx = fmaxf(mx, wb[p * w]);
+  float l = 0.0f;
+  for (int p = 0; p < live; ++p) l += wb[p * w + 1] * expf(wb[p * w] - mx);
+  TQ* ob = out + (static_cast<long long>(seq) * s.h + hh) * d;
+  for (int e = threadIdx.x; e < d; e += kCombineThreads) {
+    float o = 0.0f;
+    for (int p = 0; p < live; ++p)
+      o = fmaf(wb[p * w + 2 + e], expf(wb[p * w] - mx), o);
+    ob[e] = from_f32<TQ>(live > 0 ? o / l : 0.0f);
+  }
 }
 
-template <typename TQ, typename TKV>
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// f(Type<TQ>, Type<TKV>, std::bool_constant<kVec>) for the dtype codes
+// (0 = float32, 1 = bfloat16) and the load path.
+template <class F>
+int dispatch(int q_dtype, int kv_dtype, bool vec, F&& f) {
+  auto by_kv = [&](auto tq) {
+    auto by_vec = [&](auto tkv) {
+      return vec ? f(tq, tkv, std::true_type{}) : f(tq, tkv, std::false_type{});
+    };
+    return kv_dtype == 0 ? by_vec(Type<float>{})
+                         : by_vec(Type<__nv_bfloat16>{});
+  };
+  return q_dtype == 0 ? by_kv(Type<float>{}) : by_kv(Type<__nv_bfloat16>{});
+}
+
+// The 16-byte path takes rows that are whole vectors in pools that are
+// 16-byte aligned.
+bool vector_rows(int d, int kv_dtype, bool aligned) {
+  return aligned && (d * (kv_dtype == 0 ? 4 : 2)) % 16 == 0;
+}
+
+// The partition kernel's layout for `s` (row stride, pieces of D) and its
+// shared memory, which the kernel is allowed to take.
+template <typename TQ, typename TKV, bool kVec>
+cudaError_t prepare(Shape* s, size_t* smem) {
+  const int elem = static_cast<int>(sizeof(TKV));
+  s->row_bytes = kVec ? 16 * (((s->d * elem + 15) / 16) | 1)
+                      : (s->d | 1) * elem;
+  s->pieces = s->groups <= kWarps ? kWarps / s->groups : 1;
+  *smem = smem_bytes(*s);
+  return cudaFuncSetAttribute(paged_attention_kernel<TQ, TKV, kVec>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+template <typename TQ, typename TKV, bool kVec>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* block_table, const int* context_lens, void* out,
-           const Shape& s, cudaStream_t stream) {
-  const size_t smem = smem_bytes(s.groups, s.d);
-  auto kern = paged_attention_kernel<TQ, TKV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+           float* ws, Shape s, cudaStream_t stream) {
+  size_t smem = 0;
+  cudaError_t err = prepare<TQ, TKV, kVec>(&s, &smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(s.kv_heads, s.b), kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
-      static_cast<const TKV*>(v_pages), block_table, context_lens,
-      static_cast<TQ*>(out), s);
+  paged_attention_kernel<TQ, TKV, kVec>
+      <<<dim3(s.kv_heads, s.b, s.parts), kThreads, smem, stream>>>(
+          static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
+          static_cast<const TKV*>(v_pages), block_table, context_lens,
+          static_cast<TQ*>(out), ws, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || s.parts == 1) return err;
+  paged_combine_kernel<TQ><<<dim3(s.h, s.b), kCombineThreads, 0, stream>>>(
+      ws, context_lens, static_cast<TQ*>(out), s);
   return cudaGetLastError();
+}
+
+bool takes(int h, int d, int kv_heads, int q_dtype, int kv_dtype) {
+  return kv_heads > 0 && h % kv_heads == 0 && d > 0 && d <= kMaxDim &&
+         h / kv_heads <= kMaxGroups && q_dtype >= 0 && q_dtype <= 1 &&
+         kv_dtype >= 0 && kv_dtype <= 1;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = ok);
-// cudaErrorInvalidValue for a shape the kernel does not take.
-extern "C" int paged_attention(const void* q, const void* k_pages,
-                               const void* v_pages, const int* block_table,
-                               const int* context_lens, void* out, int b,
-                               int h, int d, int page, int kv_heads, int nblk,
-                               float scale, int q_dtype, int kv_dtype,
-                               int device, void* stream) {
+// How many partition blocks an SM holds at once for these shapes and
+// dtypes (`aligned`: both pools 16-byte aligned), into *blocks: what the
+// wrapper's split plan sizes its waves by.
+extern "C" int paged_attention_resident(int* blocks, int h, int d,
+                                        int kv_heads, int aligned,
+                                        int q_dtype, int kv_dtype,
+                                        int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (kv_heads <= 0 || h % kv_heads != 0 || d <= 0 || d > kMaxDim ||
-      h / kv_heads > kMaxGroups || page <= 0 || nblk < 0 ||
-      q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 || kv_dtype > 1)
+  if (!takes(h, d, kv_heads, q_dtype, kv_dtype)) return cudaErrorInvalidValue;
+  Shape s{1, h, d, 1, kv_heads, 1, h / kv_heads, kTile, 1, 0, 0, 1.0f};
+  return dispatch(q_dtype, kv_dtype, vector_rows(d, kv_dtype, aligned != 0),
+                  [&](auto tq, auto tkv, auto vec) -> int {
+                    using TQ = typename decltype(tq)::type;
+                    using TKV = typename decltype(tkv)::type;
+                    constexpr bool kV = decltype(vec)::value;
+                    size_t smem = 0;
+                    cudaError_t e = prepare<TQ, TKV, kV>(&s, &smem);
+                    if (e != cudaSuccess) return e;
+                    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        blocks, paged_attention_kernel<TQ, TKV, kV>,
+                        kThreads, smem);
+                  });
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16.  `parts` partitions of
+// `part_len` positions per context (parts * part_len >= nblk * page,
+// part_len a multiple of 32); with parts > 1, `ws` is (b, h, parts, d + 2)
+// f32 scratch.  Returns a cudaError_t (0 = ok); cudaErrorInvalidValue for a
+// shape the kernel does not take.
+extern "C" int paged_attention(const void* q, const void* k_pages,
+                               const void* v_pages, const int* block_table,
+                               const int* context_lens, void* out, void* ws,
+                               int b, int h, int d, int page, int kv_heads,
+                               int nblk, int part_len, int parts, float scale,
+                               int q_dtype, int kv_dtype, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!takes(h, d, kv_heads, q_dtype, kv_dtype) || page <= 0 || nblk < 0 ||
+      parts < 1 || parts > 65535 || part_len <= 0 || part_len % kTile != 0 ||
+      static_cast<long long>(part_len) * parts <
+          static_cast<long long>(nblk) * page ||
+      (parts > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
-  const Shape s{b, h, d, page, kv_heads, nblk, h / kv_heads, scale};
-  auto st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float>(q, k_pages, v_pages, block_table,
-                                context_lens, out, s, st);
-  if (q_dtype == 0)
-    return launch<float, __nv_bfloat16>(q, k_pages, v_pages, block_table,
-                                        context_lens, out, s, st);
-  if (kv_dtype == 0)
-    return launch<__nv_bfloat16, float>(q, k_pages, v_pages, block_table,
-                                        context_lens, out, s, st);
-  return launch<__nv_bfloat16, __nv_bfloat16>(q, k_pages, v_pages,
-                                              block_table, context_lens, out,
-                                              s, st);
+  const Shape s{b, h, d, page, kv_heads, nblk, h / kv_heads, part_len,
+                parts, 0, 0, scale};
+  const bool aligned = reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
+  return dispatch(q_dtype, kv_dtype, vector_rows(d, kv_dtype, aligned),
+                  [&](auto tq, auto tkv, auto vec) -> int {
+                    using TQ = typename decltype(tq)::type;
+                    using TKV = typename decltype(tkv)::type;
+                    return launch<TQ, TKV, decltype(vec)::value>(
+                        q, k_pages, v_pages, block_table, context_lens, out,
+                        static_cast<float*>(ws), s,
+                        static_cast<cudaStream_t>(stream));
+                  });
 }
 
 extern "C" const char* paged_attention_error_string(int code) {

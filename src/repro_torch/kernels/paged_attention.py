@@ -33,8 +33,12 @@ rows of each kv head are read once (``sum_b ctx_b * K * 2 * D`` elements),
 the lengths, over 3.35 TB/s; see :func:`bound_bytes`.  At the serve shapes
 (B = 8, H = 32, K = 8, D = 120, contexts ~64) that is well under a
 microsecond and the kernel is launch-bound; at a 4096-token context
-(B = 8, f32 pools) it is 252 MB, about 75 us.  Design: one block per
-(kv head, sequence), tiles of 32 positions, see the source note.
+(B = 8, f32 pools) it is 252 MB, about 75 us.  Design (flash-decoding,
+see the source note): each (kv head, sequence) context split into
+partitions, one block each (:func:`split_plan` picks them from the shapes
+and the card's occupancy: one partition at the serve shapes), tiles of 32
+positions double-buffered by ``cp.async``, and where there are several
+partitions a second pass that combines them in a fixed order.
 
 The wrapper counts kernel launches (``"paged_attention"``) and
 plain-version calls (``"paged_attention_ref"``) in
@@ -54,6 +58,50 @@ from repro_torch.kernels.build import LAUNCHES
 MAX_HEAD_DIM = 256
 MAX_GROUPS = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: positions per tile of the kernel
+TILE = 32
+#: no partition of a context is shorter than this
+MIN_PARTITION = 256
+#: the split prefers at least this many partition blocks per SM
+FILL = 2
+
+
+def split_plan(b: int, kv_heads: int, capacity: int, page: int, sms: int,
+               resident: int = 2) -> tuple:
+    """``(parts, part_len)``: how the kernel cuts each context of at most
+    `capacity` (= nblk * page) positions, on a card of `sms` SMs that each
+    hold `resident` partition blocks at once.
+
+    A partition is a whole number of tiles and pages and at least
+    ``MIN_PARTITION`` positions; ``parts * part_len >= capacity``.  The
+    ``b * kv_heads * parts`` blocks run in waves of ``sms * resident``, so
+    the busiest SM walks about ``waves * part_len / TILE`` tiles: the plan
+    takes the fewest such tiles among the splits that give at least
+    ``FILL * sms`` blocks (all splits where none does), and of those the
+    fewest partitions.  A capacity that fits in the shortest partition gets
+    one partition (no combine pass).
+    """
+    unit = math.lcm(page, TILE)
+    whole = -(-max(capacity, 1) // unit) * unit
+    shortest = -(-MIN_PARTITION // unit) * unit
+    pairs = b * kv_heads
+    if whole <= shortest or pairs == 0:
+        return 1, whole
+    best = None
+    for s in range(1, -(-capacity // shortest) + 1):
+        part_len = max(shortest, -(-capacity // (s * unit)) * unit)
+        parts = -(-capacity // part_len)
+        blocks = pairs * parts
+        waves = -(-blocks // (sms * max(resident, 1)))
+        key = (blocks < FILL * sms, waves * (part_len // TILE), parts)
+        if best is None or key < best[0]:
+            best = key, parts, part_len
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def n_live_blocks(context_lens: torch.Tensor, page: int, nblk: int
@@ -138,9 +186,11 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
-    lib.paged_attention.argtypes = ([_P] * 6 + [_I] * 6 + [ctypes.c_float]
+    lib.paged_attention.argtypes = ([_P] * 7 + [_I] * 8 + [ctypes.c_float]
                                     + [_I] * 3 + [_P])
     lib.paged_attention.restype = _I
+    lib.paged_attention_resident.argtypes = [_P] + [_I] * 7
+    lib.paged_attention_resident.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -170,19 +220,66 @@ def _launch(q, k_pages, v_pages, block_table, context_lens) -> torch.Tensor:
     bt = block_table.to(torch.int32).contiguous()
     cl = context_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q_c)
+    plan = launch_plan(q_c, k_c, v_c, bt)
+    # (m, l, acc) of every partition of every (sequence, head), in f32
+    ws = torch.empty((b, h, plan["parts"], d + 2), dtype=torch.float32,
+                     device=device) if plan["parts"] > 1 else None
     lib = _library()
     rc = lib.paged_attention(
         q_c.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), bt.data_ptr(),
-        cl.data_ptr(), out.data_ptr(), b, h, d, page, kh, bt.shape[1],
+        cl.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        b, h, d, page, kh, bt.shape[1], plan["part_len"], plan["parts"],
         d ** -0.5, _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
-        device.index if device.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(device).cuda_stream)
+        _device_index(device), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel failed: CUDA error {rc} "
                            f"({lib.paged_attention_error_string(rc).decode()})")
     LAUNCHES["paged_attention"] += 1
     return out
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(h, d, kh, q_dtype, kv_dtype, aligned, index) -> int:
+    """Partition blocks an SM of card `index` holds at once (the CUDA
+    occupancy of the kernel variant these shapes and dtypes launch)."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    rc = lib.paged_attention_resident(ctypes.byref(out), h, d, kh, aligned,
+                                      q_dtype, kv_dtype, index)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_attention_resident failed: CUDA error {rc} "
+            f"({lib.paged_attention_error_string(rc).decode()})")
+    return out.value
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(b, h, d, kh, page, nblk, q_dtype, kv_dtype, aligned, index):
+    """(parts, part_len, resident) of a call, cached by its shapes."""
+    resident = _resident(h, d, kh, q_dtype, kv_dtype, aligned, index)
+    parts, part_len = split_plan(b, kh, nblk * page, page, _sm_count(index),
+                                 resident)
+    return parts, part_len, resident
+
+
+def launch_plan(q, k_pages, v_pages, block_table) -> dict:
+    """How the kernel splits a CUDA call: ``{"parts", "part_len",
+    "blocks", "resident"}`` (blocks of the partition pass, and how many an
+    SM holds at once)."""
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    aligned = int(k_pages.data_ptr() % 16 == 0
+                  and v_pages.data_ptr() % 16 == 0)
+    parts, part_len, resident = _plan(
+        b, h, d, kh, page, block_table.shape[1], _DTYPES[q.dtype],
+        _DTYPES[k_pages.dtype], aligned, _device_index(q.device))
+    return dict(parts=parts, part_len=part_len, blocks=kh * b * parts,
+                resident=resident)
 
 
 def paged_attention(q, k_pages, v_pages, block_table, context_lens

@@ -519,3 +519,121 @@ def test_flash_attention_variant_on_the_card(card, dtype, d, want):
             torch.cuda.current_stream(card).cuda_stream)
         assert rc == 1  # cudaErrorInvalidValue
 
+
+
+# ---------------------------------------------------------------------------
+# K6 split into set chains, K4 split over the context
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_sets", [1, 2, 2048, 8192])
+@pytest.mark.parametrize("n_ways", [1, 16, 32])
+def test_cache_sim_chains_match_plain_version(card, n_sets, n_ways):
+    """One chain (1 set), few chains (2), one set per chain (2048) and
+    several sets per chain (8192 > 2**MAX_CHAIN_BITS), bitwise on hits,
+    tags and clocks; then an empty trace and one crowded into one set."""
+    rng = np.random.default_rng(n_sets + n_ways)
+    n = 6000 if n_sets < 2048 else 40_000
+    traces = [rng.integers(0, n_sets * n_ways * 3, n),
+              np.zeros(0, np.int64),
+              n_sets * rng.integers(0, 3 * n_ways, 3000) + n_sets // 2]
+    plan = tkernels.cache_sim_plan(n_sets, n_ways, card)
+    assert plan["bits"] == min(n_sets.bit_length() - 1,
+                               tkernels.MAX_CHAIN_BITS)
+    assert plan["in_regs"] == (n_sets <= 1 << tkernels.MAX_CHAIN_BITS)
+    for addr in traces:
+        addr = torch.from_numpy(addr.astype(np.int32)).to(card)
+        tops.reset_launches()
+        kern = tops.cache_sim(addr, n_sets=n_sets, n_ways=n_ways)
+        assert tops.LAUNCHES["cache_sim"] == 1
+        plain = tops.cache_sim_ref(addr, n_sets=n_sets, n_ways=n_ways)
+        for k, p in zip(kern, plain):
+            assert k.is_cuda and torch.equal(k, p)
+
+
+@pytest.mark.parametrize("n_sets,warps,in_smem", [
+    (1 << 22, 1, 1),        # 1024 sets per chain: 128 KiB, one warp a block
+    (1 << 23, 4, 0)])       # 2048 sets per chain: too big, the outputs
+def test_cache_sim_chain_layouts(card, n_sets, warps, in_smem):
+    """Chains whose sets fill a block's shared memory alone, and chains
+    whose sets live in the output tensors, bitwise."""
+    plan = tkernels.cache_sim_plan(n_sets, 16, card)
+    assert (plan["warps_per_block"], plan["in_regs"], plan["in_smem"]) == (
+        warps, 0, in_smem)
+    rng = np.random.default_rng(n_sets)
+    addr = torch.from_numpy(rng.integers(0, 2**31 - 1, 100_000)
+                            .astype(np.int32)).to(card)
+    # and 500 accesses crowded into one set (97 lines over its 16 ways)
+    addr[:500] = 12345 + n_sets * (torch.arange(500, device=card,
+                                                dtype=torch.int32) % 97)
+    kern = tops.cache_sim(addr, n_sets=n_sets, n_ways=16)
+    plain = tops.cache_sim_ref(addr, n_sets=n_sets, n_ways=16)
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
+
+
+def long_paged_case(seed, ctxs, h, kh, d, nblk, dtype, device, page=16):
+    """One sequence per context in `ctxs`; pools of nblk pages per
+    sequence; entries past the live blocks out of range."""
+    rng = np.random.default_rng(seed)
+    b = len(ctxs)
+    n_pages = b * nblk
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, page, kh, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, page, kh, d)).astype(np.float32)
+    bt = rng.permutation(n_pages).reshape(b, nblk).astype(np.int32)
+    cl = np.asarray(ctxs, np.int32)
+    bt[np.arange(nblk)[None, :] >= (-(-cl // page))[:, None]] = n_pages + 3
+    dt = getattr(torch, dtype)
+    return [torch.from_numpy(x).to(device, dt) for x in (q, kp, vp)] + [
+        torch.from_numpy(x).to(device) for x in (bt, cl)]
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("d", [16, 120, 256])
+@pytest.mark.parametrize("groups", [1, 4, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_split_matches_plain_version(card, split, d, groups,
+                                                     dtype):
+    """Contexts 0, 1, L - 1, L, L + 1 and the capacity (4096 where split),
+    L the partition length; one partition (capacity 256) or several; two
+    calls give the same bits."""
+    kh, nblk = 2, (256 if split else 16)
+    kv = torch.empty((1, 16, kh, d), dtype=getattr(torch, dtype),
+                     device=card)
+    plan = tpa.launch_plan(torch.empty((6, groups * kh, d), dtype=kv.dtype,
+                                       device=card), kv, kv,
+                           torch.empty((6, nblk), dtype=torch.int32))
+    part_len = plan["part_len"]
+    assert (plan["parts"] > 1) == split and plan["resident"] >= 1
+    ctxs = [0, 1, part_len - 1, part_len, part_len + 1, nblk * 16]
+    args = long_paged_case(d * groups, [min(c, nblk * 16) for c in ctxs],
+                           groups * kh, kh, d, nblk, dtype, card)
+    tops.reset_launches()
+    kern = tops.paged_attention(*args)
+    again = tops.paged_attention(*args)
+    assert tops.LAUNCHES["paged_attention"] == 2
+    plain = tpa.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(kern, again)
+    assert torch.all(kern[0] == 0)                  # empty context
+
+
+@pytest.mark.parametrize("case", ["d20_bf16", "misaligned_f32"])
+def test_paged_attention_plain_load_path(card, case):
+    """Rows that are no multiple of 16 bytes, and pools that are not
+    16-byte aligned, take the kernel's plain loads."""
+    d = 20 if case == "d20_bf16" else 64
+    dtype = "bfloat16" if case == "d20_bf16" else "float32"
+    q, kp, vp, bt, cl = long_paged_case(7, [0, 33, 300, 512], 8, 2, d, 32,
+                                        dtype, card)
+    if case == "misaligned_f32":
+        kp, vp = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:]
+                  .view(x.shape) for x in (kp, vp))
+        assert kp.data_ptr() % 16 != 0
+    kern = tops.paged_attention(q, kp, vp, bt, cl)
+    plain = tpa.paged_attention_ref(q, kp, vp, bt, cl)
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
+                               atol=tol)

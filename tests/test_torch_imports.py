@@ -168,7 +168,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
         assert [p.name for p in build.sources(name)] == [
             f"{name}.cu", "mesi_chain.cuh", "mesi_access.cuh"]
     assert [p.name for p in build.sources("cache_sim")] == [
-        "cache_sim.cu", "mesi_access.cuh"]
+        "cache_sim.cu", "mesi_chain.cuh", "mesi_access.cuh"]
     for name in ("paged_attention", "stream_triad"):
         assert [p.name for p in build.sources(name)] == [f"{name}.cu"]
     assert [p.name for p in build.sources("flash_attention")] == [

@@ -133,7 +133,7 @@ def test_stream_triad_matches_jax(shape, dtype, s):
 
 
 @pytest.mark.parametrize("tool", ["k5_variants", "k7_variants",
-                                  "mesi_variants"])
+                                  "mesi_variants", "k4k6_variants"])
 def test_variant_tools_match_their_sources(tool):
     """The design-variant tools still fit the sources they build: every
     named edit of K5's and of the MESI kernels' applies to the committed
@@ -162,6 +162,20 @@ def test_variant_tools_match_their_sources(tool):
         for lib in ("mesi", "mesi_dyn"):
             assert {p.name for p in build.sources(lib)} <= set(mod.FILES)
         assert cache_sim.chain_bits(CacheParams()) == 7     # 128 chains
+    elif tool == "k4k6_variants":
+        from repro_torch.kernels import build, cache_sim, paged_attention
+        texts = mod.sources()
+        assert list(texts) == [name for name, *_ in mod.VARIANTS]
+        assert texts["committed"] == {f: (mod.CSRC / f).read_text()
+                                      for f in mod.FILES}
+        modules = {"cache_sim": cache_sim, "paged_attention": paged_attention}
+        for name, kernel, _, edits, py in mod.VARIANTS[1:]:
+            assert kernel in ("K4", "K6") and (edits or py)
+            assert (texts[name] != texts["committed"]) == bool(edits)
+            for module, attr in py:
+                assert hasattr(modules[module], attr)
+        for lib in mod.LIBS:
+            assert {p.name for p in build.sources(lib)} <= set(mod.FILES)
     else:
         cu = (root / "k7_variants.cu").read_text()
         table = cu[cu.index("constexpr Config kConfigs[] = {"):]
