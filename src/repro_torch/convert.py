@@ -109,8 +109,6 @@ def topology_spec(d: Mapping[str, Any]) -> route.TopologySpec:
 def workload(kind: str, fields: Mapping[str, Any]) -> workloads.Workload:
     """The workload of class `kind` (``type(w).__name__``)."""
     by_class = {cls.__name__: cls for cls in workloads.REGISTRY.values()}
-    if kind in workloads.UNPORTED:
-        raise workloads.not_ported(kind)
     if kind not in by_class:
         raise ValueError(f"unknown workload {kind!r}; one of "
                          f"{sorted(by_class)}")

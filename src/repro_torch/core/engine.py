@@ -38,9 +38,13 @@ all state/stat updates for them, so stats over a padded trace are bitwise
 equal to the unpadded run.  Padding is only ever appended at the end of a
 trace (logical time still advances across sentinels).
 
-Not ported yet (each raises ``NotImplementedError``): the ``moe_stream``
-workload (ROADMAP queue 1, item 5), sharded or streamed execution (item
-6), and checkpoint/resume with fault injection (item 8).
+The executor seam
+-----------------
+:func:`run_sweep` builds the batch, routes it and closes the timing; how
+the stacked batch is simulated is its executor's business
+(:class:`LocalExecutor`, one resident kernel call, by default).
+:mod:`repro_torch.core.distribute` plugs in sharded, streamed and
+resilient executors, whose counters are bitwise the same.
 """
 from __future__ import annotations
 
@@ -51,7 +55,6 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import workloads as workloads_mod
 from repro_torch.core import cache as cache_mod
 from repro_torch.core import numa as numa_mod
 from repro_torch.core import route as route_mod
@@ -66,12 +69,6 @@ from repro_torch.kernels.cache_sim import check_chunk, pad_trace
 from repro_torch.workloads.base import Stream, Workload
 
 SENTINEL = cache_mod.SENTINEL   # padded trace entries: addr == SENTINEL
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, "
-        f"item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -162,12 +159,6 @@ class SweepSpec:
             Optional[LatencyDistribution], ...]:
         """The latency-distribution loop: `(None,)` = point timing."""
         return self.distributions if self.distributions else (None,)
-
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a workload the port lacks."""
-        for wl in self.workload_axis:
-            if wl.name in workloads_mod.UNPORTED:
-                raise workloads_mod.not_ported(wl.name)
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +407,6 @@ def build_sweep_batch(spec: SweepSpec, cache: cache_mod.CacheParams, *,
         The device-resident batch, and one batch-row index per logical cell
         in ``topology-major x sim_cells`` order.
     """
-    spec.check_ported()
     device = resolve_device(device)
     if routes is None:
         routes = [None] * len(spec.topology_axis)
@@ -456,15 +446,67 @@ def _narrow_stats(stats: np.ndarray, t_max: int, t_route: int) -> np.ndarray:
     return stats[:, _narrow_idx(t_max, t_route)]
 
 
-def _check_knobs(resume, fault_plan, report) -> None:
-    if resume is not None or fault_plan is not None or report is not None:
-        raise _not_ported("checkpoint/resume, fault injection and run "
-                          "reports (resume/fault_plan/report)", 8)
+class LocalExecutor:
+    """Default sweep executor: the whole batch as ONE resident kernel call.
+
+    The executor seam is what :mod:`repro_torch.core.distribute` plugs
+    into — it owns only the simulation of an already-built batch (grid
+    flattening, routing, timing and row assembly stay in this module), so
+    any executor that returns the same counters gives the same rows.
+    """
+
+    def run_static(self, p: cache_mod.CacheParams, batch: TraceBatch,
+                   *, backend: Optional[str], chunk: int) -> np.ndarray:
+        """Simulate the stacked batch; return host (B, nstats) int64."""
+        stats, _ = run_traces(p, batch.addr, batch.is_write, core=None,
+                              tier=batch.tier, backend=backend, chunk=chunk)
+        return stats.cpu().numpy().astype(np.int64)
+
+    def run_dynamic(self, p: cache_mod.CacheParams, tb: "TieringBatch",
+                    *, slot_len: int, k_max: int,
+                    backend: Optional[str] = None
+                    ) -> tiering_dyn.DynOutputs:
+        """Run the epoch-structured batch in one kernel call."""
+        return tiering_dyn.run_dynamic(
+            p, tb.batch.addr, tb.batch.is_write, tb.batch.core,
+            tb.batch.tier, slot_len=slot_len, k_max=k_max,
+            dyn_flag=tb.dyn_flag, page_map0=tb.page_map0,
+            n_pages=tb.n_pages, budget=tb.budget, threshold=tb.threshold,
+            period=tb.period, dram_cap=tb.dram_cap,
+            page_target_lines=tb.page_target_lines,
+            ssd_tid=tb.ssd_tid, cxl_cap=tb.cxl_cap,
+            s_warm=tb.s_warm, s_meas=tb.s_meas, s_per=tb.s_per,
+            backend=backend)
+
+
+_LOCAL_EXECUTOR = LocalExecutor()
+
+
+def _resolve_executor(executor, resume, fault_plan, report):
+    """The executor the resilience knobs select (None = LocalExecutor).
+
+    ``resume`` / ``fault_plan`` / ``report`` build a
+    :class:`repro_torch.core.distribute.ResilientExecutor` (deferred import
+    — distribute sits above engine); they are mutually exclusive with an
+    explicit ``executor``, which owns its own configuration.
+    """
+    if resume is None and fault_plan is None and report is None:
+        return executor
+    if executor is not None:
+        raise ValueError(
+            "pass either executor= or the resilience knobs "
+            "(resume/fault_plan/report), not both — configure a "
+            "ResilientExecutor directly for full control")
+    from repro_torch.core import distribute
+    return distribute.ResilientExecutor(checkpoint=resume,
+                                        fault_plan=fault_plan,
+                                        report=report)
 
 
 def run_sweep(spec: SweepSpec, cache: cache_mod.CacheParams,
-              timing: TimingConfig, *, device=None, resume=None,
-              fault_plan=None, report=None) -> List[Dict]:
+              timing: TimingConfig, *, chunk: int = 512, executor=None,
+              resume=None, fault_plan=None, report=None,
+              device=None) -> List[Dict]:
     """Run the whole characterization suite as one batched device call.
 
     Parameters
@@ -476,12 +518,31 @@ def run_sweep(spec: SweepSpec, cache: cache_mod.CacheParams,
         Cache geometry (the stats width follows the widest route).
     timing : TimingConfig
         Per-tier timing model closing the Picard fixed point.
+    chunk : int
+        The JAX package's Pallas grid step (and stacking pad): a TPU
+        tiling parameter, checked (>= 1) and handed to the executor, which
+        ignores it.
+    executor : optional
+        How the stacked batch is simulated (the ``run_static`` /
+        ``run_dynamic`` duck type).  Default: :class:`LocalExecutor`, one
+        resident kernel call; :class:`repro_torch.core.distribute.
+        ShardedExecutor` shards rows and/or streams trace segments.  Every
+        executor returns the same counters, so rows never depend on it.
+    resume : CheckpointPolicy, path, or None
+        Run (or resume) through a :class:`repro_torch.core.distribute.
+        ResilientExecutor` checkpointing to this directory: a sweep killed
+        at a segment boundary and rerun with the same ``resume=``
+        fast-forwards past the completed segments and shards and gives
+        the same rows.
+    fault_plan : repro_torch.core.resilience.FaultPlan, optional
+        Deterministic failure injection (selects the resilient executor,
+        like ``resume``).
+    report : repro_torch.core.resilience.RunReport, optional
+        Event sink recording retries, resumes, degradations and
+        checkpoint timings.
     device : str or torch.device, optional
         Where traces are built and simulated; ``None`` means the CUDA
         card (raises when there is none).
-    resume, fault_plan, report
-        Not ported yet (ROADMAP queue 1, item 8): anything but ``None``
-        raises ``NotImplementedError``.
 
     Returns
     -------
@@ -491,9 +552,10 @@ def run_sweep(spec: SweepSpec, cache: cache_mod.CacheParams,
         `topology` / `tiering` / `sampling` / `distribution` labels when
         the spec sweeps those axes.
     """
-    results = sweep_results(spec, cache, timing, device=device,
-                            resume=resume, fault_plan=fault_plan,
-                            report=report)
+    results = sweep_results(spec, cache, timing, chunk=chunk,
+                            executor=executor, resume=resume,
+                            fault_plan=fault_plan, report=report,
+                            device=device)
     rows: List[Dict] = []
     i = 0
     for dist in spec.distributions_axis:
@@ -525,8 +587,9 @@ def run_sweep(spec: SweepSpec, cache: cache_mod.CacheParams,
 
 
 def sweep_results(spec: SweepSpec, cache: cache_mod.CacheParams,
-                  timing: TimingConfig, *, device=None, resume=None,
-                  fault_plan=None, report=None) -> List[RunResult]:
+                  timing: TimingConfig, *, chunk: int = 512, executor=None,
+                  resume=None, fault_plan=None, report=None,
+                  device=None) -> List[RunResult]:
     """`run_sweep` returning full RunResults (row order identical).
 
     One device call simulates every (topology, workload, footprint,
@@ -536,23 +599,23 @@ def sweep_results(spec: SweepSpec, cache: cache_mod.CacheParams,
     stats are then broadcast across the CPU-model axis and the Picard
     timing fixed point closes per topology group, with each group's own
     route.  A tiering or sampling entry sends the sweep through the
-    epoch-structured program (:func:`_sweep_results_dynamic`).
+    epoch-structured program (:func:`_sweep_results_dynamic`).  The
+    keywords are :func:`run_sweep`'s.
     """
-    _check_knobs(resume, fault_plan, report)
-    spec.check_ported()
+    check_chunk(chunk)
+    executor = _resolve_executor(executor, resume, fault_plan, report)
+    executor = executor if executor is not None else _LOCAL_EXECUTOR
     device = resolve_device(device)
     routes = sweep_routes(spec, timing)
     if (any(tr is not None for tr in spec.tiering_axis)
             or any(sp is not None for sp in spec.sampling_axis)):
         return _sweep_results_dynamic(spec, cache, timing, routes,
-                                      device=device)
+                                      device=device, executor=executor)
     t_max = max(2 if r is None else r.n_targets for r in routes)
     p = dataclasses.replace(cache, n_targets=t_max)
     batch, cell_rows = build_sweep_batch(spec, cache, routes=routes,
                                          device=device)
-    stats, _ = run_traces(p, batch.addr, batch.is_write, core=None,
-                          tier=batch.tier, backend=spec.backend)
-    stats = stats.cpu().numpy().astype(np.int64)
+    stats = executor.run_static(p, batch, backend=spec.backend, chunk=chunk)
     n_cells = len(spec.sim_cells)
     rows_cpus = [wl.cpu_for(cpu) for wl, _k, _pol in spec.sim_cells
                  for cpu in spec.cpus]
@@ -779,11 +842,12 @@ def dynamic_launch(spec: SweepSpec, cache: cache_mod.CacheParams,
 def _sweep_results_dynamic(spec: SweepSpec, cache: cache_mod.CacheParams,
                            timing: TimingConfig,
                            routes: Sequence[Optional[route_mod.RouteMap]],
-                           *, device) -> List[RunResult]:
+                           *, device, executor) -> List[RunResult]:
     """The epoch-structured twin of the static `sweep_results` body.
 
-    One `tiering_dyn.run_dynamic` call (:func:`dynamic_launch`) simulates
-    every (sampling, tiering, topology, workload, footprint, policy) cell;
+    One epoch-kernel call (:func:`dynamic_launch`, run by the executor's
+    ``run_dynamic``) simulates every (sampling, tiering, topology,
+    workload, footprint, policy) cell;
     static rows ride along with a zero budget and their precomputed
     targets.  Migration line counts feed `time_batch(mig_lines=...)`;
     dynamic rows also get `migrated_pages` and per-epoch DRAM hit-tier
@@ -795,8 +859,9 @@ def _sweep_results_dynamic(spec: SweepSpec, cache: cache_mod.CacheParams,
     launch = dynamic_launch(spec, cache, routes, device=device)
     tb, slot = launch.batch, launch.kwargs["slot_len"]
     t_max = launch.params.n_targets
-    out = tiering_dyn.run_dynamic(launch.params, *launch.trace,
-                                  backend=spec.backend, **launch.kwargs)
+    out = executor.run_dynamic(launch.params, tb, slot_len=slot,
+                               k_max=launch.kwargs["k_max"],
+                               backend=spec.backend)
     stats = out.stats.cpu().numpy().astype(np.int64)
     mig = np.stack([out.mig_read.cpu().numpy().astype(np.int64),
                     out.mig_write.cpu().numpy().astype(np.int64)], axis=1)

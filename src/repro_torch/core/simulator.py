@@ -139,21 +139,37 @@ class CXLRAMSim:
         run the epoch-structured kernel.  `backend` is ``None`` (follow
         the device), ``'reference'`` or ``'cuda'``.
 
-        Not ported yet, and raising ``NotImplementedError`` when given:
-        `mesh` and `stream_chunk` (ROADMAP queue 1, item 6) and `resume`,
-        `fault_plan` and `report` (item 8).
+        `mesh` shards the grid's batch rows (a
+        :class:`repro_torch.core.distribute.Mesh` or an int shard count)
+        and `stream_chunk` streams each trace through the carry in
+        fixed-size segments (bounded device memory) — execution
+        strategies, never result changes: any mesh/chunk choice gives the
+        rows of the defaults (``None``/``None`` = the one-call path).
+
+        `resume` (a checkpoint directory or
+        :class:`repro_torch.core.resilience.CheckpointPolicy`),
+        `fault_plan` (a :class:`repro_torch.core.resilience.FaultPlan`) and
+        `report` (a :class:`repro_torch.core.resilience.RunReport` event
+        sink) run the sweep through the fault-tolerant
+        :class:`repro_torch.core.distribute.ResilientExecutor`: carries
+        checkpoint every N segments, and a killed sweep rerun with the
+        same `resume=` fast-forwards to where it died — with rows
+        bitwise-identical to an uninterrupted run.
         """
-        if mesh is not None or stream_chunk is not None:
-            raise NotImplementedError(
-                "mesh/stream_chunk need core/distribute.py, which is not "
-                "ported to repro_torch yet (ROADMAP queue 1, item 6)")
         spec = self.sweep_spec(footprint_factors, policies, cpus, kernel,
                                backend, topologies, workloads, tiering,
                                sampling, distributions)
-        return engine_mod.run_sweep(spec, self.config.cache,
-                                    self.config.timing, device=self.device,
+        if (mesh is None and stream_chunk is None and resume is None
+                and fault_plan is None and report is None):
+            return engine_mod.run_sweep(spec, self.config.cache,
+                                        self.config.timing,
+                                        device=self.device)
+        from repro_torch.core import distribute  # deferred: builds on engine
+        return distribute.run_sweep(spec, self.config.cache,
+                                    self.config.timing, mesh=mesh,
+                                    stream_chunk=stream_chunk,
                                     resume=resume, fault_plan=fault_plan,
-                                    report=report)
+                                    report=report, device=self.device)
 
     def sweep_spec(self, footprint_factors: Sequence[int] = (2, 4, 6, 8),
                    policies: Optional[Sequence[numa_mod.Policy]] = None,

@@ -9,11 +9,11 @@
 ``kv_decode``       paged-attention decode gathers recorded from the
                     ``PagedKVCache`` + ``ContinuousBatcher`` serving loop,
                     with per-access HBM/CXL(/SSD) tier intent
+``moe_stream``      top-k expert-weight streaming from a real MoE config
 ==================  ======================================================
 
-The JAX package's ``moe_stream`` generator and its ``pollution_probe``
-are not ported yet: asking for them raises ``NotImplementedError`` naming
-their ROADMAP item.
+:func:`~repro_torch.workloads.pollution.pollution_probe` measures the LLC
+pollution a CXL burst inflicts on a DRAM-resident tenant.
 """
 from repro_torch.workloads.base import (  # noqa: F401
     Stream, Workload, WorkloadTrace, full_period_affine, lines_for_footprint,
@@ -21,6 +21,8 @@ from repro_torch.workloads.base import (  # noqa: F401
 )
 from repro_torch.workloads.kv_decode import KVDecode  # noqa: F401
 from repro_torch.workloads.microbench import Gups, HotCold, PointerChase  # noqa: F401
+from repro_torch.workloads.moe_stream import MoEStream  # noqa: F401
+from repro_torch.workloads.pollution import pollution_probe  # noqa: F401
 
 REGISTRY = {
     "stream": Stream,
@@ -28,30 +30,17 @@ REGISTRY = {
     "gups": Gups,
     "hot_cold": HotCold,
     "kv_decode": KVDecode,
+    "moe_stream": MoEStream,
 }
 
-#: Generators of the JAX package still to port: name -> ROADMAP item.
-UNPORTED = {"moe_stream": 5, "MoEStream": 5, "pollution_probe": 5}
+#: Generators of the JAX package still to port: none.
+UNPORTED: dict = {}
 
 WORKLOADS = tuple(REGISTRY)
 
 
-def not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {name} workload is not ported to repro_torch yet (ROADMAP "
-        f"queue 1, item {UNPORTED[name]})")
-
-
 def get(name: str, **kwargs) -> Workload:
     """Instantiate a workload by registry name (``seed=...``, etc.)."""
-    if name in UNPORTED:
-        raise not_ported(name)
     if name not in REGISTRY:
         raise KeyError(f"unknown workload {name!r}; known: {WORKLOADS}")
     return REGISTRY[name](**kwargs)
-
-
-def __getattr__(name):
-    if name in UNPORTED:
-        raise not_ported(name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -272,6 +272,75 @@ def test_fidelity_golden_on_the_card(card):
         (golden / "fidelity.json").read_text())
 
 
+GOLDEN_GEOMETRY = dict(l1_bytes=8 * 1024, l1_ways=2, l2_bytes=16 * 1024,
+                       l2_ways=8)
+
+
+def test_segment_calls_keep_their_input_carry_on_the_card(card):
+    """The resilient executor retries and halves from the carry it passed
+    in: K2 and K3 must leave it as it was."""
+    p = tcache.CacheParams(**SMALL, cores=2, n_targets=3)
+    trace, kw = dyn_batch(12, 12, card, n_targets=3)
+    carry = tcache.init_batch_carry(p, 4, device=card)
+    before = [x.clone() for x in carry]
+    tkernels.mesi_segment(carry, *trace, params=p)
+    assert all(torch.equal(a, b) for a, b in zip(before, carry))
+    a3, w3, c3, t3, pmap0, scalars, k_max, bound = \
+        tdyn.prep_dynamic_inputs(*trace, **kw)
+    dcarry = tdyn.init_dyn_carry(p, pmap0)
+    before = [x.clone() for x in dcarry]
+    tdyn.run_dynamic_segment(p, k_max, bound, dcarry, a3, w3, c3, t3,
+                             *scalars)
+    assert all(torch.equal(a, b) for a, b in zip(before, dcarry))
+
+
+def test_padding_rows_on_the_card(card):
+    """Shard padding rows, all sentinel from their first access, through
+    K2: bitwise the plain version, zero stats, state untouched."""
+    p = tcache.CacheParams(**GOLDEN_GEOMETRY)
+    rng = np.random.default_rng(9)
+    addr = np.full((3, 1024), tcache.SENTINEL, np.int32)
+    addr[0] = rng.integers(0, 2048, 1024)
+    addr = torch.from_numpy(addr).to(card)
+    zero = torch.zeros_like(addr)
+    carry = tcache.init_batch_carry(p, 3, device=card)
+    kern = tkernels.mesi_segment(carry, addr, zero, zero, zero, params=p)
+    plain = tkernels.mesi_segment(carry, addr, zero, zero, zero, params=p,
+                                  backend="reference")
+    for k, q, c in zip(kern, plain, carry):
+        assert torch.equal(k, q)
+        if k.ndim > 1:
+            assert torch.equal(k[1:], c[1:])
+
+
+def test_distribute_and_resilience_goldens_on_the_card(card, tmp_path):
+    from repro_torch.core import distribute
+    from repro_torch.core import resilience as R
+    golden = pathlib.Path(__file__).resolve().parent / "golden"
+    spec = tengine.SweepSpec(
+        footprint_factors=(2,), policies=(tnuma.WeightedInterleave(1, 1),
+                                          tnuma.ZNuma(1.0)),
+        cpus=(CPUModel(kind="o3", mlp=8),))
+    p, t = tcache.CacheParams(**GOLDEN_GEOMETRY), TimingConfig()
+    tops.reset_launches()
+    rows = distribute.run_sweep(spec, p, t, mesh=distribute.Mesh(n_shards=2),
+                                stream_chunk=512)
+    assert tops.LAUNCHES["mesi_segment"] == 2 * 8
+    assert json.loads(json.dumps(rows)) == json.loads(
+        (golden / "distribute.json").read_text())
+    pol = R.CheckpointPolicy(tmp_path, every_segments=1, blocking=True)
+    with pytest.raises(R.RunKilled):
+        distribute.run_sweep(spec, p, t, stream_chunk=512, resume=pol,
+                             fault_plan=R.FaultPlan((R.Fault(
+                                 "crash", shard=0, segment=2),)))
+    tops.reset_launches()
+    rows = distribute.run_sweep(spec, p, t, stream_chunk=512, resume=pol)
+    assert tops.LAUNCHES["mesi_segment"] == 8 - 2
+    assert tops.LAUNCHES["mesi_segment_ref"] == 0
+    assert json.loads(json.dumps(rows)) == json.loads(
+        (golden / "resilience.json").read_text())
+
+
 def paged_case(seed, b, h, kh, d, page, nblk, dtype, device):
     """Random pools and queries; sequence 0 empty, 1 ending mid-page, the
     rest random; every entry past a sequence's live blocks out of range."""

@@ -1,7 +1,6 @@
 """The port stands alone: no JAX, no `repro`, the card by default, and a
 clear error for everything not ported yet."""
 import ast
-import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -9,6 +8,7 @@ import sys
 import pytest
 import torch
 
+from repro_torch.core import distribute as tdistribute
 from repro_torch.core import engine as tengine
 from repro_torch.core import simulator as tsim
 from repro_torch.core.cache import CacheParams, init_batch_carry
@@ -20,7 +20,6 @@ from repro_torch.configs import get_smoke
 from repro_torch.launch import serve as tserve
 from repro_torch.memory.kvcache import PagedKVCache
 from repro_torch.models import transformer as ttf
-from repro_torch.workloads import Workload
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -69,6 +68,16 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.run_sweep(tengine.SweepSpec(tiering=(DynamicTiering(),)),
                           CacheParams(), TimingConfig())
+    # nor for the sharded, streamed and resilient sweeps, the mesh's
+    # default devices, or the pollution probe
+    for kw in (dict(mesh=2), dict(stream_chunk=512), dict(resume="ckpt")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tdistribute.run_sweep(tengine.SweepSpec(), CacheParams(),
+                                  TimingConfig(), **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdistribute.Mesh().resolve_devices()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tworkloads.pollution_probe(CacheParams())
 
 
 def test_cuda_backend_on_cpu_tensors_raises():
@@ -87,37 +96,19 @@ def test_cuda_backend_on_cpu_tensors_raises():
         tengine.run_traces(p, addr, backend="tpu")
 
 
-@dataclasses.dataclass(frozen=True)
-class _MoEStream(Workload):
-    name: str = "moe_stream"
-
-
-UNPORTED = {
-    "moe_stream": dict(workloads=(_MoEStream(),)),
-    "mesh": dict(mesh=2),
-    "stream_chunk": dict(stream_chunk=512),
-    "resume": dict(resume="ckpt"),
-    "fault_plan": dict(fault_plan=object()),
-    "report": dict(report=object()),
-}
-
-
-@pytest.mark.parametrize("knob", sorted(UNPORTED))
-def test_unported_knobs_raise(knob):
-    sim = tsim.CXLRAMSim(tsim.SimConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        sim.sweep((2,), **UNPORTED[knob])
-
-
 def test_unported_workloads_raise_by_name():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tworkloads.get("moe_stream")
-    for attr in ("MoEStream", "pollution_probe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            getattr(tworkloads, attr)
-    # ported since: by name, by attribute, and not listed as unported
+    """Every workload of the JAX package is ported: by name, by
+    attribute, and none listed as unported; an unknown name raises."""
+    assert tworkloads.UNPORTED == {}
     assert tworkloads.get("kv_decode") == tworkloads.KVDecode()
-    assert "kv_decode" not in tworkloads.UNPORTED
+    assert tworkloads.get("moe_stream", seed=3) == \
+        tworkloads.MoEStream(seed=3)
+    assert callable(tworkloads.pollution_probe)
+    assert set(tworkloads.WORKLOADS) == {
+        "stream", "pointer_chase", "gups", "hot_cold", "kv_decode",
+        "moe_stream"}
+    with pytest.raises(KeyError, match="unknown workload"):
+        tworkloads.get("meteor")
 
 
 def test_serving_path_defaults_to_the_card():
