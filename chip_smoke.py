@@ -122,9 +122,31 @@ makes the script exit non-zero:
    ``torch.add`` calls), compute
    the bounds, and profile the main paths (slice 8's (a) and (b) among
    them) once to split their wall time into device kernels and the rest;
+   3d. slice 9, the training path (no kernel on it: the launch counts,
+   set to 0 before and read after, must stay 0 and are reported as the
+   ``train`` path): (a) ``launch.train.run`` at the full width and depth
+   of h2o-danube-3-4b (3.96 B bf16 parameters from seed 0, AdamW state
+   and gradients on the card, ~47.5 GB), 6 steps of batch 1 x 4096 with
+   full recomputation (the config's "dots" would keep every layer's f32
+   attention logits): finite losses, the first within 1 of ln(32000);
+   ms per step (median of steps 2-6), tokens/s, the model-FLOP share of
+   989 TFLOP/s bf16, peak memory, and one more step taken apart by CUDA
+   events (forward, gradients, AdamW) and profiled (device-busy share);
+   (b) at smoke size in f32, the loop on the card against the CPU from
+   the same weights with accumulation 1 and 2 (losses within rtol 1e-4,
+   parameters and moments within atol 1e-5 + rtol 1e-4), then a failure
+   at step 3 with checkpoints every 2 steps: one restart from step 2,
+   ``evict`` and ``restart`` in the log, the replayed losses equal to the
+   uninterrupted run's (within 1e-6 relative; bitwise is printed);
+   (c) qwen3-moe-235b-a22b at full width cut to 1 of its 94 layers
+   (3.73 B parameters), 2 steps of batch 1 x 1024: finite losses, aux
+   loss > 0, 80 capacity slots by the reference's formula, peak memory;
+   at smoke size in f32, ``moe_ffn`` (1e-5) and one train step (loss
+   rtol 1e-4, parameters 1e-4) on the card against the CPU;
 5. print ``{"kernels": [...]}`` (all seven TPU kernels, K2 with K1, each
-   with its launches on every path of the run, ``launches_by_path``) and,
-   last, ``{"ok": true, "device": ...}``.
+   with its launches on every path of the run, ``launches_by_path``, the
+   training path's ``train`` among them) and, last, ``{"ok": true,
+   "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the port's sources are not beside it.
@@ -921,11 +943,13 @@ def kv_decode_device_equals_host(sim, rows):
 
 
 def tree_to(tree, dev):
+    """A copy of a parameter tree on `dev` (a copy even on its own device:
+    training updates its parameters in place)."""
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_to(v, dev) for v in tree]
-    return tree.to(dev)
+    return tree.to(dev, copy=True)
 
 
 def serve_main_path(dev, card):
@@ -2181,6 +2205,267 @@ def profile(fn, label, kernel=None, note="a kernel counts as busy time "
               f"{100 * k_ms / wall_ms:.3f}% of wall")
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the training path
+# ---------------------------------------------------------------------------
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (data sheet)
+TRAIN_STEPS = 6
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one step under full recomputation: 6·N·T for the
+    weights plus causal attention (3 x the forward's 2·S²·H·D per layer,
+    within the window), times 4/3 for the recomputed forward."""
+    band = min(seq, cfg.window) if cfg.window else seq
+    causal_pairs = seq * band - band * (band - 1) / 2     # (q, k) pairs
+    attn = 3 * 2 * 2 * causal_pairs * cfg.n_heads * cfg.head_dim
+    return 4 / 3 * (6 * n_params * batch * seq
+                    + attn * cfg.n_layers * batch)
+
+
+def step_times(log):
+    return [e["dt"] * 1e3 for e in log if e["event"] == "step"]
+
+
+def danube_training(dev, card, ckpt_dir):
+    """(a) launch.train.run at the full width and depth of h2o-danube-3-4b,
+    batch 1 x 4096 tokens, then one step taken apart: forward, gradients,
+    the AdamW update, and a profiled step."""
+    import dataclasses
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    # full recomputation: "dots" would keep every layer's f32 attention
+    # logits, 24 x 4 chunks x 537 MB, beside 47.5 GB of state
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"),
+                              remat_policy="none")
+    batch, seq = 1, 4096
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = train.run(cfg, steps=TRAIN_STEPS, batch=batch, seq=seq,
+                  accum_steps=1, ckpt_dir=ckpt_dir,
+                  ckpt_every=TRAIN_STEPS + 1, log_every=0, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    params, opt = r["state"]
+    n = tf.n_param_elements(params)
+    losses = [e["loss"] for e in r["log"] if e["event"] == "step"]
+    ms = step_times(r["log"])
+    step_ms = statistics.median(ms[1:])
+    flops = train_flops(cfg, n, batch, seq)
+    ln_v = math.log(cfg.vocab_size)
+    # random logits of std ~0.9 add about sigma^2 / 2 to ln(V)
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - ln_v) < 1.0 and len(losses) == TRAIN_STEPS):
+        raise AssertionError(f"[slice 9] danube losses {losses} (want "
+                             f"finite, the first within 1 of {ln_v:.3f})")
+    print(f"[slice 9] (a) {cfg.arch}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n:,} parameters in {cfg.dtype}, batch {batch} "
+          f"x {seq} tokens, remat 'none': losses {losses}")
+    share = flops / (step_ms / 1e3) / BF16_FLOPS_PER_S
+    print(f"[slice 9] (a) step times {[round(x, 3) for x in ms]} ms; median "
+          f"of steps 2-{TRAIN_STEPS} {step_ms:.3f} ms, "
+          f"{batch * seq / step_ms * 1e3:.1f} tokens/s, {flops / 1e12:.2f} "
+          f"TFLOP a step = {100 * share:.2f}% of "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16; peak device memory "
+          f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) ({card})")
+
+    # one more step taken apart, by CUDA events
+    dc = DataConfig(batch_per_shard=batch, seq_len=seq)
+    b = batch_at_step(cfg, dc, TRAIN_STEPS, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=20,
+                                total_steps=TRAIN_STEPS)
+
+    def forward():
+        with torch.no_grad():
+            tf.forward_train(params, cfg, b["tokens"])
+    fwd_ms = cuda_ms(forward, warmup=0)
+    grads = {}
+
+    def grad():
+        grads["g"] = M.value_and_grad(params, cfg, b)[1]
+    grad_ms = cuda_ms(grad, warmup=0)
+
+    def update():
+        adamw.update(opt_cfg, grads["g"], opt, params)
+    upd_ms = cuda_ms(update, warmup=0)
+    del grads["g"]
+    bwd_ms = grad_ms - 2 * fwd_ms
+    print(f"[slice 9] (a) one step by CUDA events: forward {fwd_ms:.3f} ms "
+          f"(no autograd); forward + recomputed forward + backward "
+          f"{grad_ms:.3f} ms, so backward ~{bwd_ms:.3f} ms; AdamW update "
+          f"{upd_ms:.3f} ms = {100 * upd_ms / step_ms:.2f}% of the median "
+          f"step ({card})")
+    step = M.make_train_step(cfg, opt_cfg)
+    profile(lambda: step(params, opt, b),
+            f"one danube training step (batch {batch} x {seq})",
+            note="device events only")
+
+
+def smoke_training_card_vs_cpu(dev, ckpt_root):
+    """(b) the loop at smoke size in f32 on the card and on the CPU from the
+    same weights (accum 1 and 2), then on the card with a failure at step
+    3 and a checkpoint every 2 steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import transformer as tf
+    small = dataclasses.replace(get_smoke("h2o-danube-3-4b"),
+                                dtype="float32")
+    p0 = tf.init_params(small, torch.Generator().manual_seed(1), "cpu")
+    kw = dict(steps=TRAIN_STEPS, batch=4, seq=32, log_every=0)
+
+    def losses(r):
+        return [e["loss"] for e in r["log"] if e["event"] == "step"]
+
+    def worst(a, b):
+        """max |a - b| and the largest excess over atol 1e-5 + rtol 1e-4."""
+        err = excess = 0.0
+        for x, y in zip(tree_mod.leaves(a), tree_mod.leaves(b)):
+            d = (x.cpu() - y.cpu()).abs()
+            err = max(err, float(d.max()))
+            excess = max(excess, float((d - 1e-5 - 1e-4 * y.cpu().abs())
+                                       .max()))
+        return err, excess
+    runs = {}
+    for accum in (1, 2):
+        on_card = train.run(small, device=dev, params=tree_to(p0, dev),
+                            accum_steps=accum, ckpt_every=1000,
+                            ckpt_dir=f"{ckpt_root}/card{accum}", **kw)
+        on_cpu = train.run(small, device="cpu", params=tree_to(p0, "cpu"),
+                           accum_steps=accum, ckpt_every=1000,
+                           ckpt_dir=f"{ckpt_root}/cpu{accum}", **kw)
+        lc, lh = losses(on_card), losses(on_cpu)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        err, excess = worst(on_card["state"], on_cpu["state"])
+        print(f"[slice 9] (b) smoke f32, accum {accum}: losses card {lc}; "
+              f"max rel loss diff {loss_err:.3g}; final params and moments "
+              f"max |card - CPU| {err:.3g}")
+        if len(lc) != TRAIN_STEPS or loss_err > 1e-4 or excess > 0:
+            raise AssertionError(f"[slice 9] (b) accum {accum}: card and "
+                                 f"CPU disagree (loss {loss_err:.3g}, "
+                                 f"state {err:.3g})")
+        runs[accum] = on_card
+    failed = train.run(small, device=dev, params=tree_to(p0, dev),
+                       fail_at=3, ckpt_every=2,
+                       ckpt_dir=f"{ckpt_root}/fail", **kw)
+    events = [e["event"] for e in failed["log"]]
+    want = losses(runs[1])
+    replay = {e["step"]: e["loss"] for e in failed["log"]
+              if e["event"] == "step"}
+    resumed = [e for e in failed["log"] if e["event"] == "restart"]
+    bitwise = all(replay[i] == want[i] for i in range(TRAIN_STEPS))
+    rel = max(abs(replay[i] - want[i]) / abs(want[i])
+              for i in range(TRAIN_STEPS))
+    print(f"[slice 9] (b) failure at step 3, checkpoints every 2: events "
+          f"{events}; restarts {failed['restarts']}, {resumed}; losses equal "
+          f"to the uninterrupted run's bitwise {bitwise} (max rel "
+          f"{rel:.3g})")
+    if not (failed["restarts"] == 1 and "evict" in events
+            and resumed and resumed[0]["resume_step"] == 2
+            and events.count("step") == TRAIN_STEPS + 1 and rel <= 1e-6):
+        raise AssertionError("[slice 9] (b) the restart path failed")
+
+
+def moe_training(dev, card, ckpt_dir):
+    """(c) qwen3-moe-235b-a22b at full width, depth cut to 1 layer: two
+    steps at batch 1 x 1024; then at smoke size in f32, the MoE forward
+    and one train step on the card against the CPU."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch import tree as tree_mod
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=1)
+    batch, seq, steps = 1, 1024, 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = train.run(cfg, steps=steps, batch=batch, seq=seq, ckpt_dir=ckpt_dir,
+                  ckpt_every=steps + 1, log_every=0, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    params, _ = r["state"]
+    n = tf.n_param_elements(params)
+    losses = [e["loss"] for e in r["log"] if e["event"] == "step"]
+    ms = step_times(r["log"])
+    with torch.no_grad():
+        _, parts = M.loss_fn(params, cfg, batch_at_step(
+            cfg, DataConfig(batch_per_shard=batch, seq_len=seq), 0, dev))
+    aux = float(parts["aux"])
+    m = cfg.moe
+    want_c = -(-max(int(m.capacity_factor * seq * m.top_k / m.n_experts),
+                    1) // 8) * 8
+    cap = moe.capacity(cfg, batch * seq)
+    print(f"[slice 9] (c) {cfg.arch} at full width, 1 of 94 layers: "
+          f"{n:,} parameters, {m.n_experts} experts top-{m.top_k}, capacity "
+          f"{cap} slots (formula {want_c}); losses {losses}, aux {aux:.6g}; "
+          f"step times {[round(x, 3) for x in ms]} ms; peak device memory "
+          f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) ({card})")
+    if not (all(math.isfinite(x) for x in losses) and aux > 0
+            and cap == want_c == 80 and len(losses) == steps):
+        raise AssertionError("[slice 9] (c) the MoE training path failed")
+    del r, params, parts
+    torch.cuda.empty_cache()
+
+    # smoke size, f32: the MoE forward and one train step, card vs CPU
+    small = dataclasses.replace(get_smoke("qwen3-moe-235b-a22b"),
+                                dtype="float32")
+    p0 = tf.init_params(small, torch.Generator().manual_seed(2), "cpu")
+    x = torch.randn((2, 24, small.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    mp = p0["segments"][0][0]["b0"]["moe"]
+    y_card, aux_card = moe.moe_ffn(tree_to(mp, dev), x.to(dev), small)
+    y_cpu, aux_cpu = moe.moe_ffn(mp, x, small)
+    y_err = float((y_card.cpu() - y_cpu).abs().max())
+    aux_err = abs(float(aux_card) - float(aux_cpu))
+    b = batch_at_step(small, DataConfig(batch_per_shard=2, seq_len=24), 0,
+                      "cpu")
+    opt_cfg = adamw.AdamWConfig(warmup_steps=2, total_steps=10)
+    outs = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        params = tree_to(p0, where)
+        outs[name] = M.make_train_step(small, opt_cfg)(
+            params, adamw.init(params), {k: v.to(where) for k, v in b.items()})
+    lc, lh = (float(outs[k][2]["loss"]) for k in ("card", "cpu"))
+    p_err = max(float((a.cpu() - c).abs().max()) for a, c in zip(
+        tree_mod.leaves(outs["card"][0]), tree_mod.leaves(outs["cpu"][0])))
+    print(f"[slice 9] (c) smoke f32, card against CPU: moe_ffn max |dy| "
+          f"{y_err:.3g}, |d aux| {aux_err:.3g}; one train step: loss "
+          f"{lc:.6f} vs {lh:.6f}, max |d param| {p_err:.3g}")
+    if y_err > 1e-5 or aux_err > 1e-6 or abs(lc - lh) > 1e-4 * abs(lh) \
+            or p_err > 1e-4:
+        raise AssertionError("[slice 9] (c) MoE on the card disagrees with "
+                             "the CPU")
+
+
+def slice9_path(dev, card):
+    """Slice 9's phase: (a), (b) and (c), with the kernels' launch counts
+    set to 0 before and read after (the training path runs no kernel);
+    returns the counts."""
+    import tempfile
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        danube_training(dev, card, f"{d}/a")
+        smoke_training_card_vs_cpu(dev, f"{d}/b")
+        moe_training(dev, card, f"{d}/c")
+    launches = dict(ops.LAUNCHES)
+    print(f"[slice 9] launch counts over the training path {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2309,6 +2594,13 @@ def main() -> int:
                                   params=serve["params"], decode=4),
             "serve loop at full width, 8 requests, prefill 48, decode 4",
             kernel="paged_attention", note="the rest is host time")
+
+    # ---- 3d. slice 9: training at full width ------------------------------
+    del serve["params"]         # free the served weights (8 GB) first
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_launches = slice9_path(dev, card)
+    print(f"[slice 9] phase took {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     # ---- 5. results -------------------------------------------------------
@@ -2321,6 +2613,7 @@ def main() -> int:
     counted |= {p: v["launches"] for p, v in s8["paths"].items()}
     counted["serve"] = serve["launches"]
     counted["slice 4"] = s4_launches
+    counted["train"] = train_launches
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in counted.items()}

@@ -4,8 +4,9 @@ Layout per step:  <dir>/step_000123/
     manifest.json    — tree structure, leaf names, shapes, dtypes, step
     leaf_NNNNN.npy   — one file per leaf (host numpy)
 
-The trees are the ones the sweep executors store: tuples (or lists) of
-tensors and dicts of tensors or NumPy arrays, nested freely.  Dict keys
+The trees are the ones the sweep executors and the training runtime
+store: tuples, NamedTuples (the optimizer's ``OptState``), lists and
+dicts of tensors or NumPy arrays, nested freely.  Dict keys
 flatten in sorted order and the manifest's structure string is written as
 the JAX package's ``str(treedef)`` writes it, so a checkpoint directory
 written by either package restores in the other.
@@ -31,6 +32,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_mod
+
 
 class CheckpointError(RuntimeError):
     """A checkpoint failed validation on restore (structure/shape/treedef).
@@ -44,49 +47,52 @@ class CheckpointError(RuntimeError):
 def _flatten(tree) -> Tuple[List[Any], str]:
     """Leaves in order and the structure string, ``PyTreeDef(...)`` with
     ``*`` for a leaf."""
-    leaves, structure = _flatten_node(tree)
-    return leaves, f"PyTreeDef({structure})"
+    return tree_mod.leaves(tree), f"PyTreeDef({_structure(tree)})"
 
 
-def _flatten_node(tree) -> Tuple[List[Any], str]:
-    if isinstance(tree, dict):
-        leaves, parts = [], []
-        for k in sorted(tree):
-            sub, s = _flatten_node(tree[k])
-            leaves += sub
-            parts.append(f"{k!r}: {s}")
-        return leaves, "{" + ", ".join(parts) + "}"
-    if isinstance(tree, (tuple, list)):
-        leaves, parts = [], []
-        for v in tree:
-            sub, s = _flatten_node(v)
-            leaves += sub
-            parts.append(s)
-        if isinstance(tree, list):
-            return leaves, "[" + ", ".join(parts) + "]"
-        return leaves, "(" + ", ".join(parts) + ("," if len(parts) == 1
-                                                 else "") + ")"
-    return [tree], "*"
-
-
-def _unflatten(tree, leaves: List[Any]):
-    """`tree`'s structure with its leaves replaced, in `_flatten`'s order."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (tuple, list)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    return build(tree)
+def _structure(node) -> str:
+    """`node`'s part of the structure string, as ``str(treedef)`` writes
+    it: a NamedTuple is ``CustomNode(namedtuple[Name], [...])``."""
+    if tree_mod.is_leaf(node):
+        return "*"
+    parts = [_structure(v) for _, v in tree_mod.children(node)]
+    if isinstance(node, dict):
+        return "{" + ", ".join(f"{k!r}: {s}" for k, s in
+                               zip(sorted(node), parts)) + "}"
+    if isinstance(node, list):
+        return "[" + ", ".join(parts) + "]"
+    if hasattr(node, "_fields"):
+        return (f"CustomNode(namedtuple[{type(node).__name__}], ["
+                + ", ".join(parts) + "])")
+    return "(" + ", ".join(parts) + ("," if len(parts) == 1 else "") + ")"
 
 
 def _to_host(x) -> np.ndarray:
+    """A host copy of `x` that shares no memory with it, so an async save
+    is not changed by in-place updates to the tree (``.cpu()`` of a CPU
+    tensor would return the tensor itself)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:      # NumPy has no bfloat16: its bits
+            return x.view(torch.int16).numpy()
+        return x.numpy()
+    return np.array(x, copy=True)
+
+
+def _dtype_name(x, host: np.ndarray) -> str:
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(host.dtype)
+
+
+def _from_host(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """`arr` as a tensor of `like`'s dtype on its device; a bfloat16 leaf
+    is stored as its 16 bits (int16 here, a 2-byte void type from JAX)."""
+    if like.dtype == torch.bfloat16 and arr.dtype.itemsize == 2 \
+            and arr.dtype.kind in "iuV":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return bits.view(torch.bfloat16).to(like.device)
+    return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
 
 
 class CheckpointManager:
@@ -109,11 +115,12 @@ class CheckpointManager:
         leaves, treedef = _flatten(tree)
         named = [(f"leaf_{i:05d}", _to_host(x))     # D2H copy happens here
                  for i, x in enumerate(leaves)]
+        dtypes = [_dtype_name(x, a) for x, (_, a) in zip(leaves, named)]
         manifest = {
             "step": step,
             "treedef": treedef,
-            "leaves": [{"name": n, "shape": list(a.shape),
-                        "dtype": str(a.dtype)} for n, a in named],
+            "leaves": [{"name": n, "shape": list(a.shape), "dtype": dt}
+                       for (n, a), dt in zip(named, dtypes)],
         }
 
         def work():
@@ -193,8 +200,7 @@ class CheckpointManager:
                     f"{meta['name']}: stored shape {tuple(arr.shape)} != "
                     f"expected {tuple(ref.shape)} at step {step}")
             if isinstance(ref, torch.Tensor):
-                out.append(torch.from_numpy(arr).to(device=ref.device,
-                                                    dtype=ref.dtype))
+                out.append(_from_host(arr, ref))
             else:
                 out.append(arr.astype(np.asarray(ref).dtype))
-        return step, _unflatten(like, out)
+        return step, tree_mod.unflatten(like, out)

@@ -17,8 +17,9 @@ A placement policy or a workload is identified by its class name, since
 Model parameters and decode caches arrive as the JAX trees turned into
 NumPy leaves (``jax.tree_util.tree_map(np.asarray, tree)``); bf16 leaves
 (NumPy's ``bfloat16`` extension type) are carried bit for bit.
-:func:`model_params` and :func:`dense_cache` unstack the period axis the
-JAX package stacks for ``lax.scan``.
+:func:`model_params`, :func:`opt_state` and :func:`dense_cache` unstack
+the period axis the JAX package stacks for ``lax.scan``; leaves of any
+rank (the MoE experts' (E, d, f)) come through unchanged.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from repro_torch.core.switch import SwitchConfig
 from repro_torch.core.tiering_dyn import DynamicTiering
 from repro_torch.core.timing import (CXLTiming, DramTiming, QueueModel,
                                      SSDTiming, TimingConfig)
+from repro_torch.optim.adamw import OptState
 
 POLICIES = {cls.__name__: cls for cls in (numa.ZNuma, numa.FlatMode,
                                           numa.WeightedInterleave,
@@ -184,6 +186,16 @@ def model_params(cfg, tree: Mapping, device=None) -> Dict:
         raise ValueError(f"the tree holds {depth} blocks, {cfg.arch} has "
                          f"{cfg.n_layers} layers")
     return out
+
+
+def opt_state(cfg, tree, device=None):
+    """The port's :class:`repro_torch.optim.adamw.OptState` from the JAX
+    package's ``OptState`` (step, m, v): the moments unstacked as
+    :func:`model_params` unstacks the parameters."""
+    step, m, v = tree
+    return OptState(step=_tensor(step, device),
+                    m=model_params(cfg, m, device),
+                    v=model_params(cfg, v, device))
 
 
 def dense_cache(tree, device=None) -> List:

@@ -1,1 +1,2 @@
-"""Entry points: ``python -m repro_torch.launch.serve``."""
+"""Entry points: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``."""

@@ -1,3 +1,4 @@
-"""The model stack on PyTorch: the ``attn`` block kind of the JAX package's
-transformer (GQA, sliding-window attention), enough to serve the dense
-architectures; the other block kinds raise ``NotImplementedError``."""
+"""The model stack on PyTorch: the ``attn`` and ``moe`` block kinds of the
+JAX package's transformer (GQA, sliding-window attention, capacity-based
+MoE dispatch), enough to serve and train the dense and MoE architectures;
+the other block kinds raise ``NotImplementedError``."""

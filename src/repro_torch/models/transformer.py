@@ -12,8 +12,13 @@ so every leaf keeps the reference's name (``wqkv``, ``wo``, ``wiu``,
 model_params` unstacks the period axis).  Caches follow the same layout:
 ``caches[seg][period]["b0"] = {"k", "v": (B, S, K, hd)}``.
 
-Only the ``attn`` block kind with GQA/SWA attention is ported.  The kinds
-``moe``, ``rwkv`` and ``rec``, and MLA attention, raise
+Three assembly paths share the block implementations, as in the
+reference: :func:`forward_train` (no cache; each period recomputed in the
+backward pass), :func:`forward_prefill` (emits the caches) and
+:func:`decode_step`.
+
+The ``attn`` and ``moe`` block kinds with GQA/SWA attention are ported.
+The kinds ``rwkv`` and ``rec``, and MLA attention, raise
 ``NotImplementedError`` (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
@@ -22,9 +27,11 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt_mod
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        head_init, lm_head, mlp, mlp_init,
                                        pdtype, rmsnorm, rmsnorm_init,
@@ -41,7 +48,7 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_ported(kind: str, cfg) -> None:
-    if kind != "attn":
+    if kind not in ("attn", "moe"):
         raise _not_ported(f"the {kind!r} block kind")
     if cfg.attn_kind == "mla":
         raise _not_ported("multi-head latent attention (attn_kind='mla')")
@@ -93,23 +100,42 @@ def _dense_ff(cfg) -> int:
 def block_init(gen: torch.Generator, kind: str, cfg) -> Dict:
     _check_ported(kind, cfg)
     d = cfg.d_model
-    return {"ln1": rmsnorm_init(d, gen.device),
-            "attn": attn_mod.attn_init(gen, cfg),
-            "ln2": rmsnorm_init(d, gen.device),
-            "mlp": mlp_init(gen, d, _dense_ff(cfg), dtype=pdtype(cfg))}
+    p = {"ln1": rmsnorm_init(d, gen.device),
+         "attn": attn_mod.attn_init(gen, cfg),
+         "ln2": rmsnorm_init(d, gen.device)}
+    if kind == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, d, _dense_ff(cfg), dtype=pdtype(cfg))
+    return p
 
 
-def _block_seq(kind: str, p: Dict, x: torch.Tensor, cfg, positions
-               ) -> Tuple[torch.Tensor, Dict]:
-    """Sequence-form block (prefill). Returns (x, cache entry)."""
+def _ffn(kind: str, p: Dict, h: torch.Tensor, cfg
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's feed-forward half: (y, MoE aux loss or 0)."""
+    if kind == "moe":
+        return moe_mod.moe_ffn(p["moe"], h, cfg)
+    return (mlp(p["mlp"], h, cfg.act, reduce_bf16=cfg.tp_reduce_bf16),
+            torch.zeros((), dtype=F32, device=h.device))
+
+
+def _block_seq(kind: str, p: Dict, x: torch.Tensor, cfg, positions,
+               want_cache: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Sequence-form block (train/prefill). Returns (x, aux, cache entry
+    or None)."""
     _check_ported(kind, cfg)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, cache = attn_mod.attention_prefill(p["attn"], h, cfg, positions,
-                                          seq_shard=cfg.attn_seq_shard)
+    if want_cache:
+        y, cache = attn_mod.attention_prefill(p["attn"], h, cfg, positions,
+                                              seq_shard=cfg.attn_seq_shard)
+    else:
+        y = attn_mod.attention(p["attn"], h, cfg, positions,
+                               seq_shard=cfg.attn_seq_shard)
+        cache = None
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    y = mlp(p["mlp"], h, cfg.act, reduce_bf16=cfg.tp_reduce_bf16)
-    return x + y, cache
+    y, aux = _ffn(kind, p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x + y, aux, cache
 
 
 def _block_decode(kind: str, p: Dict, x: torch.Tensor, cfg, cache: Dict,
@@ -119,8 +145,7 @@ def _block_decode(kind: str, p: Dict, x: torch.Tensor, cfg, cache: Dict,
     y, new_cache = attn_mod.attention_decode(p["attn"], h, cfg, cache,
                                              ctx_len)
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    y = mlp(p["mlp"], h, cfg.act, reduce_bf16=cfg.tp_reduce_bf16)
+    y, _ = _ffn(kind, p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     return x + y, new_cache
 
 
@@ -233,6 +258,52 @@ def _head(params: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward paths
 # ---------------------------------------------------------------------------
+# ops whose outputs remat_policy "dots" keeps, as jax.checkpoint_policies.
+# dots_saveable keeps every dot_general's
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default))
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (ckpt_mod.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt_mod.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context():
+    return ckpt_mod.create_selective_checkpoint_contexts(_dots_saveable)
+
+
+def forward_train(params: Dict, cfg, tokens: torch.Tensor,
+                  positions: Optional[torch.Tensor] = None,
+                  vision: Optional[torch.Tensor] = None,
+                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits, aux_loss).
+
+    With `remat` and autograd on, each period runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass; with
+    ``cfg.remat_policy == "dots"`` the matrix products' outputs are kept
+    and only the rest is recomputed.  Values are the same either way."""
+    x, pos = _prefill_inputs(params, cfg, tokens, positions, vision)
+    aux_total = torch.zeros((), dtype=F32, device=x.device)
+    for seg, seg_params in zip(segments(cfg), params["segments"]):
+        def body(x, aux, pp, seg=seg):
+            for i, kind in enumerate(seg.pattern):
+                x, a, _ = _block_seq(kind, pp[f"b{i}"], x, cfg, pos, False)
+                aux = aux + a
+            return x, aux
+        for pp in seg_params:
+            if remat and torch.is_grad_enabled():
+                kw = ({"context_fn": _remat_context}
+                      if cfg.remat_policy == "dots" else {})
+                x, aux_total = ckpt_mod.checkpoint(
+                    body, x, aux_total, pp, use_reentrant=False, **kw)
+            else:
+                x, aux_total = body(x, aux_total, pp)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _head(params, cfg, x), aux_total
+
+
 def pad_cache(caches: List, cfg, target_len: int) -> List:
     """Right-pad attention caches (k/v, sequence dim 1) to `target_len`
     capacity for the decode that follows; rolling SWA caches stay
@@ -264,8 +335,8 @@ def forward_prefill(params: Dict, cfg, tokens: torch.Tensor,
         for pp in seg_params:
             entry = {}
             for i, kind in enumerate(seg.pattern):
-                x, entry[f"b{i}"] = _block_seq(kind, pp[f"b{i}"], x, cfg,
-                                               pos)
+                x, _, entry[f"b{i}"] = _block_seq(kind, pp[f"b{i}"], x,
+                                                  cfg, pos, True)
             seg_cache.append(entry)
         caches.append(seg_cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -1,2 +1,5 @@
-"""Fleet bookkeeping shared by the sweep executors (host eviction)."""
-from repro_torch.runtime.fault import FleetState, WorkerFailure  # noqa: F401
+"""Training runtime (restart, stragglers) and the fleet bookkeeping the
+sweep executors share."""
+from repro_torch.runtime.fault import (FleetState,  # noqa: F401
+                                       RuntimeConfig, TrainingRuntime,
+                                       WorkerFailure)

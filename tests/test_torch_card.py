@@ -7,6 +7,9 @@ single-level LRU cache (K6) and the STREAM triad (K7)
 bitwise, and the blockwise attention (K5, both kernel variants) within the
 JAX test's 3e-5 (f32) or 3e-2 (bf16), and on a (1, 4, 1024, 120) bf16 case
 within the main path's 5e-3 and an error RMS of 1e-3 of the output's.
+The training loop and the MoE block (no kernel on their path) run on the
+card as on the CPU in float32: losses within rtol 1e-4, MoE outputs
+within 1e-5.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one.  The file imports no JAX, so it runs on a machine that has
@@ -14,6 +17,7 @@ only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
 """
+import dataclasses
 import json
 import pathlib
 
@@ -34,7 +38,11 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import stream_triad as ttriad
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch import tree as ttree
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
+from repro_torch.models import moe as tmoe
+from repro_torch.models import transformer as ttf
 from repro_torch.workloads import HotCold
 
 pytestmark = pytest.mark.cuda
@@ -706,3 +714,41 @@ def test_paged_attention_plain_load_path(card, case):
     tol = 3e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("arch,accum", [("h2o-danube-3-4b", 1),
+                                        ("h2o-danube-3-4b", 2),
+                                        ("qwen3-moe-235b-a22b", 1)])
+def test_training_runs_on_the_card(card, tmp_path, arch, accum):
+    """`launch.train.run` at smoke size in float32, on the card and on the
+    CPU from the same weights; no kernel launches on this path."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    p0 = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(steps=3, batch=4, seq=16, accum_steps=accum, log_every=0)
+    tops.reset_launches()
+    on_card = ttrain.run(cfg, device=card, ckpt_dir=str(tmp_path / "c"),
+                         params=ttree.tree_map(lambda x: x.to(card), p0),
+                         **kw)
+    assert not any(tops.LAUNCHES.values())
+    on_cpu = ttrain.run(cfg, device="cpu", ckpt_dir=str(tmp_path / "h"),
+                        params=ttree.tree_map(torch.clone, p0), **kw)
+    losses = [[e["loss"] for e in r["log"] if e["event"] == "step"]
+              for r in (on_card, on_cpu)]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    for a, b in zip(ttree.leaves(on_card["state"]),
+                    ttree.leaves(on_cpu["state"])):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_moe_ffn_on_the_card_matches_cpu(card):
+    cfg = dataclasses.replace(get_smoke("qwen3-moe-235b-a22b"),
+                              dtype="float32")
+    params = tmoe.moe_init(torch.Generator().manual_seed(1), cfg)
+    x = torch.randn((2, 40, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    y, aux = tmoe.moe_ffn(ttree.tree_map(lambda t: t.to(card), params),
+                          x.to(card), cfg)
+    want, want_aux = tmoe.moe_ffn(params, x, cfg)
+    torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=0.0)

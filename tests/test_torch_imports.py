@@ -17,7 +17,9 @@ from repro_torch.core.timing import TimingConfig
 from repro_torch.kernels import cache_sim as tkernels
 from repro_torch import workloads as tworkloads
 from repro_torch.configs import get_smoke
+from repro_torch.data import DataConfig, batch_at_step
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 from repro_torch.memory.kvcache import PagedKVCache
 from repro_torch.models import transformer as ttf
 
@@ -33,8 +35,17 @@ for name in names:
 runpy.run_path(sys.argv[1], run_name="chip_smoke_import_probe")
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(repr(names))
+print(bad)
 """
+
+# the training slice's modules, among those the probe imports
+TRAINING_MODULES = {
+    "repro_torch.tree", "repro_torch.optim.adamw",
+    "repro_torch.optim.compress", "repro_torch.data.pipeline",
+    "repro_torch.models.moe", "repro_torch.models.model",
+    "repro_torch.runtime.fault", "repro_torch.runtime.elastic",
+    "repro_torch.launch.train"}
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -43,8 +54,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         capture_output=True, text=True, check=True, timeout=120,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
              "JAX_PLATFORMS": "cpu"})
-    n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 40
+    names, bad = out.stdout.splitlines()
+    names = set(ast.literal_eval(names))
+    assert len(names) >= 49
+    assert TRAINING_MODULES <= names
     assert bad.strip() == "[]"
     # chip_smoke.py imports the port inside main(): read its imports too
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
@@ -126,6 +139,16 @@ def test_serving_path_defaults_to_the_card():
         ttf.init_params(cfg)
 
 
+def test_training_path_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    cfg = get_smoke("h2o-danube-3-4b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.run(cfg, steps=1, batch=1, seq=8, log_every=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch_at_step(cfg, DataConfig(), 0)
+
+
 @pytest.mark.parametrize("arch,what", [
     ("rwkv6-1.6b", "'rwkv' block kind"),
     ("recurrentgemma-9b", "'rec' block kind"),
@@ -133,7 +156,18 @@ def test_serving_path_defaults_to_the_card():
     ("deepseek-v3-671b", "multi-head latent attention"),
 ])
 def test_unported_block_kinds_raise_naming_their_item(arch, what):
+    """Block kinds not ported raise naming item 11; the ``moe`` kind is
+    ported, and its case checks that it runs."""
     cfg = get_smoke(arch)
+    if what == "'moe' block kind":
+        params = ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+        assert "moe" in params["segments"][0][0]["b0"]
+        logits, caches = ttf.forward_prefill(
+            params, cfg, torch.zeros((1, 4), dtype=torch.int32))
+        assert bool(torch.isfinite(logits).all())
+        assert len(ttf.init_cache(cfg, 1, 8, device="cpu")) == len(caches)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{what}.*ROADMAP queue 1, item 11"):
         ttf.init_params(cfg, device="cpu")
