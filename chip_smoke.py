@@ -2081,13 +2081,9 @@ def k3_times(sim, dev, card):
 
 
 def k4_times(dev, gen, serve_inputs, card):
-    """K4 at the serve loop's shapes and at a 4096-token decode: kernel,
-    the wrapper as the serve loop calls it (its block-table check syncs
-    with the host), bound, plain version and SDPA on the already gathered
-    K/V."""
+    """K4 at the serve loop's shapes and at a 4096-token decode (see
+    `k4_time_case`)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import paged_attention as pa
     b, h, kh, d, page, nblk = 8, 32, 8, 120, 16, 256
     long_ctx = [torch.randn((b, h, d), generator=gen),
                 torch.randn((b * nblk, page, kh, d), generator=gen),
@@ -2096,77 +2092,82 @@ def k4_times(dev, gen, serve_inputs, card):
                 .reshape(b, nblk),
                 torch.full((b,), nblk * page, dtype=torch.int32)]
     long_ctx = [x.to(dev) for x in long_ctx]
-    out = {}
-    for name, args in (("serve", serve_inputs), ("ctx4096", long_ctx)):
-        q, kp, vp, bt, cl = args
-        bb, hh, dd = q.shape
-        pg, kvh, nb = kp.shape[1], kp.shape[2], bt.shape[1]
-        ms = cuda_ms(lambda: pa._launch(q, kp, vp, bt, cl), warmup=3,
-                     reps=50)
-        wrapper_ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, cl),
-                             warmup=3, reps=50)
-        plain_ms = cuda_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt,
-                                                          cl), reps=5)
-        # the yardstick: one PyTorch call on K/V gathered beforehand
-        live = pa.live_mask(bt, cl, pg)
-        idx = torch.where(live, bt.long(), 0)
-        kd = kp[idx].reshape(bb, nb * pg, kvh, dd).transpose(1, 2) \
-            .contiguous()
-        vd = vp[idx].reshape(bb, nb * pg, kvh, dd).transpose(1, 2) \
-            .contiguous()
-        pos = torch.arange(nb * pg, device=dev)
-        mask = None if bool((cl == nb * pg).all()) else \
-            (pos[None, :] < cl[:, None])[:, None, None, :]
+    return {name: k4_time_case(name, args, dev, card)
+            for name, args in (("serve", serve_inputs),
+                               ("ctx4096", long_ctx))}
 
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)
-        lib_ms = cuda_ms(sdpa, warmup=3, reps=50)
-        plan = pa.launch_plan(q, kp, vp, bt)
-        dev4 = device_times(lambda: pa._launch(q, kp, vp, bt, cl))
-        part_dev = sum(v for k, v in dev4.items() if "paged_attention" in k)
-        combine_dev = sum(v for k, v in dev4.items() if "paged_combine" in k)
-        device_ms = sum(dev4.values())
-        lib_err = float((sdpa()[:, :, 0] - pa._launch(
-            q, kp, vp, bt, cl)).abs().max())
-        n_bytes = pa.bound_bytes(q, kp, bt, cl)
-        flops = 4 * int(cl.clamp(0, nb * pg).sum()) * hh * dd
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        out[name] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms,
-                         bound_ms=max(bytes_ms, ops_ms),
-                         bound_by="bytes" if bytes_ms >= ops_ms
-                         else "operations",
-                         shape=dict(B=bb, H=hh, K=kvh, D=dd, page=pg,
-                                    nblk=nb, ctx=cl.tolist(),
-                                    pool=str(kp.dtype)[6:]),
-                         parts=plan["parts"], part_len=plan["part_len"],
-                         blocks=plan["blocks"], device_ms=device_ms,
-                         partition_device_ms=part_dev,
-                         combine_device_ms=combine_dev)
-        print(f"[time K4] {name}: B={bb} H={hh} K={kvh} D={dd} page {pg} "
-              f"nblk {nb}, contexts {sorted(set(cl.tolist()))}, "
-              f"{str(kp.dtype)[6:]} pool: kernel {ms:.4f} ms, bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes} B at 3.35 TB/s "
-              f"= {bytes_ms:.4f} ms; {flops} f32 flops at 67 TFLOP/s = "
-              f"{ops_ms:.4f} ms), {n_bytes / ms / 1e6:.1f} GB/s; through "
-              f"the wrapper {wrapper_ms:.4f} ms; plain "
-              f"version {plain_ms:.4f} ms; SDPA on the gathered K/V "
-              f"{lib_ms:.4f} ms (max|SDPA - kernel| {lib_err:.3g}) ({card})")
-        split = "the profiler saw no device time (not measured)"
-        if device_ms > 0:
-            split = (f"device time per call by the profiler {device_ms:.4f} "
-                     f"ms: the partition pass {part_dev:.4f} ms, "
-                     + (f"the combine pass {combine_dev:.4f} ms "
-                        f"({100 * combine_dev / device_ms:.1f}%)"
-                        if plan["parts"] > 1 else "no combine pass")
-                     + f", {100 * max(bytes_ms, ops_ms) / device_ms:.1f}% "
-                     f"of the bound")
-        print(f"[time K4]   {name}: S = {plan['parts']} partition(s) of "
-              f"{plan['part_len']} positions, {plan['blocks']} blocks "
-              f"({plan['resident']} resident per SM); {split}; by events "
-              f"{100 * max(bytes_ms, ops_ms) / ms:.1f}% of the bound")
+
+def k4_time_case(name, args, dev, card):
+    """K4 on `args`: kernel, the wrapper as the serve loop calls it (its
+    block-table check syncs with the host), bound, plain version and SDPA
+    on the already gathered K/V."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, bt, cl = args
+    bb, hh, dd = q.shape
+    pg, kvh, nb = kp.shape[1], kp.shape[2], bt.shape[1]
+    ms = cuda_ms(lambda: pa._launch(q, kp, vp, bt, cl), warmup=3, reps=50)
+    wrapper_ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, cl),
+                         warmup=3, reps=50)
+    plain_ms = cuda_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt, cl),
+                       reps=5)
+    # the yardstick: one PyTorch call on K/V gathered beforehand
+    live = pa.live_mask(bt, cl, pg)
+    idx = torch.where(live, bt.long(), 0)
+    kd = kp[idx].reshape(bb, nb * pg, kvh, dd).transpose(1, 2).contiguous()
+    vd = vp[idx].reshape(bb, nb * pg, kvh, dd).transpose(1, 2).contiguous()
+    pos = torch.arange(nb * pg, device=dev)
+    mask = None if bool((cl == nb * pg).all()) else \
+        (pos[None, :] < cl[:, None])[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)
+    lib_ms = cuda_ms(sdpa, warmup=3, reps=50)
+    plan = pa.launch_plan(q, kp, vp, bt)
+    dev4 = device_times(lambda: pa._launch(q, kp, vp, bt, cl))
+    part_dev = sum(v for k, v in dev4.items() if "paged_attention" in k)
+    combine_dev = sum(v for k, v in dev4.items() if "paged_combine" in k)
+    device_ms = sum(dev4.values())
+    # an empty context's row is 0 in K4 and NaN in SDPA's fully masked row
+    full = cl > 0
+    lib_err = float((sdpa()[:, :, 0] - pa._launch(q, kp, vp, bt, cl))[full]
+                    .abs().max()) if bool(full.any()) else 0.0
+    n_bytes = pa.bound_bytes(q, kp, bt, cl)
+    flops = 4 * int(cl.clamp(0, nb * pg).sum()) * hh * dd
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    out = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               shape=dict(B=bb, H=hh, K=kvh, D=dd, page=pg, nblk=nb,
+                          ctx=cl.tolist(), pool=str(kp.dtype)[6:]),
+               parts=plan["parts"], part_len=plan["part_len"],
+               blocks=plan["blocks"], device_ms=device_ms,
+               partition_device_ms=part_dev, combine_device_ms=combine_dev)
+    print(f"[time K4] {name}: B={bb} H={hh} K={kvh} D={dd} page {pg} "
+          f"nblk {nb}, contexts {sorted(set(cl.tolist()))}, "
+          f"{str(kp.dtype)[6:]} pool: kernel {ms:.4f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes} B at 3.35 TB/s "
+          f"= {bytes_ms:.4f} ms; {flops} f32 flops at 67 TFLOP/s = "
+          f"{ops_ms:.4f} ms), {n_bytes / ms / 1e6:.1f} GB/s; through "
+          f"the wrapper {wrapper_ms:.4f} ms; plain "
+          f"version {plain_ms:.4f} ms; SDPA on the gathered K/V "
+          f"{lib_ms:.4f} ms (max|SDPA - kernel| {lib_err:.3g}) ({card})")
+    split = "the profiler saw no device time (not measured)"
+    if device_ms > 0:
+        split = (f"device time per call by the profiler {device_ms:.4f} "
+                 f"ms: the partition pass {part_dev:.4f} ms, "
+                 + (f"the combine pass {combine_dev:.4f} ms "
+                    f"({100 * combine_dev / device_ms:.1f}%)"
+                    if plan["parts"] > 1 else "no combine pass")
+                 + f", {100 * max(bytes_ms, ops_ms) / device_ms:.1f}% "
+                 f"of the bound")
+    print(f"[time K4]   {name}: S = {plan['parts']} partition(s) of "
+          f"{plan['part_len']} positions, {plan['blocks']} blocks "
+          f"({plan['resident']} resident per SM); {split}; by events "
+          f"{100 * max(bytes_ms, ops_ms) / ms:.1f}% of the bound")
     return out
 
 
@@ -2466,6 +2467,241 @@ def slice9_path(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: the rwkv, rec and MLA kinds, served and trained at full width
+# ---------------------------------------------------------------------------
+#: architecture -> depth override of the serve (deepseek's 61 layers do not
+#: fit one card: its 3 dense MLA layers and 1 MoE layer of 256 experts)
+SLICE10_SERVE = {"rwkv6-1.6b": {}, "recurrentgemma-9b": {},
+                 "deepseek-v3-671b": {"n_layers": 4}}
+#: architecture -> (depth override, tokens) of the training cell: rwkv at
+#: full depth (4096 tokens take the chunked WKV), recurrentgemma one
+#: (rec, rec, attn) period plus the (rec, rec) tail, deepseek one dense
+#: MLA layer
+SLICE10_TRAIN = {"rwkv6-1.6b": ({}, 4096),
+                 "recurrentgemma-9b": ({"n_layers": 5}, 4096),
+                 "deepseek-v3-671b": ({"n_layers": 1}, 4096)}
+SLICE10_STEPS = 3
+
+
+def serve_new_kind(dev, card, arch, over):
+    """serve.run at `arch`'s published width (depth cut by `over`), with
+    serve.py's defaults: K4 once per decode step over a pool that only the
+    decode steps' zero rows fill; then K4 on the loop's last inputs and on
+    random pools of the same shape, against its plain version, and timed
+    beside SDPA."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(arch), **over)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launches()
+    r = serve.run(cfg, device=dev, params=params)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_req, n_pre, n_dec = 8, 48, 16
+    ms_step = 1e3 * r["decode_s"] / (n_req * n_dec)
+    print(f"[slice 10] serve {arch}: {cfg.n_layers} layers "
+          f"{[seg.pattern for seg in tf.segments(cfg)]}, d_model "
+          f"{cfg.d_model}, {r['n_params']:,} parameters in {cfg.dtype} "
+          f"({r['n_params'] * 2 / 1e9:.2f} GB), random from seed 0 in "
+          f"{init_s:.2f} s; peak device memory {peak / 1e9:.2f} GB")
+    print(f"[slice 10] serve {arch}: {n_req} requests, prefill {n_pre}, "
+          f"decode {n_dec}: prefill {r['prefill_s']:.3f} s "
+          f"({n_req * n_pre / r['prefill_s']:.1f} prompt tokens/s), decode "
+          f"{r['decode_s']:.3f} s ({n_req * n_dec / r['decode_s']:.2f} "
+          f"tokens/s, {ms_step:.2f} ms per decode_step), wall "
+          f"{r['prefill_s'] + r['decode_s']:.3f} s; K4 launches "
+          f"{launches['paged_attention']}; kv {r['kv_stats']} ({card})")
+    print(f"[slice 10] serve {arch}: continuation of request 0 "
+          f"{r['tokens'][0]}")
+    q, kp, vp, bt, cl = r["last_attn_inputs"]
+    checks = {
+        "one K4 launch per decode step, no plain version":
+            launches["paged_attention"] == n_dec
+            and launches["paged_attention_ref"] == 0,
+        "finite logits": r["logits_finite"],
+        "finite K4 outputs of shape (B, H, D)": all(
+            o.shape == (n_req, cfg.n_heads, cfg.head_dim)
+            and bool(torch.isfinite(o).all()) for o in r["attn_out"]),
+        "every request decoded": all(len(t) == n_dec
+                                     for t in r["tokens"].values()),
+        "no prefill pages (the first block keeps no K/V)":
+            not bool(kp.any()) and cl.tolist() == [n_dec - 1] * n_req,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"[slice 10] serve {arch} failed {bad}")
+    del params
+    # K4 against its plain version at this shape: the loop's own inputs and
+    # random pools (an empty and a partial context among them)
+    gen = torch.Generator().manual_seed(10)
+    rand = paged_case(gen, n_req, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                      16, 6, torch.float32, dev)
+    err = 0.0
+    for label, args in (("serve inputs", r["last_attn_inputs"]),
+                        ("random pools", rand)):
+        kern = pa.paged_attention(*args)
+        plain = pa.paged_attention_ref(*args)
+        diff = (kern - plain).abs()
+        err = max(err, float(diff.max()))
+        if bool((diff > 3e-5 * (1 + plain.abs())).any()):
+            raise AssertionError(f"[slice 10] K4 disagrees with its plain "
+                                 f"version at {arch}'s shape ({label})")
+    print(f"[slice 10] K4 at {arch}'s shape (H={cfg.n_heads}, "
+          f"K={cfg.n_kv_heads}, D={cfg.head_dim}): max|kernel - plain| "
+          f"{err:.3g} (tolerance 3e-5, rtol = atol)")
+    times = k4_time_case(f"serve {arch}", r["last_attn_inputs"], dev, card)
+    return dict(launches=launches, k4=dict(times, max_abs_err=err,
+                                           launches=launches[
+                                               "paged_attention"]))
+
+
+def train_new_kind(dev, card, arch, over, seq, ckpt_dir):
+    """launch.train.run at `arch`'s published width (depth cut by `over`),
+    batch 1 x `seq`, the config's remat policy; then one step profiled."""
+    import dataclasses
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(arch), **over)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = train.run(cfg, steps=SLICE10_STEPS, batch=1, seq=seq,
+                  ckpt_dir=ckpt_dir, ckpt_every=SLICE10_STEPS + 1,
+                  log_every=0, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    n = tf.n_param_elements(r["state"][0])
+    losses = [e["loss"] for e in r["log"] if e["event"] == "step"]
+    ms = step_times(r["log"])
+    step_ms = statistics.median(ms[1:])
+    ln_v = math.log(cfg.vocab_size)
+    print(f"[slice 10] train {arch}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n:,} parameters, remat {cfg.remat_policy!r}, "
+          f"batch 1 x {seq}: losses {losses} (ln V = {ln_v:.3f}); step "
+          f"times {[round(x, 3) for x in ms]} ms, median of steps "
+          f"2-{SLICE10_STEPS} {step_ms:.3f} ms, {seq / step_ms * 1e3:.1f} "
+          f"tokens/s; peak device memory {peak / 1e9:.2f} GB ({card})")
+    if not (len(losses) == SLICE10_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - ln_v) < 2.0):
+        raise AssertionError(f"[slice 10] train {arch}: losses {losses}")
+    # one more step, profiled: the device's busy share
+    params, opt = r["state"]
+    del r
+    b = batch_at_step(cfg, DataConfig(batch_per_shard=1, seq_len=seq),
+                      SLICE10_STEPS, device=dev)
+    step = M.make_train_step(cfg, adamw.AdamWConfig(
+        lr=3e-4, warmup_steps=20, total_steps=SLICE10_STEPS))
+    profile(lambda: step(params, opt, b),
+            f"one {arch} training step (batch 1 x {seq})",
+            note="device events only")
+    del params, opt, b
+    torch.cuda.empty_cache()
+
+
+def new_kinds_card_vs_cpu(dev, arch):
+    """At smoke size in f32, the same weights on the card and on the CPU:
+    prefill and three decode steps' logits and caches, and the loss and its
+    gradients (rwkv at 128 tokens: the chunked WKV); within rtol 1e-4 and
+    an atol of 1e-4 x max(1, max |CPU value|) per tensor."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    p_cpu = tf.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    p_card = tree_to(p_cpu, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    seq = 128 if arch == "rwkv6-1.6b" else 24
+    b = {"tokens": torch.randint(0, cfg.vocab_size, (2, seq),
+                                 generator=torch.Generator().manual_seed(5),
+                                 dtype=torch.int32)}
+    outs = {}
+    for where, p in (("card", p_card), ("cpu", p_cpu)):
+        d = dev if where == "card" else torch.device("cpu")
+        logits, caches = tf.forward_prefill(p, cfg, toks.to(d))
+        caches = tf.pad_cache(caches, cfg, 24)
+        got = [logits]
+        for ctx in range(20, 23):
+            logits, caches = tf.decode_step(p, cfg, toks[:, ctx - 20].to(d),
+                                            caches, ctx)
+            got.append(logits)
+        loss, grads = M.value_and_grad(
+            p, cfg, {k: v.to(d) for k, v in b.items()})
+        outs[where] = (got, caches, loss, grads)
+    worst = 0.0
+    for i in (0, 1, 3):
+        for x, y in zip(tree_mod.leaves(outs["card"][i]),
+                        tree_mod.leaves(outs["cpu"][i])):
+            d = (x.cpu() - y).abs()
+            tol = 1e-4 * max(1.0, float(y.abs().max())) + 1e-4 * y.abs()
+            worst = max(worst, float((d / tol).max()))
+    loss_err = abs(float(outs["card"][2]) - float(outs["cpu"][2])) \
+        / abs(float(outs["cpu"][2]))
+    print(f"[slice 10] {arch} smoke f32, card against CPU: logits, caches "
+          f"and gradients at {worst:.3g} of their tolerance; loss rel diff "
+          f"{loss_err:.3g}")
+    if worst > 1 or loss_err > 1e-5:
+        raise AssertionError(f"[slice 10] {arch}: the card disagrees with "
+                             f"the CPU")
+
+
+def slice10_path(dev, card):
+    """Slice 10's phase: the three serves (K4's launches counted per serve),
+    the card-against-CPU checks, then the three trainings (no kernel: the
+    counts, reset before and read after, stay 0).  Returns the launch
+    counts by path and K4's measurements at each serve."""
+    import tempfile
+    from repro_torch.kernels import ops
+    out = {"serve": {}, "launches": {}}
+
+    def took(what, t0):
+        print(f"[slice 10] {what} took {time.perf_counter() - t0:.1f} s")
+    for arch, over in SLICE10_SERVE.items():
+        t0 = time.perf_counter()
+        out["serve"][arch] = serve_new_kind(dev, card, arch, over)
+        out["launches"][f"serve {arch}"] = out["serve"][arch]["launches"]
+        took(f"serve {arch}, K4 checks and times", t0)
+    t0 = time.perf_counter()
+    for arch in SLICE10_SERVE:
+        new_kinds_card_vs_cpu(dev, arch)
+    took("card against CPU", t0)
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        for arch, (over, seq) in SLICE10_TRAIN.items():
+            t0 = time.perf_counter()
+            train_new_kind(dev, card, arch, over, seq, f"{d}/{arch}")
+            took(f"train {arch} with its profiled step", t0)
+    out["launches"]["train slice 10"] = dict(ops.LAUNCHES)
+    print(f"[slice 10] launch counts over the training paths "
+          f"{out['launches']['train slice 10']}")
+    if any(out["launches"]["train slice 10"].values()):
+        raise AssertionError("[slice 10] a kernel launched on the training "
+                             "paths")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2601,6 +2837,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches = slice9_path(dev, card)
     print(f"[slice 9] phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3e. slice 10: the rwkv, rec and MLA kinds, served and trained --
+    t0 = time.perf_counter()
+    s10 = slice10_path(dev, card)
+    print(f"[slice 10] phase took {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     # ---- 5. results -------------------------------------------------------
@@ -2614,6 +2855,7 @@ def main() -> int:
     counted["serve"] = serve["launches"]
     counted["slice 4"] = s4_launches
     counted["train"] = train_launches
+    counted |= s10["launches"]
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in counted.items()}
@@ -2672,7 +2914,8 @@ def main() -> int:
         "library_ms": k4_t["serve"]["library_ms"],
         "library": "scaled_dot_product_attention(enable_gqa=True) on the "
                    "K/V gathered beforehand (gather not timed)",
-        "ctx4096": k4_t["ctx4096"]}, {
+        "ctx4096": k4_t["ctx4096"],
+        "slice10_serves": {a: v["k4"] for a, v in s10["serve"].items()}}, {
         "name": "flash_attention", "route": "cuda",
         "launches_by_path": by_path("flash_attention"),
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -200,5 +200,7 @@ def opt_state(cfg, tree, device=None):
 
 def dense_cache(tree, device=None) -> List:
     """The port's decode caches from the JAX cache list (one stacked tree
-    per segment): ``caches[seg][period]["b0"] = {"k", "v"}``."""
+    per segment): ``caches[seg][period]["b0"]``, each entry's leaves as
+    they come (``k``/``v``, MLA's ``ckv``/``krope``, the rwkv and rec
+    states)."""
     return [_tree(_periods(seg), device) for seg in tree]

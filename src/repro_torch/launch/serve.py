@@ -46,7 +46,10 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
 
     Per decode step: ``gather_args`` (charges CXL fetches, promotes hot
     pages), one K4 launch over the f32-cast layer-0 pool, then one
-    ``decode_step`` per sequence.  Runs on `device` (default: the CUDA
+    ``decode_step`` per sequence.  The prefill stashes layer 0's keys in
+    the pool (as both K and V, as the reference does) when its first
+    block has a K/V cache; for rwkv, rec and MLA models only the decode
+    steps' zero rows fill it.  Runs on `device` (default: the CUDA
     card).
 
     Returns a dict: ``tokens`` ({seq: [token, ...]}), ``kv_stats`` (:class:`KVStats` as a
@@ -80,8 +83,12 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
         logits, cache = tf.forward_prefill(params, cfg, toks)
         cache = tf.pad_cache(cache, cfg, prefill + decode)
         kv.allocate(sid)
-        k0 = cache[0][0]["b0"]["k"][0]
-        kv.append_tokens(sid, 0, k0[:prefill], k0[:prefill])
+        # an architecture whose first block keeps no K/V (rwkv, rec, MLA)
+        # stashes no pages; K4 still runs over the pool every step
+        first = cache[0][0]["b0"]
+        if "k" in first:
+            k0 = first["k"][0]
+            kv.append_tokens(sid, 0, k0[:prefill], k0[:prefill])
         seqs.append(sid)
         dense_caches[sid] = cache
         ctxs[sid] = prefill

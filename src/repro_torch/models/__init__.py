@@ -1,4 +1,5 @@
-"""The model stack on PyTorch: the ``attn`` and ``moe`` block kinds of the
-JAX package's transformer (GQA, sliding-window attention, capacity-based
-MoE dispatch), enough to serve and train the dense and MoE architectures;
-the other block kinds raise ``NotImplementedError``."""
+"""The model stack on PyTorch: every block kind of the JAX package's
+transformer — ``attn`` (GQA, sliding-window or MLA attention), ``moe``
+(capacity-based dispatch), ``rwkv`` (RWKV6 time- and channel-mix) and
+``rec`` (Griffin's RG-LRU) — enough to serve and train every
+architecture in ``configs/``."""

@@ -1,16 +1,20 @@
-"""Attention: GQA with full or sliding-window masks (the ``attn`` block).
+"""Attention variants: GQA (full / sliding-window) and MLA.
 
-The port of the GQA/SWA half of the JAX package's ``models/attention.py``.
+The port of the JAX package's ``models/attention.py``.
 :func:`blockwise_attention` is the same online-softmax loop over KV chunks
 in plain PyTorch (the reference computes it outside any Pallas kernel, so
 no kernel replaces it), and :func:`decode_attention` the one-token softmax
-against a dense cache.  Multi-head latent attention (MLA) is not ported
-(ROADMAP queue 1, item 11).
+against a dense cache.  Multi-head latent attention (DeepSeek-V3's MLA)
+expands its latent to per-head K/V for training and prefill, and decodes
+in the absorbed form (q pre-multiplied by W_uk) against the latent cache.
 
-Caches: ``{k, v: (B, S, K, hd)}``, with S = window for SWA, rolled so slot
-``p mod window`` holds token p.  :func:`attention_decode` writes the new
-token into the cache tensors in place and returns the same dict — the
-reference's ``dynamic_update_slice`` returns a copy; the values agree.
+Caches:
+  GQA: ``{k, v: (B, S, K, hd)}``, with S = window for SWA, rolled so slot
+       ``p mod window`` holds token p.
+  MLA: ``{ckv: (B, S, r), krope: (B, S, p)}``, the latent cache.
+:func:`attention_decode` and :func:`mla_decode` write the new token into
+the cache tensors in place and return the same dict — the reference's
+``dynamic_update_slice`` returns a copy; the values agree.
 """
 from __future__ import annotations
 
@@ -237,4 +241,131 @@ def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
     o = decode_attention(q[:, 0], cache["k"], cache["v"], valid)
     y = matmul(o.reshape(b, n * hd), params["wo"],
                reduce_dtype=_reduce(x, cfg)).reshape(b, 1, d)
+    return shard(y, BATCH, None, None), cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+def mla_init(gen: torch.Generator, cfg) -> Dict:
+    m = cfg.mla
+    d, n = cfg.d_model, cfg.n_heads
+    dt = pdtype(cfg)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), dtype=dt),
+        "q_norm": rmsnorm_init(m.q_lora_rank, gen.device),
+        "wq_b": dense_init(gen, (m.q_lora_rank, n * qk), dtype=dt),
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                            dtype=dt),
+        "kv_norm": rmsnorm_init(m.kv_lora_rank, gen.device),
+        "wkv_b": dense_init(gen, (m.kv_lora_rank,
+                                  n * (m.qk_nope_head_dim + m.v_head_dim)),
+                            dtype=dt),
+        "wo": dense_init(gen, (n * m.v_head_dim, d), dtype=dt),
+    }
+
+
+def _mla_qkv(params: Dict, x: torch.Tensor, cfg, positions):
+    """Shared projections. Returns q_nope, q_rope, ckv (normed), k_rope."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    n = cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = matmul(rmsnorm(params["q_norm"], matmul(x, params["wq_a"]),
+                       cfg.norm_eps), params["wq_b"]).reshape(b, s, n, qk)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = rope_mod.apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                                 cfg.rope_theta)
+    kv = matmul(x, params["wkv_a"])
+    ckv = rmsnorm(params["kv_norm"], kv[..., :m.kv_lora_rank], cfg.norm_eps)
+    k_rope = rope_mod.apply_rope(
+        kv[..., m.kv_lora_rank:][:, :, None, :], positions,
+        cfg.rope_theta)[:, :, 0, :]                         # shared head
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_expand(params: Dict, x: torch.Tensor, cfg, positions):
+    """q (B,S,N,nope+rope), k (B,S,N,nope+rope), v (B,S,N,v) from the
+    latent, with f32-accumulated expansions (the reference's
+    ``preferred_element_type=F32``), and the latent cache's ckv, k_rope."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    n = cfg.n_heads
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, x, cfg, positions)
+    wkv_b = params["wkv_b"].reshape(m.kv_lora_rank, n,
+                                    m.qk_nope_head_dim + m.v_head_dim)
+    ckv_f = ckv.to(F32)
+    k_nope = torch.einsum("bsr,rnd->bsnd", ckv_f,
+                          wkv_b[..., :m.qk_nope_head_dim].to(F32)
+                          ).to(x.dtype)
+    v = torch.einsum("bsr,rnd->bsnd", ckv_f,
+                     wkv_b[..., m.qk_nope_head_dim:].to(F32)).to(x.dtype)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, n, m.qk_rope_head_dim)], dim=-1)
+    return shard(q, BATCH, None, MODEL, None), k, v, ckv, k_rope
+
+
+def mla_attention(params: Dict, x: torch.Tensor, cfg, positions
+                  ) -> torch.Tensor:
+    """Train/prefill MLA: expand the latent to per-head K/V.  The
+    attention takes blockwise_attention's default KV chunk, as the
+    reference's does."""
+    b, s, _ = x.shape
+    q, k, v, _, _ = _mla_expand(params, x, cfg, positions)
+    o = blockwise_attention(q, k, v, causal=True)
+    o = o.reshape(b, s, cfg.n_heads * cfg.mla.v_head_dim)
+    return shard(matmul(o, params["wo"], reduce_dtype=_reduce(x, cfg)),
+                 BATCH, None, None)
+
+
+def mla_prefill(params: Dict, x: torch.Tensor, cfg, positions
+                ) -> Tuple[torch.Tensor, Dict]:
+    """MLA prefill: returns output and the latent {ckv, krope} cache (the
+    attention with ``cfg.kv_chunk``, as the reference's prefill)."""
+    b, s, _ = x.shape
+    q, k, v, ckv, k_rope = _mla_expand(params, x, cfg, positions)
+    o = blockwise_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk)
+    y = shard(matmul(o.reshape(b, s, cfg.n_heads * cfg.mla.v_head_dim),
+                     params["wo"], reduce_dtype=_reduce(x, cfg)),
+              BATCH, None, None)
+    cache = {"ckv": shard(ckv.contiguous(), BATCH, MODEL, None),
+             "krope": shard(k_rope.contiguous(), BATCH, MODEL, None)}
+    return y, cache
+
+
+def mla_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
+               ctx_len: int) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-decode MLA over the latent cache {ckv: (B,S,r), krope:
+    (B,S,p)}, updated in place; the einsums run in f32 and scale by
+    (nope + rope) ** -0.5."""
+    m = cfg.mla
+    b, _, d = x.shape
+    n = cfg.n_heads
+    ctx_len = int(ctx_len)
+    pos = torch.full((b, 1), ctx_len, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv(params, x, cfg, pos)
+    s_len = cache["ckv"].shape[1]
+    # dynamic_update_slice clamps the start so the slice fits
+    idx = min(max(ctx_len, 0), s_len - 1)
+    cache["ckv"][:, idx] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][:, idx] = krope_new[:, 0].to(cache["krope"].dtype)
+    ckv_c = cache["ckv"].to(F32)
+    wkv_b = params["wkv_b"].reshape(m.kv_lora_rank, n,
+                                    m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = wkv_b[..., :m.qk_nope_head_dim].to(F32)          # (r, n, nope)
+    w_uv = wkv_b[..., m.qk_nope_head_dim:].to(F32)          # (r, n, v)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    q_eff = torch.einsum("bnd,rnd->bnr", q_nope[:, 0].to(F32), w_uk)
+    logits = (torch.einsum("bnr,bsr->bns", q_eff, ckv_c)
+              + torch.einsum("bnp,bsp->bns", q_rope[:, 0].to(F32),
+                             cache["krope"].to(F32))) * scale
+    valid = torch.arange(s_len, device=x.device) < ctx_len + 1
+    logits = torch.where(valid[None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    o_lat = torch.einsum("bns,bsr->bnr", probs, ckv_c)
+    o = torch.einsum("bnr,rnv->bnv", o_lat, w_uv).to(x.dtype)
+    # no reduce_dtype here, as in the reference's decode
+    y = matmul(o.reshape(b, n * m.v_head_dim), params["wo"]).reshape(b, 1, d)
     return shard(y, BATCH, None, None), cache

@@ -9,17 +9,18 @@ for ``lax.scan``; the port keeps one dict per period instead and loops:
 
 so every leaf keeps the reference's name (``wqkv``, ``wo``, ``wiu``,
 ``ln1``, ...) and maps one to one (:func:`repro_torch.convert.
-model_params` unstacks the period axis).  Caches follow the same layout:
-``caches[seg][period]["b0"] = {"k", "v": (B, S, K, hd)}``.
+model_params` unstacks the period axis).  Caches follow the same layout,
+``caches[seg][period]["b0"]``, one entry per block kind:
+
+    attn / moe, GQA:  {"k", "v": (B, S, K, hd)}
+    attn / moe, MLA:  {"ckv": (B, S, r), "krope": (B, S, rope)}
+    rwkv:             {"tm_shift", "cm_shift": (B, d), "S": (B, H, hd, hd)}
+    rec:              {"h": (B, W) f32, "conv": (B, cw - 1, W)}
 
 Three assembly paths share the block implementations, as in the
 reference: :func:`forward_train` (no cache; each period recomputed in the
 backward pass), :func:`forward_prefill` (emits the caches) and
 :func:`decode_step`.
-
-The ``attn`` and ``moe`` block kinds with GQA/SWA attention are ported.
-The kinds ``rwkv`` and ``rec``, and MLA attention, raise
-``NotImplementedError`` (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ from torch.utils import checkpoint as ckpt_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        head_init, lm_head, mlp, mlp_init,
                                        pdtype, rmsnorm, rmsnorm_init,
@@ -40,18 +43,6 @@ from repro_torch.models.rope import text_mrope_positions
 from repro_torch.models.sharding import BATCH, MODEL, shard
 
 F32 = torch.float32
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, item 11)")
-
-
-def _check_ported(kind: str, cfg) -> None:
-    if kind not in ("attn", "moe"):
-        raise _not_ported(f"the {kind!r} block kind")
-    if cfg.attn_kind == "mla":
-        raise _not_ported("multi-head latent attention (attn_kind='mla')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,42 +88,86 @@ def _dense_ff(cfg) -> int:
     return cfg.d_ff
 
 
+def _attn_init(gen: torch.Generator, cfg) -> Dict:
+    if cfg.attn_kind == "mla":
+        return attn_mod.mla_init(gen, cfg)
+    return attn_mod.attn_init(gen, cfg)
+
+
 def block_init(gen: torch.Generator, kind: str, cfg) -> Dict:
-    _check_ported(kind, cfg)
+    """One block's parameters: ``ln1``, its mixer (``attn``, ``tm`` or
+    ``rec``), ``ln2`` and its feed-forward (``mlp``, ``moe`` or ``cm``)."""
     d = cfg.d_model
-    p = {"ln1": rmsnorm_init(d, gen.device),
-         "attn": attn_mod.attn_init(gen, cfg),
-         "ln2": rmsnorm_init(d, gen.device)}
-    if kind == "moe":
-        p["moe"] = moe_mod.moe_init(gen, cfg)
+    if kind in ("attn", "moe"):
+        mixer = "attn", _attn_init(gen, cfg)
+        ffn = (("moe", moe_mod.moe_init(gen, cfg)) if kind == "moe" else
+               ("mlp", mlp_init(gen, d, _dense_ff(cfg), dtype=pdtype(cfg))))
+    elif kind == "rwkv":
+        mixer = "tm", rwkv_mod.timemix_init(gen, cfg)
+        ffn = "cm", rwkv_mod.channelmix_init(gen, cfg)
+    elif kind == "rec":
+        mixer = "rec", rglru_mod.rglru_init(gen, cfg)
+        ffn = "mlp", mlp_init(gen, d, cfg.d_ff, dtype=pdtype(cfg))
     else:
-        p["mlp"] = mlp_init(gen, d, _dense_ff(cfg), dtype=pdtype(cfg))
-    return p
+        raise ValueError(kind)
+    return {"ln1": rmsnorm_init(d, gen.device), mixer[0]: mixer[1],
+            "ln2": rmsnorm_init(d, gen.device), ffn[0]: ffn[1]}
 
 
 def _ffn(kind: str, p: Dict, h: torch.Tensor, cfg
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The block's feed-forward half: (y, MoE aux loss or 0)."""
+    """The feed-forward half of an attention or rec block: (y, MoE aux
+    loss or 0)."""
     if kind == "moe":
         return moe_mod.moe_ffn(p["moe"], h, cfg)
     return (mlp(p["mlp"], h, cfg.act, reduce_bf16=cfg.tp_reduce_bf16),
             torch.zeros((), dtype=F32, device=h.device))
 
 
+def _attn_seq(p: Dict, h: torch.Tensor, cfg, positions, want_cache: bool
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The attention half over a sequence: (y, cache entry or None)."""
+    if cfg.attn_kind == "mla":
+        if want_cache:
+            return attn_mod.mla_prefill(p["attn"], h, cfg, positions)
+        return attn_mod.mla_attention(p["attn"], h, cfg, positions), None
+    if want_cache:
+        return attn_mod.attention_prefill(p["attn"], h, cfg, positions,
+                                          seq_shard=cfg.attn_seq_shard)
+    return attn_mod.attention(p["attn"], h, cfg, positions,
+                              seq_shard=cfg.attn_seq_shard), None
+
+
+def _rwkv_block(p: Dict, x: torch.Tensor, cfg, state: Dict
+                ) -> Tuple[torch.Tensor, Dict]:
+    """An rwkv block (time-mix, channel-mix) from `state`: (x, new state)."""
+    eps = cfg.norm_eps
+    y, tm_shift, S = rwkv_mod.timemix(p["tm"], rmsnorm(p["ln1"], x, eps),
+                                      state["tm_shift"], state["S"], cfg)
+    x = x + y
+    y, cm_shift = rwkv_mod.channelmix(p["cm"], rmsnorm(p["ln2"], x, eps),
+                                      state["cm_shift"])
+    return x + y, {"tm_shift": tm_shift, "cm_shift": cm_shift, "S": S}
+
+
 def _block_seq(kind: str, p: Dict, x: torch.Tensor, cfg, positions,
                want_cache: bool
                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
-    """Sequence-form block (train/prefill). Returns (x, aux, cache entry
-    or None)."""
-    _check_ported(kind, cfg)
+    """Sequence-form block (train/prefill); a recurrent block starts from a
+    zero state.  Returns (x, aux, cache entry or None)."""
+    if kind == "rwkv":
+        x, cache = _rwkv_block(p, x, cfg, rwkv_mod.rwkv_state_init(
+            cfg, x.shape[0], x.device))
+        return (x, torch.zeros((), dtype=F32, device=x.device),
+                cache if want_cache else None)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if want_cache:
-        y, cache = attn_mod.attention_prefill(p["attn"], h, cfg, positions,
-                                              seq_shard=cfg.attn_seq_shard)
+    if kind == "rec":
+        y, cache = rglru_mod.recurrent_block(
+            p["rec"], h, rglru_mod.rglru_state_init(cfg, x.shape[0],
+                                                    x.device), cfg)
+        cache = cache if want_cache else None
     else:
-        y = attn_mod.attention(p["attn"], h, cfg, positions,
-                               seq_shard=cfg.attn_seq_shard)
-        cache = None
+        y, cache = _attn_seq(p, h, cfg, positions, want_cache)
     x = x + y
     y, aux = _ffn(kind, p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     return x + y, aux, cache
@@ -140,13 +175,19 @@ def _block_seq(kind: str, p: Dict, x: torch.Tensor, cfg, positions,
 
 def _block_decode(kind: str, p: Dict, x: torch.Tensor, cfg, cache: Dict,
                   ctx_len: int) -> Tuple[torch.Tensor, Dict]:
-    _check_ported(kind, cfg)
+    if kind == "rwkv":
+        return _rwkv_block(p, x, cfg, cache)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, new_cache = attn_mod.attention_decode(p["attn"], h, cfg, cache,
+    if kind == "rec":
+        y, cache = rglru_mod.recurrent_block_step(p["rec"], h, cache, cfg)
+    elif cfg.attn_kind == "mla":
+        y, cache = attn_mod.mla_decode(p["attn"], h, cfg, cache, ctx_len)
+    else:
+        y, cache = attn_mod.attention_decode(p["attn"], h, cfg, cache,
                                              ctx_len)
     x = x + y
     y, _ = _ffn(kind, p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-    return x + y, new_cache
+    return x + y, cache
 
 
 # ---------------------------------------------------------------------------
@@ -166,9 +207,6 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         raise ValueError(f"the generator lies on {generator.device}, the "
                          f"parameters on {dev}")
     segs = segments(cfg)
-    for seg in segs:
-        for kind in seg.pattern:
-            _check_ported(kind, cfg)
     dt = pdtype(cfg)
     gen = generator
     params: Dict = {
@@ -239,8 +277,11 @@ def prefill_layer0_qkv(params: Dict, cfg, tokens: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Layer 0's q (B, S, H, D), k and v (B, S, K, D) on `tokens`, with
     positions applied, as :func:`forward_prefill` hands them to its first
-    attention (an attention block)."""
-    _check_ported(segments(cfg)[0].pattern[0], cfg)
+    attention; layer 0 must be a GQA attention block."""
+    if segments(cfg)[0].pattern[0] not in ("attn", "moe") \
+            or cfg.attn_kind == "mla":
+        raise ValueError(f"layer 0 of {cfg.arch} is not a GQA attention "
+                         f"block")
     x, pos = _prefill_inputs(params, cfg, tokens, None, None)
     p = params["segments"][0][0]["b0"]
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -305,13 +346,16 @@ def forward_train(params: Dict, cfg, tokens: torch.Tensor,
 
 
 def pad_cache(caches: List, cfg, target_len: int) -> List:
-    """Right-pad attention caches (k/v, sequence dim 1) to `target_len`
-    capacity for the decode that follows; rolling SWA caches stay
-    window-sized.  Returns new caches."""
+    """Right-pad attention caches (k/v/ckv/krope, sequence dim 1) to
+    `target_len` capacity for the decode that follows; rolling SWA k/v
+    caches stay window-sized, the MLA latent is never windowed.  The
+    recurrent states pass through.  Returns new caches."""
     def pad(name, leaf):
-        if name not in ("k", "v"):
+        if name not in ("k", "v", "ckv", "krope"):
             return leaf
-        tgt = min(target_len, cfg.window) if cfg.window else target_len
+        tgt = target_len
+        if name in ("k", "v") and cfg.window:
+            tgt = min(tgt, cfg.window)
         s = leaf.shape[1]
         if s >= tgt:
             return leaf
@@ -366,16 +410,25 @@ def init_cache(cfg, batch: int, s_cache: int, device=None) -> List:
     """Empty caches shaped like :func:`decode_step` expects."""
     dev = resolve_device(device)
     dt = pdtype(cfg)
-    s = min(cfg.window, s_cache) if cfg.window else s_cache
-    shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
-    caches = []
-    for seg in segments(cfg):
-        for kind in seg.pattern:
-            _check_ported(kind, cfg)
-        caches.append([{f"b{i}": {"k": torch.zeros(shape, dtype=dt,
-                                                   device=dev),
-                                  "v": torch.zeros(shape, dtype=dt,
-                                                   device=dev)}
-                        for i in range(len(seg.pattern))}
-                       for _ in range(seg.n_periods)])
-    return caches
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def entry(kind: str) -> Dict:
+        if kind in ("attn", "moe"):
+            if cfg.attn_kind == "mla":
+                m = cfg.mla
+                return {"ckv": zeros(batch, s_cache, m.kv_lora_rank),
+                        "krope": zeros(batch, s_cache, m.qk_rope_head_dim)}
+            s = min(cfg.window, s_cache) if cfg.window else s_cache
+            return {name: zeros(batch, s, cfg.n_kv_heads, cfg.head_dim)
+                    for name in ("k", "v")}
+        if kind == "rwkv":
+            return rwkv_mod.rwkv_state_init(cfg, batch, dev)
+        if kind == "rec":
+            return rglru_mod.rglru_state_init(cfg, batch, dev)
+        raise ValueError(kind)
+
+    return [[{f"b{i}": entry(kind) for i, kind in enumerate(seg.pattern)}
+             for _ in range(seg.n_periods)]
+            for seg in segments(cfg)]

@@ -9,7 +9,10 @@ JAX test's 3e-5 (f32) or 3e-2 (bf16), and on a (1, 4, 1024, 120) bf16 case
 within the main path's 5e-3 and an error RMS of 1e-3 of the output's.
 The training loop and the MoE block (no kernel on their path) run on the
 card as on the CPU in float32: losses within rtol 1e-4, MoE outputs
-within 1e-5.
+within 1e-5; so do the rwkv, rec and MLA kinds (logits within 1e-4,
+gradients within rtol 1e-4 and 1e-4 of each leaf's largest entry), and
+K4 at their serve shapes (D = 64, 256 with 16 groups, 192 with 128
+heads) within its tolerances.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one.  The file imports no JAX, so it runs on a machine that has
@@ -32,7 +35,7 @@ from repro_torch.core import route as troute
 from repro_torch.core import tiering_dyn as tdyn
 from repro_torch.core.machine import CPUModel
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels import cache_sim as tkernels
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import stream_triad as ttriad
@@ -752,3 +755,102 @@ def test_moe_ffn_on_the_card_matches_cpu(card):
     want, want_aux = tmoe.moe_ffn(params, x, cfg)
     torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the rwkv, rec and MLA kinds: K4 at their serve shapes, the models on the
+# card against the CPU
+# ---------------------------------------------------------------------------
+#: (query heads, kv heads, head_dim) of K4's serve launches for rwkv6-1.6b,
+#: recurrentgemma-9b (16 groups of D = 256: the wrapper's limits) and
+#: deepseek-v3-671b
+NEW_K4_SHAPES = {"rwkv6-1.6b": (32, 32, 64), "recurrentgemma-9b": (16, 1, 256),
+                 "deepseek-v3-671b": (128, 128, 192)}
+
+
+@pytest.mark.parametrize("arch", list(NEW_K4_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_at_the_new_serve_shapes(card, arch, dtype):
+    """K4 at the serve loop's shape for each new kind (8 sequences, 6
+    blocks of 16; an empty, a partial and random contexts)."""
+    h, kh, d = NEW_K4_SHAPES[arch]
+    assert (h, kh, d) == (get_config(arch).n_heads, get_config(arch)
+                          .n_kv_heads, get_config(arch).head_dim)
+    args = paged_case(d + h, 8, h, kh, d, 16, 6, dtype, card)
+    tops.reset_launches()
+    kern = tops.paged_attention(*args)
+    assert tops.LAUNCHES["paged_attention"] == 1
+    plain = tpa.paged_attention_ref(*args)
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert torch.all(kern[0] == 0)                  # empty context
+
+
+def _grads_close(a, b):
+    """Gradients card against CPU: rtol 1e-4, atol 1e-4 x max(1, max|b|)
+    (rwkv's u gradient reaches ~100 where the per-head norm divides by
+    sqrt(eps))."""
+    for x, y in zip(ttree.leaves(a), ttree.leaves(b)):
+        torch.testing.assert_close(
+            x.cpu(), y, rtol=1e-4,
+            atol=1e-4 * max(1.0, float(y.abs().max())))
+
+
+@pytest.mark.parametrize("arch", list(NEW_K4_SHAPES))
+def test_new_kinds_on_the_card_match_cpu(card, arch):
+    """Smoke size, float32, the same weights on the card and on the CPU:
+    prefill logits and caches, three decode steps, the loss and its
+    gradients (rtol = atol = 1e-4: cuBLAS and the CPU sum in different
+    orders); rwkv's 128-token loss takes the chunked WKV."""
+    from repro_torch.models import model as tmodel
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    p_cpu = ttf.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    p_card = ttree.tree_map(lambda x: x.to(card), p_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    outs = {}
+    for where, p in (("card", p_card), ("cpu", p_cpu)):
+        logits, caches = ttf.forward_prefill(p, cfg, toks.to(p["final_norm"]
+                                                             ["scale"].device))
+        caches = ttf.pad_cache(caches, cfg, 24)
+        steps = [logits]
+        for ctx in range(20, 23):
+            logits, caches = ttf.decode_step(p, cfg, toks[:, ctx - 20].to(
+                logits.device), caches, ctx)
+            steps.append(logits)
+        outs[where] = (steps, caches)
+    for a, b in zip(outs["card"][0], outs["cpu"][0]):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    _grads_close(outs["card"][1], outs["cpu"][1])
+    seq = 128 if arch == "rwkv6-1.6b" else 24
+    b = {"tokens": torch.randint(0, cfg.vocab_size, (2, seq),
+                                 generator=torch.Generator().manual_seed(5),
+                                 dtype=torch.int32)}
+    tops.reset_launches()
+    l_card, g_card = tmodel.value_and_grad(
+        p_card, cfg, {k: v.to(card) for k, v in b.items()})
+    assert not any(tops.LAUNCHES.values())
+    l_cpu, g_cpu = tmodel.value_and_grad(p_cpu, cfg, b)
+    np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=1e-5)
+    _grads_close(g_card, g_cpu)
+
+
+@pytest.mark.parametrize("arch", list(NEW_K4_SHAPES))
+def test_serve_runs_the_new_kinds_on_the_card(card, arch):
+    """serve.run at smoke size: one K4 launch per decode step over a pool
+    that only the decode steps' zero rows fill; KVStats as on the CPU."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    p_cpu = ttf.init_params(cfg, torch.Generator().manual_seed(6), "cpu")
+    kw = dict(requests=3, prefill=20, decode=3, page_size=4, hbm_pages=5)
+    tops.reset_launches()
+    r = tserve.run(cfg, params=ttree.tree_map(lambda x: x.to(card), p_cpu),
+                   **kw)
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                  paged_attention=3)
+    on_cpu = tserve.run(cfg, device="cpu", params=p_cpu, **kw)
+    assert r["logits_finite"] and r["kv_stats"] == on_cpu["kv_stats"]
+    assert r["tokens"] == on_cpu["tokens"]
+    assert not r["last_attn_inputs"][1].any()

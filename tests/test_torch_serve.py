@@ -168,8 +168,9 @@ def test_continuous_batcher_matches_jax(scenario):
 
 
 def _reference_loop(monkeypatch, jcfg, argv):
-    """Run ``repro.launch.serve.main`` and record its weights, its cache
-    and every paged-attention call (inputs and output)."""
+    """Run ``repro.launch.serve.main`` and record its weights, its cache,
+    every paged-attention call (inputs and output) and every decoded
+    token."""
     calls, seen = [], {}
 
     def attention(*args):
@@ -177,7 +178,7 @@ def _reference_loop(monkeypatch, jcfg, argv):
         calls.append(([np.asarray(a) for a in args], np.asarray(out)))
         return out
 
-    init = jserve.tf.init_params
+    init = jax.jit(jserve.tf.init_params, static_argnums=(0,))
 
     def init_params(cfg, key):
         seen["params"] = init(cfg, key)
@@ -194,8 +195,16 @@ def _reference_loop(monkeypatch, jcfg, argv):
     monkeypatch.setattr(jserve.tf, "init_params", init_params)
     monkeypatch.setattr(jserve.tf, "forward_prefill", jax.jit(
         jserve.tf.forward_prefill, static_argnums=(1,)))
-    monkeypatch.setattr(jserve.tf, "decode_step", jax.jit(
-        jserve.tf.decode_step, static_argnums=(1,)))
+    decode = jax.jit(jserve.tf.decode_step, static_argnums=(1,))
+
+    def decode_step(*args):
+        logits, caches = decode(*args)
+        # the loop's next token, in its order (step-major, request-minor)
+        seen.setdefault("tokens", []).append(int(np.argmax(
+            np.asarray(logits[0, 0]))))
+        return logits, caches
+
+    monkeypatch.setattr(jserve.tf, "decode_step", decode_step)
     monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     jserve.main()
     return calls, seen
