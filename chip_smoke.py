@@ -143,6 +143,18 @@ makes the script exit non-zero:
    loss > 0, 80 capacity slots by the reference's formula, peak memory;
    at smoke size in f32, ``moe_ffn`` (1e-5) and one train step (loss
    rtol 1e-4, parameters 1e-4) on the card against the CPU;
+   3e. slice 10, the rwkv, rec and MLA kinds (``slice10_path``): their
+   full-width serves with K4 at their shapes, card against CPU at smoke
+   size, and their trainings at batch 1 x 4096;
+   3f. slice 11 (``slice11_path``): the CXL.mem flit codec's headers and
+   decoded fields on the card bitwise against the CPU (a million
+   requests); the one-card dry run (``repro_torch.launch.dryrun``) on
+   fake CUDA tensors for every architecture at decode_32k and for
+   h2o-danube-3-4b's four cells, each row printed with its FLOPs beside
+   ``model_flops`` and its roofline; and the dry run of the five
+   trainings of 3d and 3e, whose estimated peaks must lie within 15% of
+   each run's measured peak (``max_memory_allocated`` less what was
+   allocated before it); no cell may fail and no kernel launch;
 5. print ``{"kernels": [...]}`` (all seven TPU kernels, K2 with K1, each
    with its launches on every path of the run, ``launches_by_path``, the
    training path's ``train`` among them) and, last, ``{"ok": true,
@@ -2249,10 +2261,13 @@ def danube_training(dev, card, ckpt_dir):
     batch, seq = 1, 4096
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     r = train.run(cfg, steps=TRAIN_STEPS, batch=batch, seq=seq,
                   accum_steps=1, ckpt_dir=ckpt_dir,
                   ckpt_every=TRAIN_STEPS + 1, log_every=0, device=dev)
     peak = torch.cuda.max_memory_allocated()
+    run_peak = dict(arch=cfg.arch, overrides=dict(remat_policy="none"),
+                    batch=batch, seq=seq, peak=peak, held=held)
     params, opt = r["state"]
     n = tf.n_param_elements(params)
     losses = [e["loss"] for e in r["log"] if e["event"] == "step"]
@@ -2306,6 +2321,7 @@ def danube_training(dev, card, ckpt_dir):
     profile(lambda: step(params, opt, b),
             f"one danube training step (batch {batch} x {seq})",
             note="device events only")
+    return run_peak
 
 
 def smoke_training_card_vs_cpu(dev, ckpt_root):
@@ -2394,9 +2410,12 @@ def moe_training(dev, card, ckpt_dir):
     batch, seq, steps = 1, 1024, 2
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     r = train.run(cfg, steps=steps, batch=batch, seq=seq, ckpt_dir=ckpt_dir,
                   ckpt_every=steps + 1, log_every=0, device=dev)
     peak = torch.cuda.max_memory_allocated()
+    run_peak = dict(arch=cfg.arch, overrides=dict(n_layers=1), batch=batch,
+                    seq=seq, peak=peak, held=held)
     params, _ = r["state"]
     n = tf.n_param_elements(params)
     losses = [e["loss"] for e in r["log"] if e["event"] == "step"]
@@ -2449,22 +2468,23 @@ def moe_training(dev, card, ckpt_dir):
             or p_err > 1e-4:
         raise AssertionError("[slice 9] (c) MoE on the card disagrees with "
                              "the CPU")
+    return run_peak
 
 
 def slice9_path(dev, card):
     """Slice 9's phase: (a), (b) and (c), with the kernels' launch counts
     set to 0 before and read after (the training path runs no kernel);
-    returns the counts."""
+    returns the counts and the peak memory of the (a) and (c) runs."""
     import tempfile
     from repro_torch.kernels import ops
     ops.reset_launches()
     with tempfile.TemporaryDirectory() as d:
-        danube_training(dev, card, f"{d}/a")
+        peaks = [danube_training(dev, card, f"{d}/a")]
         smoke_training_card_vs_cpu(dev, f"{d}/b")
-        moe_training(dev, card, f"{d}/c")
+        peaks.append(moe_training(dev, card, f"{d}/c"))
     launches = dict(ops.LAUNCHES)
     print(f"[slice 9] launch counts over the training path {launches}")
-    return launches
+    return launches, peaks
 
 
 # ---------------------------------------------------------------------------
@@ -2583,10 +2603,13 @@ def train_new_kind(dev, card, arch, over, seq, ckpt_dir):
     cfg = dataclasses.replace(get_config(arch), **over)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     r = train.run(cfg, steps=SLICE10_STEPS, batch=1, seq=seq,
                   ckpt_dir=ckpt_dir, ckpt_every=SLICE10_STEPS + 1,
                   log_every=0, device=dev)
     peak = torch.cuda.max_memory_allocated()
+    run_peak = dict(arch=arch, overrides=dict(over), batch=1, seq=seq,
+                    peak=peak, held=held)
     n = tf.n_param_elements(r["state"][0])
     losses = [e["loss"] for e in r["log"] if e["event"] == "step"]
     ms = step_times(r["log"])
@@ -2614,6 +2637,7 @@ def train_new_kind(dev, card, arch, over, seq, ckpt_dir):
             note="device events only")
     del params, opt, b
     torch.cuda.empty_cache()
+    return run_peak
 
 
 def new_kinds_card_vs_cpu(dev, arch):
@@ -2671,10 +2695,11 @@ def slice10_path(dev, card):
     """Slice 10's phase: the three serves (K4's launches counted per serve),
     the card-against-CPU checks, then the three trainings (no kernel: the
     counts, reset before and read after, stay 0).  Returns the launch
-    counts by path and K4's measurements at each serve."""
+    counts by path, K4's measurements at each serve and the trainings'
+    peak memory."""
     import tempfile
     from repro_torch.kernels import ops
-    out = {"serve": {}, "launches": {}}
+    out = {"serve": {}, "launches": {}, "peaks": []}
 
     def took(what, t0):
         print(f"[slice 10] {what} took {time.perf_counter() - t0:.1f} s")
@@ -2691,7 +2716,8 @@ def slice10_path(dev, card):
     with tempfile.TemporaryDirectory() as d:
         for arch, (over, seq) in SLICE10_TRAIN.items():
             t0 = time.perf_counter()
-            train_new_kind(dev, card, arch, over, seq, f"{d}/{arch}")
+            out["peaks"].append(train_new_kind(dev, card, arch, over, seq,
+                                               f"{d}/{arch}"))
             took(f"train {arch} with its profiled step", t0)
     out["launches"]["train slice 10"] = dict(ops.LAUNCHES)
     print(f"[slice 10] launch counts over the training paths "
@@ -2700,6 +2726,150 @@ def slice10_path(dev, card):
         raise AssertionError("[slice 10] a kernel launched on the training "
                              "paths")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: the flit codec on the card; the one-card dry run
+# ---------------------------------------------------------------------------
+CODEC_REQUESTS = 1 << 20           # a million-request batch, as the codec's
+PEAK_TOLERANCE = 0.15              # |estimate / measured - 1| of a run's peak
+
+
+def codec_on_the_card(dev):
+    """The CXL.mem codec's M2S and S2M headers and every decoded field on
+    the card, bitwise against the CPU, on a seeded batch with negative
+    addresses, over-wide tags, per-request logical devices and NXM reads;
+    returns the number of header words compared."""
+    import torch
+    from repro_torch.core import packet
+    gen = torch.Generator().manual_seed(11)
+    n = CODEC_REQUESTS
+    addr = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                         dtype=torch.int32)
+    wr = torch.rand(n, generator=gen) < 0.4
+    tags = torch.randint(0, 2**17, (n,), generator=gen, dtype=torch.int32)
+    ld = torch.randint(0, 16, (n,), generator=gen, dtype=torch.int32)
+    nxm = torch.rand(n, generator=gen) < 0.1
+    out = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        m2s = packet.rc_packetize(addr.to(where), wr.to(where),
+                                  tags=tags.to(where), ld_id=ld.to(where))
+        s2m = packet.ep_respond(m2s["headers"], dev_load=2,
+                                nxm=nxm.to(where))
+        out[name] = [m2s["headers"], s2m["headers"], m2s["wire_bytes"],
+                     s2m["wire_bytes"]]
+        for fields in (packet.ep_depacketize(m2s["headers"]),
+                       packet.rc_complete(s2m["headers"])):
+            out[name] += [fields[k] for k in sorted(fields)]
+    bad = [i for i, (c, h) in enumerate(zip(out["card"], out["cpu"]))
+           if not torch.equal(c.cpu(), h)]
+    words = out["cpu"][0].numel() + out["cpu"][1].numel()
+    print(f"[slice 11] codec: {n} requests, {words} M2S + S2M header words "
+          f"and {len(out['cpu']) - 4} decoded fields, card against CPU: "
+          f"{len(bad)} differ; wire bytes {int(out['cpu'][2])} M2S, "
+          f"{int(out['cpu'][3])} S2M")
+    if bad:
+        raise AssertionError(f"[slice 11] the codec's outputs {bad} differ "
+                             f"between the card and the CPU")
+    return words
+
+
+def dryrun_line(res, want_flops) -> str:
+    return (f"[slice 11] dry run {res.arch} {res.shape} (batch "
+            f"{res.global_batch} x {res.seq_len}"
+            f"{', ' + str(res.overrides) if res.overrides else ''}): "
+            f"{res.status}, traced {res.flops:.4e} FLOPs against "
+            f"model_flops {want_flops:.4e} (ratio "
+            f"{want_flops / max(res.flops, 1):.3f}), peak "
+            f"{res.peak_memory_per_device / 1e9:.2f} GB, fits "
+            f"{res.fits}, bytes {res.traffic_bytes:.3e} (products "
+            f"{res.dot_traffic_bytes:.3e}), arguments "
+            f"{res.argument_bytes / 1e9:.2f} GB, traced in {res.trace_s} s"
+            f"{' ' + res.note if res.note else ''}")
+
+
+def slice11_path(dev, card, train_peaks):
+    """Slice 11's phase: the codec on the card; the dry run on fake CUDA
+    tensors for every architecture at decode_32k and for h2o-danube-3-4b's
+    four cells, each row printed with its FLOPs beside ``model_flops``;
+    then the dry run of the training runs measured above (same overrides,
+    batch and sequence), each estimated peak held within PEAK_TOLERANCE of
+    that run's own peak (``max_memory_allocated`` less what was allocated
+    before it).  The kernel counts, reset before and read after, stay 0.
+    Returns the rows and the peak ratios."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import SHAPES, ShapeCell
+    from repro_torch.roofline import analysis
+    t0 = time.perf_counter()
+    words = codec_on_the_card(dev)
+    print(f"[slice 11] codec took {time.perf_counter() - t0:.1f} s")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cells = [(a, "decode_32k") for a in ARCHS]
+    cells += [("h2o-danube-3-4b", s) for s in SHAPES if s != "decode_32k"]
+    rows, failed = [], []
+    for arch, shape in cells:
+        res = dryrun.run_cell(arch, shape, device=dev)
+        if res.status == "ok":
+            print(dryrun_line(res, analysis.model_flops(
+                analysis.config_of(res.row()), SHAPES[shape])))
+            r = analysis.analyze_cell(res.row())
+            print(f"[slice 11]   roofline on H100 data-sheet peaks: compute "
+                  f"{r.compute_s:.4g} s, memory {r.memory_s:.4g} s (all "
+                  f"operations {r.memory_hi_s:.4g}), cxl {r.cxl_s:.4g} s: "
+                  f"{r.dominant}-bound, MODEL/traced {r.useful_ratio:.3f}, "
+                  f"MFU bound {r.mfu_bound:.1%}")
+        else:
+            print(dryrun.line(res))
+        failed += [f"{arch} {shape}"] * (res.status == "failed")
+        rows.append(res.row())
+    print(f"[slice 11] dry run of {len(cells)} cells took "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ratios = {}
+    for run in train_peaks:
+        cell = ShapeCell("train", run["seq"], run["batch"], "train")
+        res = dryrun.run_cell(run["arch"], cell, overrides=run["overrides"],
+                              device=dev)
+        rows.append(res.row())
+        if res.status != "ok":
+            print(dryrun.line(res))
+            failed.append(f"{run['arch']} training run")
+            continue
+        measured = run["peak"] - run["held"]
+        ratio = res.peak_memory_per_device / measured
+        label = (f"{run['arch']} {run['overrides']} "
+                 f"{run['batch']}x{run['seq']}")
+        ratios[label] = ratio
+        cfg = analysis.config_of(res.row())
+        print(dryrun_line(res, analysis.model_flops(cfg, cell)))
+        print(f"[slice 11] peak of {label}: estimated "
+              f"{res.peak_memory_per_device / 1e9:.3f} GB, measured "
+              f"{measured / 1e9:.3f} GB (max_memory_allocated "
+              f"{run['peak'] / 1e9:.3f} GB less {run['held'] / 1e9:.3f} GB "
+              f"held before the run): ratio {ratio:.4f} ({card})")
+        if cfg.arch == "h2o-danube-3-4b":
+            from repro_torch.models import transformer as tf
+            n = tf.n_param_elements(tf.param_shapes(cfg))
+            print(f"[slice 11] {cfg.arch} 1 x {run['seq']}: chip_smoke's "
+                  f"train_flops {train_flops(cfg, n, 1, run['seq']):.4e}, "
+                  f"model_flops {analysis.model_flops(cfg, cell):.4e}, "
+                  f"traced {res.flops:.4e}")
+    print(f"[slice 11] dry run of {len(train_peaks)} training runs took "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = dict(ops.LAUNCHES)
+    print(f"[slice 11] launch counts over the dry run {launches}")
+    off = {k: r for k, r in ratios.items() if abs(r - 1) > PEAK_TOLERANCE}
+    if failed or off or len(ratios) != len(train_peaks) \
+            or any(launches.values()):
+        raise AssertionError(f"[slice 11] failed cells {failed}; peaks off "
+                             f"by more than {PEAK_TOLERANCE:.0%}: {off}; "
+                             f"launches {launches}")
+    return dict(rows=rows, ratios=ratios, codec_words=words,
+                launches=launches)
 
 
 def main() -> int:
@@ -2835,13 +3005,18 @@ def main() -> int:
     del serve["params"]         # free the served weights (8 GB) first
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    train_launches = slice9_path(dev, card)
+    train_launches, train_peaks = slice9_path(dev, card)
     print(f"[slice 9] phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 3e. slice 10: the rwkv, rec and MLA kinds, served and trained --
     t0 = time.perf_counter()
     s10 = slice10_path(dev, card)
     print(f"[slice 10] phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3f. slice 11: the codec on the card; the one-card dry run -------
+    t0 = time.perf_counter()
+    s11 = slice11_path(dev, card, train_peaks + s10["peaks"])
+    print(f"[slice 11] phase took {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     # ---- 5. results -------------------------------------------------------
@@ -2856,6 +3031,7 @@ def main() -> int:
     counted["slice 4"] = s4_launches
     counted["train"] = train_launches
     counted |= s10["launches"]
+    counted["dry run"] = s11["launches"]
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in counted.items()}

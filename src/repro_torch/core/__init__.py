@@ -10,9 +10,19 @@ first use rather than imported here, which would close that cycle.
 """
 import importlib
 
-_EXPORTS = {"SweepSpec": "engine", "run_sweep": "engine",
-            "run_traces": "engine", "CXLRAMSim": "simulator",
-            "SimConfig": "simulator"}
+_EXPORTS = {
+    **dict.fromkeys(("Mesh", "ResilientExecutor", "ShardedExecutor",
+                     "auto_mesh", "stream_traces"), "distribute"),
+    **dict.fromkeys(("SweepSpec", "run_sweep", "run_traces"), "engine"),
+    "SamplingSpec": "sampling",
+    **dict.fromkeys(("CheckpointPolicy", "Fault", "FaultPlan",
+                     "ResilienceError", "RetryPolicy", "RunKilled",
+                     "RunReport"), "resilience"),
+    **dict.fromkeys(("RouteMap", "TopologySpec", "build_route",
+                     "build_route_from_system", "direct", "switched"),
+                    "route"),
+    **dict.fromkeys(("CXLRAMSim", "SimConfig"), "simulator"),
+}
 
 
 def __getattr__(name):

@@ -376,6 +376,22 @@ def snapshot_deltas(snapshots) -> np.ndarray:
     return np.diff(s, axis=0, prepend=np.zeros((1, s.shape[1]), np.int64))
 
 
+def dram_traffic_fraction(delta_stats, n_targets: int = 2) -> np.ndarray:
+    """DRAM share of memory-line traffic per snapshot delta row.
+
+    ``(mem_read_dram + mem_write_dram) / (all reads + writes)`` for each
+    row of a :func:`snapshot_deltas` result; rows with no memory traffic
+    report 0.0.  Host NumPy float64, (E,).
+    """
+    d = np.asarray(delta_stats, np.int64)
+    wb = mem_write_base(n_targets)
+    reads = d[:, MEM_READ:MEM_READ + n_targets]
+    writes = d[:, wb:wb + n_targets]
+    total = reads.sum(axis=1) + writes.sum(axis=1)
+    dram = reads[:, 0] + writes[:, 0]
+    return np.where(total > 0, dram / np.maximum(total, 1), 0.0)
+
+
 def miss_rates(stats) -> Dict[str, float]:
     s = stats_dict(stats)
     l1_acc = s["l1_hit"] + s["l1_miss"]

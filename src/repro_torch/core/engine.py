@@ -192,18 +192,24 @@ class TraceBatch:
         return int(self.n_valid.sum())
 
 
-def stack_traces(traces: Sequence[Tuple]) -> TraceBatch:
+def stack_traces(traces: Sequence[Tuple], pad_to_multiple: int = 1
+                 ) -> TraceBatch:
     """Stack host (addr, is_write[, core[, tier]]) traces of unequal length.
 
-    Rows are padded at the end, to the longest row, with `SENTINEL`
-    addresses (zero for the other fields).  `None` fields become zeros.
-    Returns host-resident (B, N) NumPy arrays.
+    Rows are padded at the end with `SENTINEL` addresses (zero for the
+    other fields), to the longest row rounded up to a multiple of
+    `pad_to_multiple`.  `None` fields become zeros.  Returns host-resident
+    (B, N) NumPy arrays.
     """
     if not traces:
         raise ValueError("no traces to stack (empty sweep grid?)")
+    if pad_to_multiple < 1:
+        raise ValueError(f"pad_to_multiple must be >= 1, got "
+                         f"{pad_to_multiple}")
     n_valid = np.asarray([np.asarray(t[0]).shape[0] for t in traces],
                          np.int64)
     n_max = int(n_valid.max())
+    n_max = -(-n_max // pad_to_multiple) * pad_to_multiple
     b = len(traces)
     addr = np.full((b, n_max), SENTINEL, np.int32)
     is_write = np.zeros((b, n_max), np.int32)
@@ -269,7 +275,8 @@ def stack_device_traces(traces: Sequence[Tuple], pad_to_multiple: int = 1
 # segments is bitwise-neutral.
 
 def run_batch_segment(p: cache_mod.CacheParams, carry, addr, is_write,
-                      core, tier, *, backend: Optional[str] = None):
+                      core, tier, *, donate: bool = False,
+                      backend: Optional[str] = None, chunk: int = 512):
     """One segment: `(carry, (B, n_seg) slice) -> carry`.
 
     Parameters
@@ -282,16 +289,23 @@ def run_batch_segment(p: cache_mod.CacheParams, carry, addr, is_write,
         :mod:`repro_torch.convert`).
     addr, is_write, core, tier : (B, n_seg) int32 tensors
         The segment; `addr == SENTINEL` marks padding.
+    donate : bool
+        The JAX package's buffer donation: accepted and ignored, since
+        neither backend writes its input carry.
     backend : str, optional
         ``None`` (follow the device), ``'reference'`` or ``'cuda'``.  Both
         thread the identical carry, so segments may alternate backends
         freely with bitwise-equal results.
+    chunk : int
+        The JAX package's trace elements per Pallas grid step, a TPU
+        tiling parameter: accepted (>= 1) and ignored.
 
     Returns
     -------
     tuple
         The advanced carry; `carry[2]` is the running (B, nstats) stats.
     """
+    check_chunk(chunk)
     return ops.mesi_run_segment(carry, addr, is_write, core, tier,
                                 params=p, backend=backend)
 
@@ -387,7 +401,19 @@ def _cell_traces(spec: SweepSpec, cache: cache_mod.CacheParams, device):
     return out
 
 
-def build_sweep_batch(spec: SweepSpec, cache: cache_mod.CacheParams, *,
+def build_stream_batch(spec: SweepSpec, cache: cache_mod.CacheParams,
+                       chunk: int = 512,
+                       routes: Optional[Sequence[
+                           Optional[route_mod.RouteMap]]] = None, *,
+                       device=None) -> TraceBatch:
+    """The batch of :func:`build_sweep_batch` without its cell -> row map."""
+    batch, _ = build_sweep_batch(spec, cache, chunk, routes=routes,
+                                 device=device)
+    return batch
+
+
+def build_sweep_batch(spec: SweepSpec, cache: cache_mod.CacheParams,
+                      chunk: int = 512, *,
                       routes: Optional[Sequence[
                           Optional[route_mod.RouteMap]]] = None,
                       device=None) -> Tuple[TraceBatch, List[int]]:
@@ -399,7 +425,9 @@ def build_sweep_batch(spec: SweepSpec, cache: cache_mod.CacheParams, *,
     binary :func:`repro_torch.core.numa.tier_of_lines` without a route),
     so the trace is shared across the topology/policy cells.  Cells whose
     workload carries its own tier map are policy-independent and share
-    one row.  Rows are padded to the longest row.
+    one row.  Rows are padded to the longest row.  `chunk`, the JAX
+    package's pad granularity for its kernel, is accepted (>= 1) and
+    ignored: padding is inert.
 
     Returns
     -------
@@ -407,6 +435,7 @@ def build_sweep_batch(spec: SweepSpec, cache: cache_mod.CacheParams, *,
         The device-resident batch, and one batch-row index per logical cell
         in ``topology-major x sim_cells`` order.
     """
+    check_chunk(chunk)
     device = resolve_device(device)
     if routes is None:
         routes = [None] * len(spec.topology_axis)

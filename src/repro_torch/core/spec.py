@@ -233,3 +233,5 @@ TPU_V5E_PCIE_GBPS = 32e9             # host<->chip staging path
 # H100 data sheet), not measurements.  The default `memory.tiering.TierSpec`.
 H100_HBM_BYTES = 80 * 2**30          # 80 GB HBM3
 H100_PCIE_GBPS = 64e9                # PCIe Gen5 x16, each way (128 GB/s both)
+H100_BF16_FLOPS = 989e12             # dense bf16 tensor-core peak (no sparsity)
+H100_HBM_GBPS = 3.35e12              # HBM3 bandwidth, bytes/s

@@ -356,14 +356,17 @@ def run_dynamic_segment(p: cache_mod.CacheParams, k_max: int,
                         tier, dyn_flag, n_pages, budget, threshold,
                         period, dram_cap, ssd_tid, cxl_cap,
                         page_target_lines, s_warm=None, s_meas=None,
-                        s_per=None, *, backend: Optional[str] = None):
+                        s_per=None, *, donate: bool = False,
+                        backend: Optional[str] = None):
     """Advance the batched epoch carry over one (B, E_seg, slot_len) slice.
 
     Dispatches to :func:`repro_torch.kernels.ops.mesi_dyn_segment`: the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors
     (``backend`` forces one).  Both advance the identical 9-tuple carry,
     so segments may alternate between them.  Returns ``(carry, slots,
-    snaps, meas)`` for just this segment.
+    snaps, meas)`` for just this segment.  `donate`, the JAX package's
+    buffer donation, is accepted and ignored: neither backend writes its
+    input carry.
     """
     from repro_torch.kernels import ops  # deferred: kernels build on core
     b = addr.shape[0]

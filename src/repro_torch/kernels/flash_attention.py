@@ -117,8 +117,10 @@ def live_pairs(sq: int, sk: int, causal: bool = True,
 # ---------------------------------------------------------------------------
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`flash_attention` (same contract).
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention` (same contract;
+    `scale` defaults to ``D ** -0.5``, as the kernel's).
 
     The JAX oracle's arithmetic: f32 logits scaled after the product, a
     masked softmax with fully masked rows set to 0, an f32 value sum.
@@ -126,7 +128,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["flash_attention_ref"] += 1
     sq, d = q.shape[-2:]
     sk = k.shape[-2]
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)

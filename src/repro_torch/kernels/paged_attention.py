@@ -49,6 +49,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import build
@@ -149,9 +151,10 @@ def _check(q, k_pages, v_pages, block_table, context_lens) -> None:
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
-def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens
-                        ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`paged_attention` (same contract).
+def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens,
+                        *, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`paged_attention` (same contract;
+    `scale` defaults to ``D ** -0.5``, as the kernel's).
 
     The JAX oracle's arithmetic: gather every page of the block table
     (padded entries masked to page 0 first), f32 logits scaled after the
@@ -167,7 +170,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens
     k = k_pages[bt].reshape(b, nblk * page, kh, d)     # (B, S, K, D)
     v = v_pages[bt].reshape(b, nblk * page, kh, d)
     qf = q.reshape(b, kh, groups, d).to(torch.float32)
-    logits = torch.einsum("bkgd,bskd->bkgs", qf, k.to(torch.float32)) * d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
+    logits = torch.einsum("bkgd,bskd->bkgs", qf, k.to(torch.float32)) * scale
     pos = torch.arange(nblk * page, device=q.device)[None, None, None, :]
     mask = pos < context_lens.to(q.device)[:, None, None, None]
     logits = torch.where(mask, logits, -math.inf)

@@ -11,7 +11,9 @@ distributions as the reference (truncated normal on [-2, 2] scaled by
 ``fan_in ** -0.5``; normal x 0.02 for embeddings), in f32 on the
 generator's device, then cast.  They do not reproduce ``jax.random``'s
 bits: tests carry the JAX weights over with :func:`repro_torch.convert.
-model_params`.
+model_params`.  Given a :class:`ShapeOnly` in place of the generator they
+lay the same leaves out on the meta device and draw nothing
+(:func:`repro_torch.models.transformer.param_shapes`).
 """
 from __future__ import annotations
 
@@ -25,6 +27,21 @@ from repro_torch.models.sharding import BATCH, MODEL, shard
 F32 = torch.float32
 
 
+class ShapeOnly:
+    """Stands in for the initializers' generator: every leaf is made on
+    the meta device (its shape and dtype, no storage) and nothing is
+    drawn, so a full-width tree costs no memory."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """A standard normal f32 draw of `shape` on the generator's device."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(tuple(shape), dtype=F32, device=gen.device)
+    return torch.randn(tuple(shape), generator=gen, dtype=F32,
+                       device=gen.device)
+
+
 def pdtype(cfg) -> torch.dtype:
     """The parameter dtype named by ``cfg.dtype`` ("bfloat16", "float32")."""
     return getattr(torch, cfg.dtype)
@@ -35,6 +52,8 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
     """LeCun-normal fan-in init, on the generator's device (drawn and
     scaled in place in f32: one f32 copy of the leaf at a time, 30 GB for
     deepseek-v3-671b's (256, 7168, 4096) experts)."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
     w = torch.empty(tuple(shape), dtype=F32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -98,6 +117,8 @@ def mlp(params: Dict, x: torch.Tensor, act: str = "silu",
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                n_codebooks: int = 1, dtype=torch.bfloat16) -> Dict:
     shape = (vocab, d) if n_codebooks == 1 else (n_codebooks, vocab, d)
+    if isinstance(gen, ShapeOnly):
+        return {"table": torch.empty(shape, dtype=dtype, device=gen.device)}
     t = torch.empty(shape, dtype=F32, device=gen.device)
     torch.nn.init.normal_(t, 0.0, 1.0, generator=gen)
     return {"table": (t * 0.02).to(dtype)}

@@ -6,14 +6,17 @@ The port of ``repro.models.model``'s loss and steps:
     MoE aux loss), gradients by ``torch.autograd.grad`` on the parameter
     leaves (each in its leaf's dtype), AdamW; optional microbatched
     gradient accumulation;
-  * :func:`prefill_step` / :func:`serve_step`: the inference paths.
+  * :func:`prefill_step` / :func:`serve_step`: the inference paths;
+  * :data:`SHAPES` / :func:`input_specs`: the dry run's (arch x shape)
+    cells and meta-tensor stand-ins for their inputs.
 
-The reference's ``input_specs`` and partition-spec functions describe
-TPU meshes for its dry run and are not ported (ROADMAP item 12).
+The reference's partition-spec functions describe TPU meshes; one card
+has none, so they are not ported.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -115,3 +118,48 @@ def prefill_step(params, cfg, batch: Dict):
 
 def serve_step(params, cfg, token, caches, ctx_len):
     return tf.decode_step(params, cfg, token, caches, ctx_len)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-tensor stand-ins; no allocation)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                 # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def input_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
+    """Meta tensors (shape and dtype, no storage) for every model input of
+    this (arch x shape) cell; a decode cell's caches follow
+    :func:`repro_torch.models.transformer.init_cache`'s layout."""
+    b, s = cell.global_batch, cell.seq_len
+    i32, meta = torch.int32, torch.device("meta")
+
+    def stand_in(shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device=meta)
+
+    if cell.kind in ("train", "prefill"):
+        out = {"tokens": stand_in((b, cfg.n_codebooks, s)
+                                  if cfg.n_codebooks > 1 else (b, s))}
+        if cfg.rope == "mrope":
+            out["positions"] = stand_in((3, b, s))
+        if cfg.vision_tokens:
+            out["vision"] = stand_in((b, cfg.vision_tokens, cfg.vision_dim),
+                                     torch.bfloat16)
+        return out
+    # decode: one token, caches of length seq_len
+    return {"token": stand_in((b, cfg.n_codebooks) if cfg.n_codebooks > 1
+                              else (b,)),
+            "caches": tf.init_cache(cfg, b, s, device=meta),
+            "ctx_len": stand_in(())}

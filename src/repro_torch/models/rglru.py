@@ -23,7 +23,7 @@ from typing import Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, pdtype
+from repro_torch.models.layers import dense_init, pdtype, randn
 
 F32 = torch.float32
 C_DECAY = 8.0
@@ -33,8 +33,7 @@ def rglru_init(gen: torch.Generator, cfg) -> Dict:
     d, w = cfg.d_model, cfg.lru_width
     dt = pdtype(cfg)
     dev = gen.device
-    conv = torch.randn((cfg.conv_width, w), generator=gen, dtype=F32,
-                       device=dev)
+    conv = randn(gen, (cfg.conv_width, w))
     return {
         "wx": dense_init(gen, (d, w), dtype=dt),          # recurrent branch
         "wgate": dense_init(gen, (d, w), dtype=dt),       # GeLU gate branch

@@ -24,7 +24,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, pdtype, rmsnorm_init
+from repro_torch.models.layers import (dense_init, pdtype, randn,
+                                       rmsnorm_init)
 
 F32 = torch.float32
 LORA_MIX = 32
@@ -32,8 +33,7 @@ LORA_DECAY = 64
 
 
 def _normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=F32,
-                       device=gen.device) * std
+    return randn(gen, shape) * std
 
 
 def timemix_init(gen: torch.Generator, cfg) -> Dict:

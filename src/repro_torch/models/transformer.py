@@ -35,10 +35,10 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.layers import (dense_init, embed, embed_init,
-                                       head_init, lm_head, mlp, mlp_init,
-                                       pdtype, rmsnorm, rmsnorm_init,
-                                       sinusoidal_positions)
+from repro_torch.models.layers import (ShapeOnly, dense_init, embed,
+                                       embed_init, head_init, lm_head, mlp,
+                                       mlp_init, pdtype, rmsnorm,
+                                       rmsnorm_init, sinusoidal_positions)
 from repro_torch.models.rope import text_mrope_positions
 from repro_torch.models.sharding import BATCH, MODEL, shard
 
@@ -206,9 +206,23 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lies on {generator.device}, the "
                          f"parameters on {dev}")
+    return _param_tree(cfg, generator, dev)
+
+
+def param_shapes(cfg) -> Dict:
+    """The tree of :func:`init_params` with meta tensors for leaves: each
+    leaf's shape and dtype, without allocating or drawing (the dry run's
+    stand-ins; a full-width deepseek-v3-671b takes a moment)."""
+    gen = ShapeOnly()
+    return _param_tree(cfg, gen, gen.device)
+
+
+def _param_tree(cfg, gen, dev) -> Dict:
+    """The parameter tree's layout, its leaves drawn from `gen` (a
+    ``torch.Generator``) or laid out on the meta device (a
+    :class:`~repro_torch.models.layers.ShapeOnly`)."""
     segs = segments(cfg)
     dt = pdtype(cfg)
-    gen = generator
     params: Dict = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                             cfg.n_codebooks, dtype=dt),
@@ -388,9 +402,12 @@ def forward_prefill(params: Dict, cfg, tokens: torch.Tensor,
 
 
 def decode_step(params: Dict, cfg, token: torch.Tensor, caches: List,
-                ctx_len: int) -> Tuple[torch.Tensor, List]:
+                ctx_len: int, positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List]:
     """One decode step. token (B,) or (B, C); `ctx_len` the tokens already
-    cached -> (logits (B, 1, ...), caches), the caches updated in place."""
+    cached -> (logits (B, 1, ...), caches), the caches updated in place.
+    `positions` is accepted and unused, as in the reference: positions
+    follow from `ctx_len`."""
     tok = token[:, None] if token.ndim == 1 else token[..., None]
     x = _embed_inputs(params, cfg, tok, None, offset=int(ctx_len))
     for seg, seg_params, seg_cache in zip(segments(cfg), params["segments"],

@@ -12,7 +12,9 @@ card as on the CPU in float32: losses within rtol 1e-4, MoE outputs
 within 1e-5; so do the rwkv, rec and MLA kinds (logits within 1e-4,
 gradients within rtol 1e-4 and 1e-4 of each leaf's largest entry), and
 K4 at their serve shapes (D = 64, 256 with 16 groups, 192 with 128
-heads) within its tolerances.
+heads) within its tolerances.  The CXL.mem flit codec runs on the card
+bitwise as on the CPU, and the dry run on fake CUDA tensors counts the
+FLOPs of the same step run on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one.  The file imports no JAX, so it runs on a machine that has
@@ -854,3 +856,58 @@ def test_serve_runs_the_new_kinds_on_the_card(card, arch):
     assert r["logits_finite"] and r["kv_stats"] == on_cpu["kv_stats"]
     assert r["tokens"] == on_cpu["tokens"]
     assert not r["last_attn_inputs"][1].any()
+
+
+def test_codec_on_the_card_matches_cpu(card):
+    """The CXL.mem flit codec's headers and decoded fields, bitwise."""
+    from repro_torch.core import packet
+    gen = torch.Generator().manual_seed(12)
+    n = 4099
+    addr = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                         dtype=torch.int32)
+    wr = torch.rand(n, generator=gen) < 0.5
+    tags = torch.randint(0, 2**17, (n,), generator=gen, dtype=torch.int32)
+    nxm = torch.rand(n, generator=gen) < 0.2
+    outs = []
+    for where in (card, torch.device("cpu")):
+        m2s = packet.rc_packetize(addr.to(where), wr.to(where),
+                                  tags=tags.to(where), ld_id=5)
+        s2m = packet.ep_respond(m2s["headers"], nxm=nxm.to(where))
+        fields = {**packet.ep_depacketize(m2s["headers"]),
+                  **{"s2m_" + k: v for k, v in
+                     packet.rc_complete(s2m["headers"]).items()}}
+        outs.append({"m2s": m2s["headers"], "s2m": s2m["headers"],
+                     **fields})
+    for k, v in outs[1].items():
+        assert torch.equal(outs[0][k].cpu(), v), k
+
+
+@pytest.mark.parametrize("arch,kind", [("h2o-danube-3-4b", "train"),
+                                       ("rwkv6-1.6b", "prefill"),
+                                       ("deepseek-v3-671b", "decode")])
+def test_dryrun_on_fake_cuda_counts_a_card_runs_flops(card, arch, kind):
+    """The dry run on fake CUDA tensors at smoke size counts the FLOPs of
+    the same step run on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim import adamw
+    full, cfg = get_config(arch), get_smoke(arch)
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if getattr(cfg, f.name) != getattr(full, f.name)}
+    cell = tmodel.ShapeCell(f"smoke_{kind}", 16, 2, kind)
+    res = dryrun.run_cell(arch, cell, overrides=over)
+    assert res.status == "ok" and res.device == "cuda", res.note
+    params = ttf.init_params(cfg, torch.Generator(card).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
+                           device=card)
+    with FlopCounterMode(display=False) as counter:
+        if kind == "train":
+            tmodel.make_train_step(cfg, adamw.AdamWConfig())(
+                params, adamw.init(params), {"tokens": tokens})
+        elif kind == "prefill":
+            tmodel.prefill_step(params, cfg, {"tokens": tokens})
+        else:
+            tmodel.serve_step(params, cfg, tokens[:, 0],
+                              ttf.init_cache(cfg, 2, 16), 15)
+    assert res.flops == counter.get_total_flops() > 0

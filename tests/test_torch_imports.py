@@ -48,6 +48,11 @@ TRAINING_MODULES = {
     "repro_torch.launch.train"}
 # the recurrent block kinds' modules
 RECURRENT_MODULES = {"repro_torch.models.rwkv", "repro_torch.models.rglru"}
+# the codec, the oracle-form plain versions, the dry run and its roofline
+DRYRUN_MODULES = {"repro_torch.core.packet", "repro_torch.kernels.ref",
+                  "repro_torch.launch.dryrun", "repro_torch.roofline",
+                  "repro_torch.roofline.analysis",
+                  "repro_torch.roofline.report"}
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -58,9 +63,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
              "JAX_PLATFORMS": "cpu"})
     names, bad = out.stdout.splitlines()
     names = set(ast.literal_eval(names))
-    assert len(names) >= 49
+    assert len(names) >= 81
     assert TRAINING_MODULES <= names
     assert RECURRENT_MODULES <= names
+    assert DRYRUN_MODULES <= names
     assert bad.strip() == "[]"
     # chip_smoke.py imports the port inside main(): read its imports too
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
@@ -236,6 +242,8 @@ from repro_torch.kernels import build
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 from repro_torch.kernels import cache_sim, flash_attention, ops, stream_triad
+import repro_torch.kernels as kernels_pkg
+assert kernels_pkg.ops is ops and kernels_pkg.ref.cache_sim
 assert build.load.cache_info().currsize == 0
 for mod in (flash_attention, stream_triad):
     assert mod._library.cache_info().currsize == 0
