@@ -155,10 +155,23 @@ makes the script exit non-zero:
    trainings of 3d and 3e, whose estimated peaks must lie within 15% of
    each run's measured peak (``max_memory_allocated`` less what was
    allocated before it); no cell may fail and no kernel launch;
+   3g. slice 12 (``slice12_path``): ``repro_torch.analysis.main`` with
+   ``--device cuda`` and the committed baseline — the lint of
+   ``src/repro_torch``, the graph audit of every registered entry point
+   (the ``[cuda]`` kernel entry points among them) and the contracts, the
+   stats triangulated at T = 2, 3 and 4 through K1/K2 and K3 against the
+   reference — must exit 0 with ``audit=ok`` (the ``analysis`` path); then
+   the four port examples in-process on the card, no ``--device``, each
+   with the counts reset before and read after and no plain-version call:
+   quickstart and characterize launch K1 (characterize K3 too) and print
+   the JAX examples' lines (``examples/expected_output/``), serve K4 once per
+   decode step (12), each launch held against the plain version on a copy
+   of its own inputs (K4's tolerance of 2c), train no kernel (the
+   ``examples`` path);
 5. print ``{"kernels": [...]}`` (all seven TPU kernels, K2 with K1, each
    with its launches on every path of the run, ``launches_by_path``, the
-   training path's ``train`` among them) and, last, ``{"ok": true,
-   "device": ...}``.
+   training path's ``train`` and slice 12's ``analysis`` and ``examples``
+   among them) and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the port's sources are not beside it.
@@ -2872,6 +2885,175 @@ def slice11_path(dev, card, train_peaks):
                 launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the analyzer on the card; the four examples
+# ---------------------------------------------------------------------------
+#: the JAX examples' printed lines (tools/examples_golden.py), which the
+#: port's examples must print on the card
+EXAMPLES_GOLDEN = ROOT / "examples" / "expected_output"
+#: example -> {kernel: launches it must make (None: at least one)}; every
+#: other kernel and every plain version must stay at 0
+SLICE12_EXAMPLES = {
+    "quickstart": {"mesi_segment": None},
+    "characterize_cxl": {"mesi_segment": None, "mesi_dyn_segment": None},
+    "serve_kv_cxl": {"paged_attention": 12},
+    "train_e2e": {},
+}
+
+
+def run_example(name, argv, card):
+    """``examples/<name>_torch.py`` as a script with `argv` (no
+    ``--device``: the card), the launch counts set to 0 just before and
+    read just after; returns the counts, the wall time, the lines it
+    printed (also echoed here) and a copy of each K4 call's inputs and
+    output (``k4_calls``)."""
+    import contextlib
+    import io
+    import runpy
+    import torch
+    from repro_torch.kernels import ops
+    path = ROOT / "examples" / f"{name}_torch.py"
+    buf = io.StringIO()
+    saved = sys.argv, ops.paged_attention
+    k4_calls = []
+
+    def recorded(*args):
+        # the wrapper counts its launch; the copies are taken before it
+        # runs, since the serve loop writes its KV pool after each step
+        inputs = [a.clone() for a in args]
+        out = saved[1](*args)
+        k4_calls.append((inputs, out.clone()))
+        return out
+
+    sys.argv = [str(path), *argv]
+    ops.paged_attention = recorded
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv, ops.paged_attention = saved
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for line in buf.getvalue().splitlines():
+        print(f"[slice 12] {name}: {line}")
+    want = SLICE12_EXAMPLES[name]
+    bad = {k: n for k, n in launches.items()
+           if (k not in want and n) or (k in want and (
+               n < 1 if want[k] is None else n != want[k]))}
+    print(f"[slice 12] {name} took {wall:.2f} s, launches "
+          f"{ {k: n for k, n in launches.items() if n} } ({card})")
+    if bad:
+        raise AssertionError(f"[slice 12] {name}: launches {bad}, want "
+                             f"{want} and no plain version")
+    lines = buf.getvalue().splitlines()
+    golden = EXAMPLES_GOLDEN / f"{name}.txt"
+    if golden.exists():
+        ref = golden.read_text().splitlines()
+        diff = [i for i in range(max(len(ref), len(lines)))
+                if ref[i:i + 1] != lines[i:i + 1]]
+        print(f"[slice 12] {name}: {len(lines)} lines, {len(diff)} differ "
+              f"from the JAX example's ({golden.name})")
+        if diff:
+            raise AssertionError(f"[slice 12] {name} departs from the JAX "
+                                 f"example at lines {diff[:10]}")
+    return dict(launches=launches, wall_s=wall, lines=lines,
+                k4_calls=k4_calls)
+
+
+def example_k4_parity(calls, card):
+    """The serve example's K4 launches, each against the plain version on
+    the same inputs (copied when the loop made the call), with K4's
+    tolerance of phase 2c (rtol = atol: 3e-5 in float32, 2e-2 in
+    bfloat16); returns the largest error and the shapes."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    tol = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+    err, bad = 0.0, []
+    for i, (args, kern) in enumerate(calls):
+        plain = pa.paged_attention_ref(*args)
+        diff = (kern.float() - plain.float()).abs()
+        err = max(err, float(diff.max()))
+        t = tol[args[0].dtype]
+        if (bool((diff > t * (1 + plain.float().abs())).any())
+                or kern.dtype != args[0].dtype
+                or not bool(torch.isfinite(kern).all())):
+            bad.append(i)
+    torch.cuda.synchronize()
+    q, kp, _, bt, cl = calls[0][0]
+    b, h, d = q.shape
+    shape = {"B": b, "H": h, "K": kp.shape[2], "D": d, "page": kp.shape[1],
+             "nblk": bt.shape[1], "pool": str(kp.dtype)[6:],
+             "ctx": [int(calls[0][0][4].min()), int(calls[-1][0][4].max())]}
+    plan = pa.launch_plan(q, kp, kp, bt)
+    print(f"[slice 12] serve_kv_cxl: K4's {len(calls)} launches against the "
+          f"plain version on their own inputs {shape}, {plan['parts']} "
+          f"partition(s) of {plan['part_len']}: max|kernel - plain| = "
+          f"{err:.3g} (tolerance {tol[q.dtype]:g}, rtol = atol) ({card})")
+    if bad:
+        raise AssertionError(f"[slice 12] the serve example's K4 launches "
+                             f"{bad} disagree with the plain version")
+    return dict(launches=len(calls), max_abs_err=err, shape=shape,
+                parts=plan["parts"])
+
+
+def slice12_path(dev, card):
+    """Slice 12's phase: ``repro_torch.analysis.main`` on the card (the
+    lint of ``src/repro_torch`` against its committed baseline, then the
+    graph audit with the CUDA kernels: the ``[cuda]`` entry points traced
+    and the stats triangulated against the reference at T = 2, 3 and 4),
+    which must exit 0 with ``audit=ok`` and launch K1/K2 and K3; then the
+    four port examples in-process on the card, each with the counts reset
+    before and read after (SLICE12_EXAMPLES), and the serve example's K4
+    launches against the plain version.  Returns the counts by path
+    (``analysis``, ``examples``), the timings and K4's check (``k4``)."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch import analysis
+    from repro_torch.kernels import ops
+    out = {"launches": {}, "examples": {}}
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis.main([
+            str(ROOT / "src" / "repro_torch"), "--root", str(ROOT),
+            "--device", str(dev), "--baseline",
+            str(ROOT / "tools" / "repro_torch_lint_baseline.json")])
+    torch.cuda.synchronize()
+    out["analysis_s"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    out["launches"]["analysis"] = launches
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"[slice 12] analysis: {line}")
+    print(f"[slice 12] analysis took {out['analysis_s']:.2f} s, launches "
+          f"{ {k: n for k, n in launches.items() if n} } ({card})")
+    out["summary"] = lines[-1] if lines else ""
+    if rc != 0 or not out["summary"].endswith("audit=ok") \
+            or not launches["mesi_segment"] \
+            or not launches["mesi_dyn_segment"]:
+        raise AssertionError(f"[slice 12] analysis exited {rc}: "
+                             f"{out['summary']!r}, launches {launches}")
+    with tempfile.TemporaryDirectory() as d:
+        for name in SLICE12_EXAMPLES:
+            argv = (["--ckpt-dir", f"{d}/ckpt"] if name == "train_e2e"
+                    else [])
+            out["examples"][name] = run_example(name, argv, card)
+    calls = {n: e.pop("k4_calls") for n, e in out["examples"].items()}
+    out["k4"] = example_k4_parity(calls["serve_kv_cxl"], card)
+    out["launches"]["examples"] = {
+        k: sum(e["launches"][k] for e in out["examples"].values())
+        for k in ops.LAUNCHES}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3017,6 +3199,11 @@ def main() -> int:
     t0 = time.perf_counter()
     s11 = slice11_path(dev, card, train_peaks + s10["peaks"])
     print(f"[slice 11] phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3g. slice 12: the analyzer on the card; the four examples -------
+    t0 = time.perf_counter()
+    s12 = slice12_path(dev, card)
+    print(f"[slice 12] phase took {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     # ---- 5. results -------------------------------------------------------
@@ -3032,6 +3219,7 @@ def main() -> int:
     counted["train"] = train_launches
     counted |= s10["launches"]
     counted["dry run"] = s11["launches"]
+    counted |= s12["launches"]
 
     def by_path(kernel):
         return {p: c.get(kernel, 0) for p, c in counted.items()}
@@ -3091,7 +3279,8 @@ def main() -> int:
         "library": "scaled_dot_product_attention(enable_gqa=True) on the "
                    "K/V gathered beforehand (gather not timed)",
         "ctx4096": k4_t["ctx4096"],
-        "slice10_serves": {a: v["k4"] for a, v in s10["serve"].items()}}, {
+        "slice10_serves": {a: v["k4"] for a, v in s10["serve"].items()},
+        "slice12_serve_example": s12["k4"]}, {
         "name": "flash_attention", "route": "cuda",
         "launches_by_path": by_path("flash_attention"),
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

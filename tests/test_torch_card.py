@@ -14,7 +14,10 @@ gradients within rtol 1e-4 and 1e-4 of each leaf's largest entry), and
 K4 at their serve shapes (D = 64, 256 with 16 groups, 192 with 128
 heads) within its tolerances.  The CXL.mem flit codec runs on the card
 bitwise as on the CPU, and the dry run on fake CUDA tensors counts the
-FLOPs of the same step run on the card.
+FLOPs of the same step run on the card.  The analyzer's graph audit is
+clean on the card, where it traces the kernel entry points and
+triangulates the MESI and epoch kernels against the reference, and that
+triangulation catches a kernel whose counters come out reordered.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one.  The file imports no JAX, so it runs on a machine that has
@@ -911,3 +914,33 @@ def test_dryrun_on_fake_cuda_counts_a_card_runs_flops(card, arch, kind):
             tmodel.serve_step(params, cfg, tokens[:, 0],
                               ttf.init_cache(cfg, 2, 16), 15)
     assert res.flops == counter.get_total_flops() > 0
+
+
+def test_analysis_audit_on_the_card_is_clean(card):
+    """The graph audit on the card: the kernel entry points are traced,
+    and the MESI and epoch kernels triangulate bitwise with the reference
+    at 2, 3 and 4 targets."""
+    from repro_torch.analysis import contracts
+    names = [n for n, _, _ in contracts.entry_points(card)]
+    assert {"run_batch_segment[cuda]", "run_dynamic[cuda]"} <= set(names)
+    tops.reset_launches()
+    findings = contracts.run_audit(card)
+    assert findings == [], "\n".join(f.format() for f in findings)
+    assert tops.LAUNCHES["mesi_segment"] == 10
+    assert tops.LAUNCHES["mesi_dyn_segment"] == 7
+
+
+def test_stat_layout_catches_a_drifted_kernel(card, monkeypatch):
+    """A kernel whose counters come out in another order (its C copy of
+    the layout drifted) fails RA404's triangulation on the card."""
+    from repro_torch.analysis import contracts
+    real = tkernels._launch
+
+    def drifted(*args, **kwargs):
+        l1p, l2p, stats, t = real(*args, **kwargs)
+        return l1p, l2p, stats.flip(-1).contiguous(), t
+
+    monkeypatch.setattr(tkernels, "_launch", drifted)
+    findings = contracts.check_stat_layout(card)
+    assert {f.code for f in findings} == {"RA404"}
+    assert any("run_traces[cuda] disagrees" in f.message for f in findings)

@@ -53,6 +53,13 @@ DRYRUN_MODULES = {"repro_torch.core.packet", "repro_torch.kernels.ref",
                   "repro_torch.launch.dryrun", "repro_torch.roofline",
                   "repro_torch.roofline.analysis",
                   "repro_torch.roofline.report"}
+# the analyzer: the lint, the torch-graph audit and the contracts
+ANALYSIS_MODULES = {"repro_torch.analysis", "repro_torch.analysis.cli",
+                    "repro_torch.analysis.contracts",
+                    "repro_torch.analysis.findings",
+                    "repro_torch.analysis.graph_audit",
+                    "repro_torch.analysis.rules",
+                    "repro_torch.analysis.visitor"}
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -67,6 +74,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert TRAINING_MODULES <= names
     assert RECURRENT_MODULES <= names
     assert DRYRUN_MODULES <= names
+    assert ANALYSIS_MODULES <= names
     assert bad.strip() == "[]"
     # chip_smoke.py imports the port inside main(): read its imports too
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
