@@ -66,6 +66,7 @@ from repro_torch.core.machine import CPUModel, RunResult, time_batch
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.cache_sim import check_chunk, pad_trace
+from repro_torch.runtime.trace import span
 from repro_torch.workloads.base import Stream, Workload
 
 SENTINEL = cache_mod.SENTINEL   # padded trace entries: addr == SENTINEL
@@ -394,11 +395,12 @@ def _routed_tier(wt, pol, route) -> torch.Tensor:
 
 def _cell_traces(spec: SweepSpec, cache: cache_mod.CacheParams, device):
     """Each (workload, footprint) trace, generated once on `device`."""
-    out = {}
-    for wl, k, _ in spec.sim_cells:
-        if (wl, k) not in out:
-            out[(wl, k)] = wl.device_trace(k * cache.l2_bytes, device)
-    return out
+    with span("engine.traces"):
+        out = {}
+        for wl, k, _ in spec.sim_cells:
+            if (wl, k) not in out:
+                out[(wl, k)] = wl.device_trace(k * cache.l2_bytes, device)
+        return out
 
 
 def build_stream_batch(spec: SweepSpec, cache: cache_mod.CacheParams,
@@ -435,24 +437,25 @@ def build_sweep_batch(spec: SweepSpec, cache: cache_mod.CacheParams,
         The device-resident batch, and one batch-row index per logical cell
         in ``topology-major x sim_cells`` order.
     """
-    check_chunk(chunk)
-    device = resolve_device(device)
-    if routes is None:
-        routes = [None] * len(spec.topology_axis)
-    cell_traces = _cell_traces(spec, cache, device)
-    traces: List[Tuple] = []
-    row_of = {}
-    cell_rows: List[int] = []
-    for ti, route in enumerate(routes):
-        for wl, k, pol in spec.sim_cells:
-            wt = cell_traces[(wl, k)]
-            key = (ti, wl, k) if wt.tier is not None else (ti, wl, k, pol)
-            if key not in row_of:
-                traces.append((wt.addr, wt.is_write, None,
-                               _routed_tier(wt, pol, route)))
-                row_of[key] = len(traces) - 1
-            cell_rows.append(row_of[key])
-    return stack_device_traces(traces), cell_rows
+    with span("engine.build"):
+        check_chunk(chunk)
+        device = resolve_device(device)
+        if routes is None:
+            routes = [None] * len(spec.topology_axis)
+        cell_traces = _cell_traces(spec, cache, device)
+        traces: List[Tuple] = []
+        row_of = {}
+        cell_rows: List[int] = []
+        for ti, route in enumerate(routes):
+            for wl, k, pol in spec.sim_cells:
+                wt = cell_traces[(wl, k)]
+                key = (ti, wl, k) if wt.tier is not None else (ti, wl, k, pol)
+                if key not in row_of:
+                    traces.append((wt.addr, wt.is_write, None,
+                                   _routed_tier(wt, pol, route)))
+                    row_of[key] = len(traces) - 1
+                cell_rows.append(row_of[key])
+        return stack_device_traces(traces), cell_rows
 
 
 def _narrow_idx(t_max: int, t_route: int) -> List[int]:
@@ -585,33 +588,34 @@ def run_sweep(spec: SweepSpec, cache: cache_mod.CacheParams,
                             executor=executor, resume=resume,
                             fault_plan=fault_plan, report=report,
                             device=device)
-    rows: List[Dict] = []
-    i = 0
-    for dist in spec.distributions_axis:
-        for sp in spec.sampling_axis:
-            for tr in spec.tiering_axis:
-                for topo in spec.topology_axis:
-                    for wl, k, pol in spec.sim_cells:
-                        for _cpu in spec.cpus:
-                            r = results[i]
-                            row = {"workload": wl.name,
-                                   "footprint_x_l2": k,
-                                   "policy": numa_mod.describe(pol),
-                                   "cpu": r.cpu, **r.row(),
-                                   "stats": r.stats}
-                            if isinstance(wl, Stream):
-                                row["kernel"] = wl.kernel
-                            if topo is not None:
-                                row["topology"] = topo.name
-                            if spec.tiering:
-                                row["tiering"] = tiering_dyn.describe(tr)
-                            if spec.sampling:
-                                row["sampling"] = sampling_mod.describe(sp)
-                            if spec.distributions:
-                                row["distribution"] = (
-                                    "off" if dist is None else dist.label)
-                            rows.append(row)
-                            i += 1
+    with span("engine.rows"):
+        rows: List[Dict] = []
+        i = 0
+        for dist in spec.distributions_axis:
+            for sp in spec.sampling_axis:
+                for tr in spec.tiering_axis:
+                    for topo in spec.topology_axis:
+                        for wl, k, pol in spec.sim_cells:
+                            for _cpu in spec.cpus:
+                                r = results[i]
+                                row = {"workload": wl.name,
+                                       "footprint_x_l2": k,
+                                       "policy": numa_mod.describe(pol),
+                                       "cpu": r.cpu, **r.row(),
+                                       "stats": r.stats}
+                                if isinstance(wl, Stream):
+                                    row["kernel"] = wl.kernel
+                                if topo is not None:
+                                    row["topology"] = topo.name
+                                if spec.tiering:
+                                    row["tiering"] = tiering_dyn.describe(tr)
+                                if spec.sampling:
+                                    row["sampling"] = sampling_mod.describe(sp)
+                                if spec.distributions:
+                                    row["distribution"] = (
+                                        "off" if dist is None else dist.label)
+                                rows.append(row)
+                                i += 1
     return rows
 
 
@@ -644,7 +648,9 @@ def sweep_results(spec: SweepSpec, cache: cache_mod.CacheParams,
     p = dataclasses.replace(cache, n_targets=t_max)
     batch, cell_rows = build_sweep_batch(spec, cache, routes=routes,
                                          device=device)
-    stats = executor.run_static(p, batch, backend=spec.backend, chunk=chunk)
+    with span("engine.simulate"):
+        stats = executor.run_static(p, batch, backend=spec.backend,
+                                    chunk=chunk)
     n_cells = len(spec.sim_cells)
     rows_cpus = [wl.cpu_for(cpu) for wl, _k, _pol in spec.sim_cells
                  for cpu in spec.cpus]
@@ -840,32 +846,34 @@ def dynamic_launch(spec: SweepSpec, cache: cache_mod.CacheParams,
     budget.  Raises ``ValueError`` when an epoch is not a whole number of
     slots.
     """
-    t_max = max(2 if r is None else r.n_targets for r in routes)
-    p = dataclasses.replace(cache, n_targets=t_max)
-    dyn = [tr for tr in spec.tiering_axis if tr is not None]
-    sampled = [sp for sp in spec.sampling_axis if sp is not None]
-    if dyn:
-        # sampling slots must nest inside epoch slots: scan at the gcd
-        slot = tiering_dyn.slot_length(dyn)
-        if sampled:
-            slot = math.gcd(slot, sampling_mod.SLOT_LEN)
-        k_max = max(1, max(tr.budget for tr in dyn))
-    else:
-        slot = sampling_mod.SLOT_LEN
-        k_max = 1
-    for tr in dyn:
-        if tr.epoch_len % slot:
-            raise ValueError(
-                f"epoch_len {tr.epoch_len} is not a multiple of the "
-                f"sweep's epoch gcd {slot}")
-    tb = build_tiering_batch(spec, cache, routes, slot, t_max, device=device)
-    return DynamicLaunch(p, tb, dict(
-        slot_len=slot, k_max=k_max, dyn_flag=tb.dyn_flag,
-        page_map0=tb.page_map0, n_pages=tb.n_pages, budget=tb.budget,
-        threshold=tb.threshold, period=tb.period, dram_cap=tb.dram_cap,
-        page_target_lines=tb.page_target_lines, ssd_tid=tb.ssd_tid,
-        cxl_cap=tb.cxl_cap, s_warm=tb.s_warm, s_meas=tb.s_meas,
-        s_per=tb.s_per))
+    with span("engine.build"):
+        t_max = max(2 if r is None else r.n_targets for r in routes)
+        p = dataclasses.replace(cache, n_targets=t_max)
+        dyn = [tr for tr in spec.tiering_axis if tr is not None]
+        sampled = [sp for sp in spec.sampling_axis if sp is not None]
+        if dyn:
+            # sampling slots must nest inside epoch slots: scan at the gcd
+            slot = tiering_dyn.slot_length(dyn)
+            if sampled:
+                slot = math.gcd(slot, sampling_mod.SLOT_LEN)
+            k_max = max(1, max(tr.budget for tr in dyn))
+        else:
+            slot = sampling_mod.SLOT_LEN
+            k_max = 1
+        for tr in dyn:
+            if tr.epoch_len % slot:
+                raise ValueError(
+                    f"epoch_len {tr.epoch_len} is not a multiple of the "
+                    f"sweep's epoch gcd {slot}")
+        tb = build_tiering_batch(spec, cache, routes, slot, t_max,
+                                 device=device)
+        return DynamicLaunch(p, tb, dict(
+            slot_len=slot, k_max=k_max, dyn_flag=tb.dyn_flag,
+            page_map0=tb.page_map0, n_pages=tb.n_pages, budget=tb.budget,
+            threshold=tb.threshold, period=tb.period, dram_cap=tb.dram_cap,
+            page_target_lines=tb.page_target_lines, ssd_tid=tb.ssd_tid,
+            cxl_cap=tb.cxl_cap, s_warm=tb.s_warm, s_meas=tb.s_meas,
+            s_per=tb.s_per))
 
 
 def _sweep_results_dynamic(spec: SweepSpec, cache: cache_mod.CacheParams,
@@ -888,15 +896,16 @@ def _sweep_results_dynamic(spec: SweepSpec, cache: cache_mod.CacheParams,
     launch = dynamic_launch(spec, cache, routes, device=device)
     tb, slot = launch.batch, launch.kwargs["slot_len"]
     t_max = launch.params.n_targets
-    out = executor.run_dynamic(launch.params, tb, slot_len=slot,
-                               k_max=launch.kwargs["k_max"],
-                               backend=spec.backend)
-    stats = out.stats.cpu().numpy().astype(np.int64)
-    mig = np.stack([out.mig_read.cpu().numpy().astype(np.int64),
-                    out.mig_write.cpu().numpy().astype(np.int64)], axis=1)
-    slots = out.slots.cpu().numpy().astype(np.int64)     # (B, E, 4)
-    snaps = out.snapshots.cpu().numpy()                   # (B, E, nstats)
-    meas = out.meas.cpu().numpy()                         # (B, E)
+    with span("engine.simulate"):
+        out = executor.run_dynamic(launch.params, tb, slot_len=slot,
+                                   k_max=launch.kwargs["k_max"],
+                                   backend=spec.backend)
+        stats = out.stats.cpu().numpy().astype(np.int64)
+        mig = np.stack([out.mig_read.cpu().numpy().astype(np.int64),
+                        out.mig_write.cpu().numpy().astype(np.int64)], axis=1)
+        slots = out.slots.cpu().numpy().astype(np.int64)     # (B, E, 4)
+        snaps = out.snapshots.cpu().numpy()                   # (B, E, nstats)
+        meas = out.meas.cpu().numpy()                         # (B, E)
     cells = spec.sim_cells
     n_cells = len(cells)
     n_cpus = len(spec.cpus)

@@ -29,6 +29,7 @@ from repro_torch.core import numa as numa_mod
 from repro_torch.core.spec import CACHELINE_BYTES
 from repro_torch.core.switch import shared_usp_latency_ns
 from repro_torch.core.timing import LatencyDistribution, TimingConfig
+from repro_torch.runtime.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -350,179 +351,184 @@ def time_batch(timing: TimingConfig, cpus: Sequence[CPUModel],
     list of RunResult
         One per row.
     """
-    stats = np.asarray(stats, np.int64)
-    if route is None:
-        kinds = ["dram", "cxl"]
-        timings = [timing.dram, timing.cxl]
-        groups = [-1, -1]
-        group_payload = [0.0, 0.0]
-        device_payload = [0.0, 0.0]
-    else:
-        kinds = [tg.kind for tg in route.targets]
-        timings = [tg.timing for tg in route.targets]
-        groups = [tg.group for tg in route.targets]
-        group_payload = [tg.group_payload_gbps for tg in route.targets]
-        device_payload = [tg.device_payload_gbps for tg in route.targets]
-    n_t = len(timings)
-    if stats.ndim != 2 or stats.shape[1] != cache_sim.nstats(n_t):
-        raise ValueError(f"stats must be (B, {cache_sim.nstats(n_t)}) "
-                         f"for {n_t} targets, got {stats.shape}")
-    b = stats.shape[0]
-    if len(cpus) != b:
-        raise ValueError("need one CPUModel per stats row")
+    with span("machine.time_batch"):
+        stats = np.asarray(stats, np.int64)
+        if route is None:
+            kinds = ["dram", "cxl"]
+            timings = [timing.dram, timing.cxl]
+            groups = [-1, -1]
+            group_payload = [0.0, 0.0]
+            device_payload = [0.0, 0.0]
+        else:
+            kinds = [tg.kind for tg in route.targets]
+            timings = [tg.timing for tg in route.targets]
+            groups = [tg.group for tg in route.targets]
+            group_payload = [tg.group_payload_gbps for tg in route.targets]
+            device_payload = [tg.device_payload_gbps for tg in route.targets]
+        n_t = len(timings)
+        if stats.ndim != 2 or stats.shape[1] != cache_sim.nstats(n_t):
+            raise ValueError(f"stats must be (B, {cache_sim.nstats(n_t)}) "
+                             f"for {n_t} targets, got {stats.shape}")
+        b = stats.shape[0]
+        if len(cpus) != b:
+            raise ValueError("need one CPUModel per stats row")
 
-    ipc = np.asarray([c.ipc_core for c in cpus])
-    freq = np.asarray([c.freq_ghz for c in cpus])
-    l2_hit_ns = np.asarray([c.l2_hit_ns for c in cpus])
-    mlp = np.asarray([float(c.effective_mlp) for c in cpus])
+        ipc = np.asarray([c.ipc_core for c in cpus])
+        freq = np.asarray([c.freq_ghz for c in cpus])
+        l2_hit_ns = np.asarray([c.l2_hit_ns for c in cpus])
+        mlp = np.asarray([float(c.effective_mlp) for c in cpus])
 
-    n_acc = stats[:, cache_sim.L1_HIT] + stats[:, cache_sim.L1_MISS]
-    wbase = cache_sim.mem_write_base(n_t)
-    reads = [stats[:, cache_sim.MEM_READ + k].astype(np.float64)
-             for k in range(n_t)]
-    writes = [stats[:, wbase + k].astype(np.float64) for k in range(n_t)]
-    if mig_lines is not None:
-        mig = np.asarray(mig_lines, np.int64)
-        if mig.shape != (b, 2, n_t):
-            raise ValueError(f"mig_lines must be ({b}, 2, {n_t}), "
-                             f"got {mig.shape}")
-        # migration demand rides the same per-target queues/floors as
-        # the workload's own miss traffic
-        reads = [reads[k] + mig[:, 0, k] for k in range(n_t)]
-        writes = [writes[k] + mig[:, 1, k] for k in range(n_t)]
-        mig_bytes = mig.sum(axis=(1, 2)).astype(np.float64) \
-            * CACHELINE_BYTES
-    else:
-        mig_bytes = np.zeros(b)
-    lines = [reads[k] + writes[k] for k in range(n_t)]
-    bytes_ = [v * CACHELINE_BYTES for v in lines]
-    gids = sorted({g for g in groups if g >= 0})
-    gpay = {g: next(group_payload[k] for k in range(n_t) if groups[k] == g)
-            for g in gids}
-    gbytes = {g: sum(bytes_[k] for k in range(n_t) if groups[k] == g)
-              for g in gids}
-
-    base_ns = (n_acc / (ipc * freq)                       # issue
-               + stats[:, cache_sim.L2_HIT] * l2_hit_ns / mlp)
-    t = np.maximum(base_ns, 1.0)
-    lat = [np.full(b, timings[k].idle_ns) for k in range(n_t)]
-    done = np.zeros(b, bool)
-    for _ in range(8):  # Picard iteration on the loaded-latency curve
-        stall = np.zeros(b)
-        offered = [bytes_[k] / np.maximum(t, 1.0)         # B/ns == GB/s
-                   for k in range(n_t)]
-        goff = {g: sum(offered[k] for k in range(n_t) if groups[k] == g)
+        n_acc = stats[:, cache_sim.L1_HIT] + stats[:, cache_sim.L1_MISS]
+        wbase = cache_sim.mem_write_base(n_t)
+        reads = [stats[:, cache_sim.MEM_READ + k].astype(np.float64)
+                 for k in range(n_t)]
+        writes = [stats[:, wbase + k].astype(np.float64) for k in range(n_t)]
+        if mig_lines is not None:
+            mig = np.asarray(mig_lines, np.int64)
+            if mig.shape != (b, 2, n_t):
+                raise ValueError(f"mig_lines must be ({b}, 2, {n_t}), "
+                                 f"got {mig.shape}")
+            # migration demand rides the same per-target queues/floors as
+            # the workload's own miss traffic
+            reads = [reads[k] + mig[:, 0, k] for k in range(n_t)]
+            writes = [writes[k] + mig[:, 1, k] for k in range(n_t)]
+            mig_bytes = mig.sum(axis=(1, 2)).astype(np.float64) \
+                * CACHELINE_BYTES
+        else:
+            mig_bytes = np.zeros(b)
+        lines = [reads[k] + writes[k] for k in range(n_t)]
+        bytes_ = [v * CACHELINE_BYTES for v in lines]
+        gids = sorted({g for g in groups if g >= 0})
+        gpay = {g: next(group_payload[k] for k in range(n_t) if groups[k] == g)
                 for g in gids}
-        glat = {g: np.zeros(b) for g in gids}
-        gbw = {g: np.zeros(b) for g in gids}      # per-device floors, max
-        for k in range(n_t):
-            has = lines[k] > 0
-            rf = reads[k] / np.maximum(lines[k], 1.0)
-            if groups[k] >= 0:
-                # shared USP: the queue sees the whole group's load
-                loaded = shared_usp_latency_ns(
-                    timings[k], gpay[groups[k]], goff[groups[k]])
-            elif kinds[k] in ("cxl", "ssd"):
-                loaded = np.asarray(
-                    timings[k].loaded_latency_ns(offered[k], rf), np.float64)
-            else:
-                loaded = np.asarray(
-                    timings[k].loaded_latency_ns(offered[k]), np.float64)
-            lat[k] = np.where(done | ~has, lat[k], loaded)
-            # MLP-overlapped stalls, floored by the bandwidth bound
-            t_lat = lines[k] * lat[k] / mlp
-            mshr = getattr(timings[k], "mshr", None)
-            if groups[k] >= 0:
-                glat[groups[k]] = glat[groups[k]] + np.where(has, t_lat, 0.0)
-                # this endpoint's own link/media ceiling (devices drain in
-                # parallel, so the group keeps the max member floor)
-                if mshr is None:
-                    t_bw = bytes_[k] / device_payload[k]
-                else:
-                    eff = np.minimum(
-                        device_payload[k],
-                        mshr * CACHELINE_BYTES / np.maximum(lat[k], 1.0))
-                    t_bw = bytes_[k] / np.maximum(eff, 1e-9)
-                gbw[groups[k]] = np.maximum(gbw[groups[k]],
-                                            np.where(has, t_bw, 0.0))
-            else:
-                peak = (timings[k].peak_gbps if kinds[k] == "dram"
-                        else timings[k].payload_gbps(rf))
-                if mshr is None:
-                    t_bw = bytes_[k] / peak
-                else:
-                    # Little's law: at most `mshr` lines in flight, each
-                    # resident for the current loaded latency
-                    eff = np.minimum(
-                        peak, mshr * CACHELINE_BYTES / np.maximum(lat[k], 1.0))
-                    t_bw = bytes_[k] / np.maximum(eff, 1e-9)
-                stall += np.where(has, np.maximum(t_lat, t_bw), 0.0)
-        for g in gids:
-            # group bandwidth floor: aggregate bytes over the USP payload,
-            # or the busiest member's own-device floor if that is stricter
-            floor = np.maximum(gbytes[g] / gpay[g], gbw[g])
-            stall += np.where(gbytes[g] > 0,
-                              np.maximum(glat[g], floor), 0.0)
-        t_new = base_ns + stall
-        newly = ~done & (np.abs(t_new - t) / np.maximum(t, 1.0) < 1e-6)
-        t = np.where(done, t, t_new)
-        done |= newly
-        if done.all():
-            break
+        gbytes = {g: sum(bytes_[k] for k in range(n_t) if groups[k] == g)
+                  for g in gids}
 
-    t_rep = np.where(n_acc > 0, t, 0.0)
-    ach = [bytes_[k] / np.maximum(t, 1.0) for k in range(n_t)]
-    has_ssd = any(kind == "ssd" for kind in kinds)
-    if n_t == 2 and not has_ssd:
-        labels = ["dram", "cxl"]
-    else:
-        labels, counters = ["dram"], {"cxl": 0, "ssd": 0}
-        for kind in kinds[1:]:
-            key = "ssd" if kind == "ssd" else "cxl"
-            labels.append(f"{key}{counters[key]}")
-            counters[key] += 1
-    if dist is not None:
-        pnames = [f"p{round(p * 100)}" for p in dist.percentiles]
-        qfac = [dist.quantile_factors(k) for k in range(n_t)]
-        idle = [timings[k].idle_ns for k in range(n_t)]
-    names = cache_sim.stat_names(n_t)
-    results: List[RunResult] = []
-    for i in range(b):
-        s = {n: int(stats[i, j]) for j, n in enumerate(names)}
-        na = max(int(n_acc[i]), 1)
-        l2a = max(s["l2_hit"] + s["l2_miss"], 1)
-        mr = {"l1_miss_rate": s["l1_miss"] / na,
-              "l2_miss_rate": s["l2_miss"] / l2a,
-              "llc_mpki": 1000.0 * s["l2_miss"] / na}
-        a = {labels[k]: float(ach[k][i]) for k in range(n_t)}
-        latd = {labels[k]: float(lat[k][i]) for k in range(n_t)}
-        if n_t != 2 or has_ssd:
-            # aggregates per kind: total bw, line-weighted latency
-            for agg, member in (("cxl", lambda k: kinds[k] != "ssd"),
-                                ("ssd", lambda k: kinds[k] == "ssd")):
-                if agg == "ssd" and not has_ssd:
-                    continue
-                ks = [k for k in range(1, n_t) if member(k)]
-                a[agg] = float(sum(ach[k][i] for k in ks))
-                agg_lines = float(sum(lines[k][i] for k in ks))
-                agg_lats = [lat[k][i] for k in ks]
-                if agg_lines > 0:
-                    latd[agg] = float(sum(lines[k][i] * lat[k][i]
-                                          for k in ks)) / agg_lines
+        base_ns = (n_acc / (ipc * freq)                       # issue
+                   + stats[:, cache_sim.L2_HIT] * l2_hit_ns / mlp)
+        t = np.maximum(base_ns, 1.0)
+        lat = [np.full(b, timings[k].idle_ns) for k in range(n_t)]
+        done = np.zeros(b, bool)
+        for _ in range(8):  # Picard iteration on the loaded-latency curve
+            stall = np.zeros(b)
+            offered = [bytes_[k] / np.maximum(t, 1.0)         # B/ns == GB/s
+                       for k in range(n_t)]
+            goff = {g: sum(offered[k] for k in range(n_t) if groups[k] == g)
+                    for g in gids}
+            glat = {g: np.zeros(b) for g in gids}
+            gbw = {g: np.zeros(b) for g in gids}      # per-device floors, max
+            for k in range(n_t):
+                has = lines[k] > 0
+                rf = reads[k] / np.maximum(lines[k], 1.0)
+                if groups[k] >= 0:
+                    # shared USP: the queue sees the whole group's load
+                    loaded = shared_usp_latency_ns(
+                        timings[k], gpay[groups[k]], goff[groups[k]])
+                elif kinds[k] in ("cxl", "ssd"):
+                    loaded = np.asarray(
+                        timings[k].loaded_latency_ns(offered[k], rf),
+                        np.float64)
                 else:
-                    latd[agg] = float(np.mean(agg_lats)) if agg_lats else 0.0
-        a["total"] = a["dram"] + a["cxl"] + a.get("ssd", 0.0)
-        lp = None
+                    loaded = np.asarray(
+                        timings[k].loaded_latency_ns(offered[k]), np.float64)
+                lat[k] = np.where(done | ~has, lat[k], loaded)
+                # MLP-overlapped stalls, floored by the bandwidth bound
+                t_lat = lines[k] * lat[k] / mlp
+                mshr = getattr(timings[k], "mshr", None)
+                if groups[k] >= 0:
+                    glat[groups[k]] = glat[groups[k]] + np.where(has, t_lat,
+                                                                 0.0)
+                    # this endpoint's own link/media ceiling (devices drain in
+                    # parallel, so the group keeps the max member floor)
+                    if mshr is None:
+                        t_bw = bytes_[k] / device_payload[k]
+                    else:
+                        eff = np.minimum(
+                            device_payload[k],
+                            mshr * CACHELINE_BYTES / np.maximum(lat[k], 1.0))
+                        t_bw = bytes_[k] / np.maximum(eff, 1e-9)
+                    gbw[groups[k]] = np.maximum(gbw[groups[k]],
+                                                np.where(has, t_bw, 0.0))
+                else:
+                    peak = (timings[k].peak_gbps if kinds[k] == "dram"
+                            else timings[k].payload_gbps(rf))
+                    if mshr is None:
+                        t_bw = bytes_[k] / peak
+                    else:
+                        # Little's law: at most `mshr` lines in flight, each
+                        # resident for the current loaded latency
+                        eff = np.minimum(
+                            peak,
+                            mshr * CACHELINE_BYTES / np.maximum(lat[k], 1.0))
+                        t_bw = bytes_[k] / np.maximum(eff, 1e-9)
+                    stall += np.where(has, np.maximum(t_lat, t_bw), 0.0)
+            for g in gids:
+                # group bandwidth floor: aggregate bytes over the USP payload,
+                # or the busiest member's own-device floor if that is stricter
+                floor = np.maximum(gbytes[g] / gpay[g], gbw[g])
+                stall += np.where(gbytes[g] > 0,
+                                  np.maximum(glat[g], floor), 0.0)
+            t_new = base_ns + stall
+            newly = ~done & (np.abs(t_new - t) / np.maximum(t, 1.0) < 1e-6)
+            t = np.where(done, t, t_new)
+            done |= newly
+            if done.all():
+                break
+
+        t_rep = np.where(n_acc > 0, t, 0.0)
+        ach = [bytes_[k] / np.maximum(t, 1.0) for k in range(n_t)]
+        has_ssd = any(kind == "ssd" for kind in kinds)
+        if n_t == 2 and not has_ssd:
+            labels = ["dram", "cxl"]
+        else:
+            labels, counters = ["dram"], {"cxl": 0, "ssd": 0}
+            for kind in kinds[1:]:
+                key = "ssd" if kind == "ssd" else "cxl"
+                labels.append(f"{key}{counters[key]}")
+                counters[key] += 1
         if dist is not None:
-            lp = {labels[k]: {pn: float(idle[k]
-                                        + max(lat[k][i] - idle[k], 0.0)
-                                        * qfac[k][j])
-                              for j, pn in enumerate(pnames)}
-                  for k in range(n_t)}
-        results.append(RunResult(
-            stats=s, miss_rates=mr, time_ns=float(t_rep[i]),
-            achieved_gbps=a, loaded_latency_ns=latd,
-            cpu=cpus[i].kind,
-            migration_gbps=float(mig_bytes[i] / max(t[i], 1.0)),
-            lat_percentiles=lp))
-    return results
+            pnames = [f"p{round(p * 100)}" for p in dist.percentiles]
+            qfac = [dist.quantile_factors(k) for k in range(n_t)]
+            idle = [timings[k].idle_ns for k in range(n_t)]
+        names = cache_sim.stat_names(n_t)
+        results: List[RunResult] = []
+        for i in range(b):
+            s = {n: int(stats[i, j]) for j, n in enumerate(names)}
+            na = max(int(n_acc[i]), 1)
+            l2a = max(s["l2_hit"] + s["l2_miss"], 1)
+            mr = {"l1_miss_rate": s["l1_miss"] / na,
+                  "l2_miss_rate": s["l2_miss"] / l2a,
+                  "llc_mpki": 1000.0 * s["l2_miss"] / na}
+            a = {labels[k]: float(ach[k][i]) for k in range(n_t)}
+            latd = {labels[k]: float(lat[k][i]) for k in range(n_t)}
+            if n_t != 2 or has_ssd:
+                # aggregates per kind: total bw, line-weighted latency
+                for agg, member in (("cxl", lambda k: kinds[k] != "ssd"),
+                                    ("ssd", lambda k: kinds[k] == "ssd")):
+                    if agg == "ssd" and not has_ssd:
+                        continue
+                    ks = [k for k in range(1, n_t) if member(k)]
+                    a[agg] = float(sum(ach[k][i] for k in ks))
+                    agg_lines = float(sum(lines[k][i] for k in ks))
+                    agg_lats = [lat[k][i] for k in ks]
+                    if agg_lines > 0:
+                        latd[agg] = float(sum(lines[k][i] * lat[k][i]
+                                              for k in ks)) / agg_lines
+                    else:
+                        latd[agg] = (float(np.mean(agg_lats)) if agg_lats
+                                     else 0.0)
+            a["total"] = a["dram"] + a["cxl"] + a.get("ssd", 0.0)
+            lp = None
+            if dist is not None:
+                lp = {labels[k]: {pn: float(idle[k]
+                                            + max(lat[k][i] - idle[k], 0.0)
+                                            * qfac[k][j])
+                                  for j, pn in enumerate(pnames)}
+                      for k in range(n_t)}
+            results.append(RunResult(
+                stats=s, miss_rates=mr, time_ns=float(t_rep[i]),
+                achieved_gbps=a, loaded_latency_ns=latd,
+                cpu=cpus[i].kind,
+                migration_gbps=float(mig_bytes[i] / max(t[i], 1.0)),
+                lat_percentiles=lp))
+        return results

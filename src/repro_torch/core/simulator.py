@@ -21,6 +21,7 @@ from repro_torch.core import stream as stream_mod
 from repro_torch.core import topology as topo
 from repro_torch.core.machine import CPUModel, Machine, RunResult
 from repro_torch.core.timing import TimingConfig
+from repro_torch.runtime.trace import span
 
 
 @dataclasses.dataclass
@@ -156,20 +157,22 @@ class CXLRAMSim:
         same `resume=` fast-forwards to where it died — with rows
         bitwise-identical to an uninterrupted run.
         """
-        spec = self.sweep_spec(footprint_factors, policies, cpus, kernel,
-                               backend, topologies, workloads, tiering,
-                               sampling, distributions)
-        if (mesh is None and stream_chunk is None and resume is None
-                and fault_plan is None and report is None):
-            return engine_mod.run_sweep(spec, self.config.cache,
-                                        self.config.timing,
-                                        device=self.device)
-        from repro_torch.core import distribute  # deferred: builds on engine
-        return distribute.run_sweep(spec, self.config.cache,
-                                    self.config.timing, mesh=mesh,
-                                    stream_chunk=stream_chunk,
-                                    resume=resume, fault_plan=fault_plan,
-                                    report=report, device=self.device)
+        with span("sweep"):
+            spec = self.sweep_spec(footprint_factors, policies, cpus, kernel,
+                                   backend, topologies, workloads, tiering,
+                                   sampling, distributions)
+            if (mesh is None and stream_chunk is None and resume is None
+                    and fault_plan is None and report is None):
+                return engine_mod.run_sweep(spec, self.config.cache,
+                                            self.config.timing,
+                                            device=self.device)
+            # deferred: distribute builds on engine
+            from repro_torch.core import distribute
+            return distribute.run_sweep(spec, self.config.cache,
+                                        self.config.timing, mesh=mesh,
+                                        stream_chunk=stream_chunk,
+                                        resume=resume, fault_plan=fault_plan,
+                                        report=report, device=self.device)
 
     def sweep_spec(self, footprint_factors: Sequence[int] = (2, 4, 6, 8),
                    policies: Optional[Sequence[numa_mod.Policy]] = None,

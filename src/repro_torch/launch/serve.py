@@ -32,6 +32,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.memory.kvcache import PagedKVCache
 from repro_torch.models import transformer as tf
+from repro_torch.runtime.trace import span
 
 
 def _sync(device: torch.device) -> None:
@@ -50,7 +51,9 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     the pool (as both K and V, as the reference does) when its first
     block has a K/V cache; for rwkv, rec and MLA models only the decode
     steps' zero rows fill it.  Runs on `device` (default: the CUDA
-    card).
+    card).  Under a profiler each request's prefill and each decode step
+    is a span (``serve.prefill#<sid>``, ``serve.step``), with the step's
+    stages inside (:mod:`repro_torch.runtime.trace`).
 
     Returns a dict: ``tokens`` ({seq: [token, ...]}), ``kv_stats`` (:class:`KVStats` as a
     dict), ``tier_histogram``, ``attn_out`` (every step's K4 output),
@@ -77,23 +80,24 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     _sync(dev)
     t0 = time.perf_counter()
     for sid in range(requests):
-        toks = torch.from_numpy(
-            rng.integers(0, cfg.vocab_size, (1, prefill)).astype(np.int32)
-        ).to(dev)
-        logits, cache = tf.forward_prefill(params, cfg, toks)
-        cache = tf.pad_cache(cache, cfg, prefill + decode)
-        kv.allocate(sid)
-        # an architecture whose first block keeps no K/V (rwkv, rec, MLA)
-        # stashes no pages; K4 still runs over the pool every step
-        first = cache[0][0]["b0"]
-        if "k" in first:
-            k0 = first["k"][0]
-            kv.append_tokens(sid, 0, k0[:prefill], k0[:prefill])
-        seqs.append(sid)
-        dense_caches[sid] = cache
-        ctxs[sid] = prefill
-        finite &= torch.isfinite(logits).all()
-        next_tok[sid] = int(torch.argmax(logits[0, -1]))
+        with span("serve.prefill", sid):
+            toks = torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, (1, prefill)).astype(np.int32)
+            ).to(dev)
+            logits, cache = tf.forward_prefill(params, cfg, toks)
+            cache = tf.pad_cache(cache, cfg, prefill + decode)
+            kv.allocate(sid)
+            # an architecture whose first block keeps no K/V (rwkv, rec, MLA)
+            # stashes no pages; K4 still runs over the pool every step
+            first = cache[0][0]["b0"]
+            if "k" in first:
+                k0 = first["k"][0]
+                kv.append_tokens(sid, 0, k0[:prefill], k0[:prefill])
+            seqs.append(sid)
+            dense_caches[sid] = cache
+            ctxs[sid] = prefill
+            finite &= torch.isfinite(logits).all()
+            next_tok[sid] = int(torch.argmax(logits[0, -1]))
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -103,23 +107,27 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     attn_out = []
     zeros = np.zeros((1, cfg.n_kv_heads, cfg.head_dim), np.float32)
     for _ in range(decode):
-        bt, cl = kv.gather_args(seqs)          # charges CXL fetches
-        q = torch.from_numpy(rng.standard_normal(
-            (len(seqs), cfg.n_heads, cfg.head_dim)).astype(np.float32)
-        ).to(dev)
-        kp, vp = kv.k_pool[0].float(), kv.v_pool[0].float()
-        attn_out.append(ops.paged_attention(q, kp, vp, bt, cl))
-        for sid in seqs:
-            tok = torch.tensor([next_tok[sid]], dtype=torch.int32,
-                               device=dev)
-            logits, dense_caches[sid] = tf.decode_step(
-                params, cfg, tok, dense_caches[sid], ctxs[sid])
-            finite &= torch.isfinite(logits).all()
-            nxt = int(torch.argmax(logits[0, 0]))
-            next_tok[sid] = nxt
-            tokens_out[sid].append(nxt)
-            ctxs[sid] += 1
-            kv.append_tokens(sid, 0, zeros, zeros)
+        with span("serve.step"):
+            bt, cl = kv.gather_args(seqs)      # charges CXL fetches
+            q = torch.from_numpy(rng.standard_normal(
+                (len(seqs), cfg.n_heads, cfg.head_dim)).astype(np.float32)
+            ).to(dev)
+            with span("serve.pool_cast"):
+                kp, vp = kv.k_pool[0].float(), kv.v_pool[0].float()
+            attn_out.append(ops.paged_attention(q, kp, vp, bt, cl))
+            for sid in seqs:
+                tok = torch.tensor([next_tok[sid]], dtype=torch.int32,
+                                   device=dev)
+                with span("serve.model", sid):
+                    logits, dense_caches[sid] = tf.decode_step(
+                        params, cfg, tok, dense_caches[sid], ctxs[sid])
+                with span("serve.sample", sid):
+                    finite &= torch.isfinite(logits).all()
+                    nxt = int(torch.argmax(logits[0, 0]))
+                next_tok[sid] = nxt
+                tokens_out[sid].append(nxt)
+                ctxs[sid] += 1
+                kv.append_tokens(sid, 0, zeros, zeros)
     _sync(dev)
     decode_s = time.perf_counter() - t0
 

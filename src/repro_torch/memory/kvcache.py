@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.spec import CACHELINE_BYTES
 from repro_torch.core.timing import TimingConfig
+from repro_torch.runtime.trace import span
 
 HBM, CXL = 0, 1
 
@@ -123,37 +124,39 @@ class PagedKVCache:
         The bookkeeping walks the tokens one by one, as the reference; the
         T rows are then written into the pools with one indexed copy each.
         """
-        t = k_new.shape[0]
-        table = self.block_tables[seq_id]
-        pos = self.seq_lens[seq_id]
-        self.clock += 1
-        pages, offs = [], []
-        try:
-            for i in range(t):
-                blk, off = divmod(pos + i, self.page_size)
-                if blk >= len(table):
-                    if not self.free:
-                        raise MemoryError("KV pool exhausted")
-                    pg = self.free.pop()
-                    table.append(pg)
-                    self.tier[pg] = HBM
-                    self.stats.allocs += 1
-                    self._evict_to_cxl_if_needed()
-                pg = table[blk]
-                self.last_use[pg] = self.clock
-                pages.append(pg)
-                offs.append(off)
-        finally:   # the rows placed before an exhausted pool, as the reference
-            if pages:
-                idx = (torch.tensor(pages, device=self.device),
-                       torch.tensor(offs, device=self.device))
-                n = len(pages)
-                for pool, new in ((self.k_pool[layer], k_new),
-                                  (self.v_pool[layer], v_new)):
-                    pool[idx] = torch.as_tensor(new[:n]).to(self.device,
-                                                            pool.dtype)
-        if layer == self.n_layers - 1:
-            self.seq_lens[seq_id] = pos + t
+        with span("kv.append_tokens"):
+            t = k_new.shape[0]
+            table = self.block_tables[seq_id]
+            pos = self.seq_lens[seq_id]
+            self.clock += 1
+            pages, offs = [], []
+            try:
+                for i in range(t):
+                    blk, off = divmod(pos + i, self.page_size)
+                    if blk >= len(table):
+                        if not self.free:
+                            raise MemoryError("KV pool exhausted")
+                        pg = self.free.pop()
+                        table.append(pg)
+                        self.tier[pg] = HBM
+                        self.stats.allocs += 1
+                        self._evict_to_cxl_if_needed()
+                    pg = table[blk]
+                    self.last_use[pg] = self.clock
+                    pages.append(pg)
+                    offs.append(off)
+            finally:
+                # the rows placed before an exhausted pool, as the reference
+                if pages:
+                    idx = (torch.tensor(pages, device=self.device),
+                           torch.tensor(offs, device=self.device))
+                    n = len(pages)
+                    for pool, new in ((self.k_pool[layer], k_new),
+                                      (self.v_pool[layer], v_new)):
+                        pool[idx] = torch.as_tensor(new[:n]).to(self.device,
+                                                                pool.dtype)
+            if layer == self.n_layers - 1:
+                self.seq_lens[seq_id] = pos + t
 
     # -- decode-side access ----------------------------------------------------
     def gather_args(self, seq_ids: List[int]
@@ -161,27 +164,28 @@ class PagedKVCache:
         """(block_table (B, max_blocks), context_lens (B,)) int32 tensors on
         the cache's device for the kernel, charging CXL fetches and
         promoting hot pages."""
-        self.clock += 1
-        bt = np.zeros((len(seq_ids), self.max_blocks), np.int32)
-        cl = np.zeros((len(seq_ids),), np.int32)
-        for row, sid in enumerate(seq_ids):
-            table = self.block_tables[sid]
-            cl[row] = self.seq_lens[sid]
-            for j, pg in enumerate(table[:self.max_blocks]):
-                bt[row, j] = pg
-                self.last_use[pg] = self.clock
-                if self.tier[pg] == CXL:
-                    self.stats.cxl_fetches += 1
-                    self.stats.cxl_bytes += self.page_bytes()
-                    self.stats.sim_seconds += self.page_bytes() / (
-                        self.timing.cxl.payload_read_gbps * 1e9)
-                    if self.hbm_pages_in_use() < self.hbm_page_budget:
-                        self.tier[pg] = HBM          # promote while hot
-                        self.stats.promotions += 1
-                else:
-                    self.stats.hbm_hits += 1
-        return (torch.from_numpy(bt).to(self.device),
-                torch.from_numpy(cl).to(self.device))
+        with span("kv.gather_args"):
+            self.clock += 1
+            bt = np.zeros((len(seq_ids), self.max_blocks), np.int32)
+            cl = np.zeros((len(seq_ids),), np.int32)
+            for row, sid in enumerate(seq_ids):
+                table = self.block_tables[sid]
+                cl[row] = self.seq_lens[sid]
+                for j, pg in enumerate(table[:self.max_blocks]):
+                    bt[row, j] = pg
+                    self.last_use[pg] = self.clock
+                    if self.tier[pg] == CXL:
+                        self.stats.cxl_fetches += 1
+                        self.stats.cxl_bytes += self.page_bytes()
+                        self.stats.sim_seconds += self.page_bytes() / (
+                            self.timing.cxl.payload_read_gbps * 1e9)
+                        if self.hbm_pages_in_use() < self.hbm_page_budget:
+                            self.tier[pg] = HBM          # promote while hot
+                            self.stats.promotions += 1
+                    else:
+                        self.stats.hbm_hits += 1
+            return (torch.from_numpy(bt).to(self.device),
+                    torch.from_numpy(cl).to(self.device))
 
     def tier_histogram(self) -> Dict[str, int]:
         used = [p for t in self.block_tables.values() for p in t]
