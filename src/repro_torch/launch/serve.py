@@ -47,7 +47,13 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
 
     Per decode step: ``gather_args`` (charges CXL fetches, promotes hot
     pages), one K4 launch over the f32-cast layer-0 pool, then one
-    ``decode_step`` per sequence.  The prefill stashes layer 0's keys in
+    ``decode_step`` per sequence.  Where the step can be captured
+    (:func:`~repro_torch.models.transformer.graphable`: the CUDA card, GQA
+    attention and dense MLPs, RoPE or M-RoPE), each sequence's caches are
+    a :class:`~repro_torch.models.transformer.StepGraph`: its first step
+    runs eagerly, the second captures the step as a CUDA graph
+    (``serve.capture#<sid>``) and every step from then on replays it;
+    elsewhere every step runs eagerly.  The prefill stashes layer 0's keys in
     the pool (as both K and V, as the reference does) when its first
     block has a K/V cache; for rwkv, rec and MLA models only the decode
     steps' zero rows fill it.  Runs on `device` (default: the CUDA
@@ -59,7 +65,9 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     dict), ``tier_histogram``, ``attn_out`` (every step's K4 output),
     ``last_attn_inputs`` (q, k_pool, v_pool, block_table, context_lens of
     the last step), ``logits_finite``, ``n_params``, ``prefill_s`` and
-    ``decode_s`` (host wall time, synchronized) and ``kv`` (the cache).
+    ``decode_s`` (host wall time, synchronized), ``kv`` (the cache) and
+    ``decode_graph`` (the steps ``captured``, ``replayed`` and run
+    ``eager``, summed over the sequences).
     """
     dev = resolve_device(device)
     if params is None:
@@ -94,7 +102,8 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
                 k0 = first["k"][0]
                 kv.append_tokens(sid, 0, k0[:prefill], k0[:prefill])
             seqs.append(sid)
-            dense_caches[sid] = cache
+            dense_caches[sid] = (tf.StepGraph(cache, params, cfg)
+                                 if tf.graphable(cfg, dev) else cache)
             ctxs[sid] = prefill
             finite &= torch.isfinite(logits).all()
             next_tok[sid] = int(torch.argmax(logits[0, -1]))
@@ -105,6 +114,7 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     t0 = time.perf_counter()
     tokens_out = {sid: [] for sid in seqs}
     attn_out = []
+    captured = 0
     zeros = np.zeros((1, cfg.n_kv_heads, cfg.head_dim), np.float32)
     for _ in range(decode):
         with span("serve.step"):
@@ -118,9 +128,15 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
             for sid in seqs:
                 tok = torch.tensor([next_tok[sid]], dtype=torch.int32,
                                    device=dev)
+                cache = dense_caches[sid]
+                if (isinstance(cache, tf.StepGraph) and cache.warm
+                        and cache.graph is None):
+                    with span("serve.capture", sid):
+                        cache.capture()
+                    captured += 1
                 with span("serve.model", sid):
                     logits, dense_caches[sid] = tf.decode_step(
-                        params, cfg, tok, dense_caches[sid], ctxs[sid])
+                        params, cfg, tok, cache, ctxs[sid])
                 with span("serve.sample", sid):
                     finite &= torch.isfinite(logits).all()
                     nxt = int(torch.argmax(logits[0, 0]))
@@ -130,12 +146,16 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
                 kv.append_tokens(sid, 0, zeros, zeros)
     _sync(dev)
     decode_s = time.perf_counter() - t0
+    replayed = sum(c.replayed for c in dense_caches.values()
+                   if isinstance(c, tf.StepGraph))
 
     out = {"tokens": tokens_out, "kv_stats": dataclasses.asdict(kv.stats),
            "tier_histogram": kv.tier_histogram(), "attn_out": attn_out,
            "logits_finite": bool(finite),
            "n_params": tf.n_param_elements(params),
-           "prefill_s": prefill_s, "decode_s": decode_s, "kv": kv}
+           "prefill_s": prefill_s, "decode_s": decode_s, "kv": kv,
+           "decode_graph": {"captured": captured, "replayed": replayed,
+                            "eager": len(seqs) * decode - replayed}}
     if decode:
         out["last_attn_inputs"] = (q, kp, vp, bt, cl)
     return out

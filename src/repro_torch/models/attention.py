@@ -209,20 +209,31 @@ def attention_prefill(params: Dict, x: torch.Tensor, cfg, positions,
 
 
 def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
-                     ctx_len: int, *, window: Optional[int] = None
+                     ctx_len, *, window: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. x (B,1,D); cache {k,v: (B,S,K,hd)}; `ctx_len` the
-    tokens already cached.  Returns (y (B,1,D), cache), the cache updated
-    in place; SWA caches roll modulo the window."""
+    tokens already cached, an int or a 0-d integer tensor on x's device.
+    Returns (y (B,1,D), cache), the cache updated in place; SWA caches
+    roll modulo the window.
+
+    With a tensor `ctx_len` the positions, the cache slot and the valid
+    length are computed on the device and nothing is read back to the
+    host, so the step can be captured into a CUDA graph and replayed for
+    another length; the values are those of the int path."""
     b, _, d = x.shape
     n, hd = cfg.n_heads, cfg.head_dim
     s_cache = cache["k"].shape[1]
-    ctx_len = int(ctx_len)
+    on_device = isinstance(ctx_len, torch.Tensor)
+    if not on_device:
+        ctx_len = int(ctx_len)
     q, k, v = _qkv(params, x, cfg)
     if cfg.qk_norm:
         q = rmsnorm(params["qnorm"], q, cfg.norm_eps)
         k = rmsnorm(params["knorm"], k, cfg.norm_eps)
-    pos = torch.full((b, 1), ctx_len, dtype=torch.int32, device=x.device)
+    if on_device:
+        pos = ctx_len.to(torch.int32).expand(b, 1)
+    else:
+        pos = torch.full((b, 1), ctx_len, dtype=torch.int32, device=x.device)
     if cfg.rope == "mrope":
         q = rope_mod.apply_mrope(q, torch.stack([pos] * 3), cfg.rope_theta,
                                  cfg.mrope_sections)
@@ -232,12 +243,19 @@ def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
         q = rope_mod.apply_rope(q, pos, cfg.rope_theta)
         k = rope_mod.apply_rope(k, pos, cfg.rope_theta)
     win = window if window is not None else cfg.window
-    slot = ctx_len % s_cache if win is not None else ctx_len
-    # dynamic_update_slice clamps the start so the slice fits
-    slot = min(max(slot, 0), s_cache - 1)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    valid = min(ctx_len + 1, s_cache)
+    if on_device:
+        slot = ctx_len.long() % s_cache if win is not None else ctx_len.long()
+        slot = slot.clamp(0, s_cache - 1).reshape(1)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        valid = torch.clamp(ctx_len + 1, max=s_cache)
+    else:
+        slot = ctx_len % s_cache if win is not None else ctx_len
+        # dynamic_update_slice clamps the start so the slice fits
+        slot = min(max(slot, 0), s_cache - 1)
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        valid = min(ctx_len + 1, s_cache)
     o = decode_attention(q[:, 0], cache["k"], cache["v"], valid)
     y = matmul(o.reshape(b, n * hd), params["wo"],
                reduce_dtype=_reduce(x, cfg)).reshape(b, 1, d)

@@ -402,14 +402,27 @@ def forward_prefill(params: Dict, cfg, tokens: torch.Tensor,
 
 
 def decode_step(params: Dict, cfg, token: torch.Tensor, caches: List,
-                ctx_len: int, positions: Optional[torch.Tensor] = None
+                ctx_len, positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List]:
     """One decode step. token (B,) or (B, C); `ctx_len` the tokens already
-    cached -> (logits (B, 1, ...), caches), the caches updated in place.
-    `positions` is accepted and unused, as in the reference: positions
-    follow from `ctx_len`."""
+    cached, an int or a 0-d integer tensor on the device -> (logits
+    (B, 1, ...), caches), the caches updated in place.  `positions` is
+    accepted and unused, as in the reference: positions follow from
+    `ctx_len`.
+
+    When `caches` is a :class:`StepGraph` built for these `params` and
+    `cfg`, the step runs through it: replayed from its CUDA graph once
+    captured, the logits a fresh tensor either way."""
+    if isinstance(caches, StepGraph) and caches.takes(params, cfg, token):
+        return caches.step(token, ctx_len), caches
+    return _decode(params, cfg, token, caches, ctx_len)
+
+
+def _decode(params: Dict, cfg, token: torch.Tensor, caches: List, ctx_len
+            ) -> Tuple[torch.Tensor, List]:
     tok = token[:, None] if token.ndim == 1 else token[..., None]
-    x = _embed_inputs(params, cfg, tok, None, offset=int(ctx_len))
+    offset = ctx_len if isinstance(ctx_len, torch.Tensor) else int(ctx_len)
+    x = _embed_inputs(params, cfg, tok, None, offset=offset)
     for seg, seg_params, seg_cache in zip(segments(cfg), params["segments"],
                                           caches):
         for pp, entry in zip(seg_params, seg_cache):
@@ -418,6 +431,77 @@ def decode_step(params: Dict, cfg, token: torch.Tensor, caches: List,
                     kind, pp[f"b{i}"], x, cfg, entry[f"b{i}"], ctx_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, cfg, x), caches
+
+
+def graphable(cfg, device) -> bool:
+    """Whether :func:`decode_step` of `cfg` on `device` can be captured as
+    a CUDA graph: a CUDA device, every block GQA attention with a dense
+    MLP (whose decode reads nothing back to the host once the context
+    length is a device tensor) and RoPE or M-RoPE positions."""
+    return (torch.device(device).type == "cuda"
+            and cfg.attn_kind != "mla" and cfg.rope in ("rope", "mrope")
+            and all(kind == "attn" for seg in segments(cfg)
+                    for kind in seg.pattern))
+
+
+class StepGraph(list):
+    """One sequence's caches, the list of segments :func:`decode_step`
+    takes, with that step captured as a CUDA graph.
+
+    The first step through it runs eagerly on its static inputs (the
+    token and the context length as a 0-d device tensor), which warms up
+    what the capture records; :meth:`capture` then records the step on
+    those inputs, and every later step copies its token and length in,
+    replays the graph and returns a clone of the graph's logits.  The
+    caches are updated in place, as by the eager step, so the list's
+    tensors stay the ones the graph reads and writes; ``params`` and
+    ``cfg`` are those the graph was made for (a call with others runs
+    eagerly).  ``replayed`` counts the replays.
+    """
+
+    def __init__(self, caches: List, params: Dict, cfg):
+        super().__init__(caches)
+        self.params, self.cfg = params, cfg
+        self.token: Optional[torch.Tensor] = None
+        self.ctx: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.replayed = 0
+
+    def takes(self, params: Dict, cfg, token: torch.Tensor) -> bool:
+        """Whether a step of `params`, `cfg` on `token` is this graph's."""
+        return (params is self.params and cfg is self.cfg
+                and (self.token is None
+                     or (token.shape == self.token.shape
+                         and token.dtype == self.token.dtype)))
+
+    def step(self, token: torch.Tensor, ctx_len) -> torch.Tensor:
+        """One step at `ctx_len` on `token`: its logits."""
+        if self.token is None:
+            self.token = torch.empty_like(token)
+            self.ctx = torch.zeros((), dtype=torch.int64, device=token.device)
+        self.token.copy_(token)
+        self.ctx.fill_(ctx_len)
+        if self.graph is None:
+            return self._run()
+        self.graph.replay()
+        self.replayed += 1
+        return self.logits.clone()
+
+    @property
+    def warm(self) -> bool:
+        """Whether a step has run, so that the graph can be captured."""
+        return self.token is not None
+
+    def capture(self) -> None:
+        """Record the step on the static inputs; nothing runs."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits = self._run()
+        self.graph = graph
+
+    def _run(self) -> torch.Tensor:
+        return _decode(self.params, self.cfg, self.token, self, self.ctx)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,8 @@ SPANS = (
     "serve.step",          # one decode step of the batch, the root
     "kv.gather_args",      # block tables walked, CXL charged, uploaded
     "serve.pool_cast",     # the layer-0 pools cast to f32 for K4
-    "serve.model",         # one sequence's decode_step dispatched (#<sid>)
+    "serve.capture",       # a sequence's step captured as a CUDA graph
+    "serve.model",         # a sequence's decode_step run or replayed (#<sid>)
     "serve.sample",        # the wait for its logits and the argmax (#<sid>)
     "kv.append_tokens",    # pages walked, evicted, the pools written
 )

@@ -30,7 +30,7 @@ from repro_torch.analysis.findings import (
     save_baseline,
     split_new,
 )
-from repro_torch.analysis.visitor import lint_paths
+from repro_torch.analysis.visitor import ModuleContext, lint_paths
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 UNCHANGED_RULES = {"RL101", "RL102", "RL301", "RL302"}
@@ -257,6 +257,27 @@ def test_rl202_tensor_branch_in_each_scope(tmp_path, scope):
     kept, _ = lint_snippet(tmp_path, scoped(scope, BRANCH_BODY))
     assert codes(kept) == ["RL202", "RL202"]
     assert "torch.where" in kept[0].message
+
+
+def test_the_port_s_cuda_graph_body_is_a_scope(tmp_path):
+    """The serve's capture (``StepGraph.capture``'s ``with
+    torch.cuda.graph`` body in models/transformer.py) is the port's one
+    captured scope: clean as it is, flagged with a host read and a branch
+    on a device value put in it."""
+    path = ROOT / "src" / "repro_torch" / "models" / "transformer.py"
+    src = path.read_text()
+    assert len(ModuleContext(path, "transformer.py", src)
+               .tracer_scopes()) == 1
+    kept, _ = lint_snippet(tmp_path, src, "transformer.py")
+    assert kept == []
+    body = "            self.logits = self._run()\n"
+    assert src.count(body) == 1
+    bad = src.replace(body, body + "            y = torch.sum(self.logits)\n"
+                      "            n = y.item()\n"
+                      "            if y > 0:\n"
+                      "                n = 0\n")
+    kept, _ = lint_snippet(tmp_path, bad, "transformer_bad.py")
+    assert sorted(codes(kept)) == ["RL201", "RL202"]
 
 
 def test_rl201_rl202_negative_outside_scopes(tmp_path):

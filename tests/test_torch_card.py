@@ -861,6 +861,98 @@ def test_serve_runs_the_new_kinds_on_the_card(card, arch):
     assert not r["last_attn_inputs"][1].any()
 
 
+#: smoke configs whose decode step serve.run replays from a CUDA graph:
+#: a rolled 16-token window, M-RoPE, qk-norm
+GRAPHED = ("h2o-danube-3-4b", "qwen2-vl-2b", "stablelm-12b")
+
+
+def _twin(caches):
+    return [[{b: {k: v.clone() for k, v in e.items()}
+              for b, e in period.items()} for period in seg]
+            for seg in caches]
+
+
+@pytest.mark.parametrize("arch", GRAPHED)
+def test_serve_replays_decode_step_from_a_cuda_graph(card, monkeypatch,
+                                                     arch):
+    """serve.run at smoke size: each sequence's first step eager, the
+    second captured, every later one replayed.  Each `decode_step` call
+    gives, bitwise, the logits and the caches of an eager `decode_step`
+    (int context length) on copies of its inputs, as a tensor of its own;
+    the tokens, KVStats and K4 outputs are those of the serve with the
+    graph path off."""
+    cfg = get_smoke(arch)
+    kw = dict(requests=3, prefill=20, decode=4, page_size=4, hbm_pages=5)
+    params = ttf.init_params(cfg, torch.Generator(device=card).manual_seed(3),
+                             card)
+    saved = ttf.decode_step
+    calls = []
+
+    def checked(p, c, token, caches, ctx_len):
+        twin = _twin(caches)
+        want, twin = saved(p, c, token, twin, ctx_len)
+        got, caches = saved(p, c, token, caches, ctx_len)
+        same = all(torch.equal(x[b][k], y[b][k])
+                   for sa, sb in zip(caches, twin) for x, y in zip(sa, sb)
+                   for b in x for k in x[b])
+        calls.append((torch.equal(got, want), same, got))
+        return got, caches
+
+    monkeypatch.setattr(ttf, "decode_step", checked)
+    tops.reset_launches()
+    r = tserve.run(cfg, device=card, params=params, **kw)
+    assert tops.LAUNCHES["paged_attention"] == 4
+    assert r["decode_graph"] == {"captured": 3, "replayed": 9, "eager": 3}
+    assert len(calls) == 12
+    assert all(logits_equal for logits_equal, _, _ in calls)
+    assert all(caches_equal for _, caches_equal, _ in calls)
+    assert len({got.data_ptr() for _, _, got in calls}) == 12
+    monkeypatch.setattr(ttf, "decode_step", saved)
+    monkeypatch.setattr(ttf, "graphable", lambda cfg, device: False)
+    eager = tserve.run(cfg, device=card, params=params, **kw)
+    assert eager["decode_graph"] == {"captured": 0, "replayed": 0,
+                                     "eager": 12}
+    assert r["tokens"] == eager["tokens"]
+    assert r["kv_stats"] == eager["kv_stats"]
+    assert all(torch.equal(a, b)
+               for a, b in zip(r["attn_out"], eager["attn_out"]))
+
+
+@pytest.mark.parametrize("arch", list(NEW_K4_SHAPES))
+def test_serve_keeps_the_steps_a_graph_does_not_take_eager(card, arch):
+    """rwkv, rec and MLA blocks: serve.run captures nothing and runs
+    every step eagerly."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    r = tserve.run(cfg, device=card, requests=3, prefill=20, decode=3,
+                   page_size=4, hbm_pages=5)
+    assert r["decode_graph"] == {"captured": 0, "replayed": 0, "eager": 9}
+    assert r["logits_finite"]
+
+
+def test_serve_capture_under_the_profiler(card):
+    """The graphed serve under torch.profiler (CPU and CUDA activities):
+    one ``serve.capture`` span per sequence, tokens and KVStats as with
+    the profiler off."""
+    cfg = get_smoke("h2o-danube-3-4b")
+    kw = dict(requests=3, prefill=20, decode=4, page_size=4, hbm_pages=5)
+    params = ttf.init_params(cfg, torch.Generator(device=card).manual_seed(4),
+                             card)
+    off = tserve.run(cfg, device=card, params=params, **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        on = tserve.run(cfg, device=card, params=params, **kw)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    assert sorted(n for n in names if n.startswith(
+        "repro_torch.serve.capture")) == [
+        f"repro_torch.serve.capture#{sid}" for sid in range(3)]
+    assert on["decode_graph"] == off["decode_graph"] == {
+        "captured": 3, "replayed": 9, "eager": 3}
+    assert on["tokens"] == off["tokens"]
+    assert on["kv_stats"] == off["kv_stats"]
+
+
 def test_codec_on_the_card_matches_cpu(card):
     """The CXL.mem flit codec's headers and decoded fields, bitwise."""
     from repro_torch.core import packet

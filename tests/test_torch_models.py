@@ -184,6 +184,83 @@ def test_decode_from_a_carried_cache_matches_jax():
         _close_caches(jcache, tcache, "float32")
 
 
+# ---------------------------------------------------------------------------
+# the context length as a 0-d tensor (the path a CUDA graph captures)
+# ---------------------------------------------------------------------------
+def _twin(caches):
+    """A copy of a decode cache tree whose tensors share nothing."""
+    return [[{b: {k: v.clone() for k, v in e.items()}
+              for b, e in period.items()} for period in seg]
+            for seg in caches]
+
+
+def _same_caches(a, b):
+    return all(torch.equal(x[blk][k], y[blk][k])
+               for sa, sb in zip(a, b) for x, y in zip(sa, sb)
+               for blk in x for k in x[blk])
+
+
+@pytest.mark.parametrize("arch,ctx", [
+    ("granite-3-8b", 0),            # the first slot
+    ("granite-3-8b", 9),            # the middle
+    ("granite-3-8b", 15),           # the last slot
+    ("granite-3-8b", 21),           # past the end: clamped at S - 1
+    ("h2o-danube-3-4b", 21),        # a 16-token window: slot 21 % 16
+    ("qwen2-vl-2b", 9),             # M-RoPE positions
+    ("stablelm-12b", 9),            # qk-norm
+])
+def test_attention_decode_takes_the_context_length_as_a_tensor(arch, ctx):
+    """With `ctx_len` a 0-d tensor, the output and the cache written are
+    bitwise those of the int path."""
+    cfg = tget_smoke(arch)
+    gen = torch.Generator().manual_seed(ctx)
+    p = tattn.attn_init(gen, cfg)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen).to(torch.bfloat16)
+    shape = (2, 16, cfg.n_kv_heads, cfg.head_dim)
+    cache = {k: torch.randn(shape, generator=gen).to(torch.bfloat16)
+             for k in ("k", "v")}
+    twin = {k: v.clone() for k, v in cache.items()}
+    want, _ = tattn.attention_decode(p, x, cfg, cache, ctx)
+    got, _ = tattn.attention_decode(p, x, cfg, twin, torch.tensor(ctx))
+    assert torch.equal(got, want)
+    assert all(torch.equal(twin[k], cache[k]) for k in cache)
+
+
+@pytest.mark.parametrize("arch,prefill,capacity", [
+    ("h2o-danube-3-4b", 20, 26),    # rolled in a 16-token window
+    ("granite-3-8b", 12, 15),       # the last steps clamp at S - 1
+])
+def test_decode_step_takes_the_context_length_as_a_tensor(arch, prefill,
+                                                          capacity):
+    """Teacher-forced `decode_step`s with `ctx_len` as an int and as a 0-d
+    tensor: logits and caches bitwise equal at every step."""
+    cfg = tget_smoke(arch)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, prefill + 5)).astype(np.int32))
+    _, cache = ttf.forward_prefill(params, cfg, toks[:, :prefill])
+    cache = ttf.pad_cache(cache, cfg, capacity)
+    twin = _twin(cache)
+    for ctx in range(prefill, prefill + 5):
+        want, cache = ttf.decode_step(params, cfg, toks[:, ctx], cache, ctx)
+        got, twin = ttf.decode_step(params, cfg, toks[:, ctx], twin,
+                                    torch.tensor(ctx))
+        assert torch.equal(got, want), ctx
+        assert _same_caches(twin, cache), ctx
+
+
+def test_graphable_takes_gqa_dense_rope_blocks_on_cuda_only():
+    """The decode steps a CUDA graph takes: every block GQA attention
+    with a dense MLP, RoPE or M-RoPE positions, on a CUDA device."""
+    from repro_torch.configs import ARCHS
+    took = {a for a in ARCHS if ttf.graphable(tget_smoke(a), "cuda")}
+    assert took == {"granite-3-8b", "h2o-danube-3-4b", "qwen2-vl-2b",
+                    "stablelm-12b", "starcoder2-3b"}
+    assert not any(ttf.graphable(tget_smoke(a), dev) for a in took
+                   for dev in ("cpu", "meta"))
+
+
 def test_params_map_one_to_one():
     jcfg, tcfg, jparams, tparams = _models("bfloat16")
     mine = ttf.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")

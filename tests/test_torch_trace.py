@@ -5,14 +5,25 @@
   version), a small tiering sweep (K3's) and ``serve.run`` on the smoke
   config each emit their stages' spans, nested as the stages call each
   other, ``machine.time_batch`` once per call of the engine and the
-  per-request spans once per request and step; the three together emit
-  exactly :data:`SPANS`.
+  per-request spans once per request and step; with the graphed serve
+  below, the runs together emit exactly :data:`SPANS`.
 * The sweep rows (bitwise), the served tokens, K4's outputs and
   ``KVStats`` are the same with the profiler on and off, also when the
   profiler starts and stops inside decode steps.
+* ``serve.capture`` opens once per sequence, inside its second decode
+  step, where the serve runs its steps through
+  :class:`~repro_torch.models.transformer.StepGraph`.  A CUDA graph needs
+  the card (``tests/test_torch_card.py`` captures real ones); here a
+  stand-in graph makes the serve take that path on the CPU: its capture
+  runs the step once on the static inputs (which changes nothing: the
+  step rewrites the slot it wrote with the same values) and its replay
+  runs the step again into the captured logits.  That serve gives the
+  eager serve's outputs bitwise.
 """
 import collections
+import contextlib
 import json
+import types
 
 import pytest
 import torch
@@ -28,6 +39,7 @@ from repro_torch.core.tiering_dyn import DynamicTiering
 from repro_torch.core.timing import LatencyDistribution
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as ttf
 from repro_torch.runtime import trace
 
 SMALL = CacheParams(l1_bytes=1024, l1_ways=2, l2_bytes=4096, l2_ways=4)
@@ -58,10 +70,35 @@ def _tiering():
 def _serve():
     out = tserve.run(get_smoke("h2o-danube-3-4b"), device="cpu", **SERVE)
     return {"tokens": out["tokens"], "kv_stats": out["kv_stats"],
-            "attn_out": out["attn_out"]}
+            "attn_out": out["attn_out"], "decode_graph": out["decode_graph"]}
 
 
-RUNS = {"static": _static, "tiering": _tiering, "serve": _serve}
+@contextlib.contextmanager
+def cpu_graphs():
+    """The serve's graph path on the CPU, with a stand-in for the CUDA
+    graph (the module docstring says what it does)."""
+    graphable, capture = ttf.graphable, ttf.StepGraph.capture
+
+    def stand_in(self):
+        self.logits = self._run()
+        self.graph = types.SimpleNamespace(
+            replay=lambda: self.logits.copy_(self._run()))
+
+    ttf.graphable = lambda cfg, device: graphable(cfg, "cuda")
+    ttf.StepGraph.capture = stand_in
+    try:
+        yield
+    finally:
+        ttf.graphable, ttf.StepGraph.capture = graphable, capture
+
+
+def _serve_graphed():
+    with cpu_graphs():
+        return _serve()
+
+
+RUNS = {"static": _static, "tiering": _tiering, "serve": _serve,
+        "serve_graphed": _serve_graphed}
 STAGES = {
     "static": {"sweep", "engine.build", "engine.traces", "engine.simulate",
                "machine.time_batch", "engine.rows"},
@@ -70,6 +107,7 @@ STAGES = {
               "kv.append_tokens"},
 }
 STAGES["tiering"] = STAGES["static"]
+STAGES["serve_graphed"] = STAGES["serve"] | {"serve.capture"}
 
 
 def _spans(events):
@@ -175,7 +213,7 @@ def test_spans_nest_as_the_stages_call_each_other(runs, kind):
     for name, sid, parent in spans:
         parents[name].add(parent)
         count[name, sid] += 1
-    if kind == "serve":
+    if kind.startswith("serve"):
         n, d = SERVE["requests"], SERVE["decode"]
         assert parents["serve.prefill"] == {None}
         assert parents["serve.step"] == {None}
@@ -193,6 +231,11 @@ def test_spans_nest_as_the_stages_call_each_other(runs, kind):
         assert parents["kv.append_tokens"] == {"serve.prefill",
                                                "serve.step"}
         assert count["kv.append_tokens", None] == n + n * d
+        if kind == "serve_graphed":
+            # captured in each sequence's second step, before its model
+            assert parents["serve.capture"] == {"serve.step"}
+            for sid in range(n):
+                assert count["serve.capture", sid] == 1
         return
     assert parents["sweep"] == {None} and count["sweep", None] == 1
     assert parents["engine.traces"] == {"engine.build"}
@@ -215,13 +258,57 @@ def test_the_three_runs_emit_exactly_SPANS(runs):
 @pytest.mark.parametrize("kind", sorted(RUNS))
 def test_outputs_equal_with_the_profiler_on_and_off(runs, kind):
     off, on = runs[kind]["off"], runs[kind]["on"]
-    if kind == "serve":
+    if kind.startswith("serve"):
         assert on["tokens"] == off["tokens"]
         assert on["kv_stats"] == off["kv_stats"]
         assert _same(on["attn_out"], off["attn_out"])
     else:
         assert json.dumps(on) == json.dumps(off)
         assert len(on) == {"static": 24, "tiering": 6}[kind]
+
+
+def test_graphed_serve_gives_the_eager_serve_s_outputs(runs):
+    """The serve through StepGraphs (the stand-in graph) against the
+    eager serve: tokens, KVStats and K4's outputs bitwise; per batch one
+    capture and one eager step per sequence, the rest replayed."""
+    eager, graphed = runs["serve"]["off"], runs["serve_graphed"]["off"]
+    n, d = SERVE["requests"], SERVE["decode"]
+    assert eager["decode_graph"] == {"captured": 0, "replayed": 0,
+                                     "eager": n * d}
+    assert graphed["decode_graph"] == {"captured": n,
+                                       "replayed": n * (d - 1), "eager": n}
+    assert graphed["tokens"] == eager["tokens"]
+    assert graphed["kv_stats"] == eager["kv_stats"]
+    assert _same(graphed["attn_out"], eager["attn_out"])
+
+
+def test_graphed_decode_steps_return_fresh_logits():
+    """Each `decode_step` call through a StepGraph returns its own tensor,
+    equal to the eager call's (a caller keeping every step's logits does
+    not keep one buffer many times over)."""
+    cfg = get_smoke("h2o-danube-3-4b")
+    kept = {"eager": [], "graphed": []}
+    saved = ttf.decode_step
+
+    def record(into):
+        def step(*args, **kwargs):
+            logits, caches = saved(*args, **kwargs)
+            into.append(logits)
+            return logits, caches
+        return step
+
+    try:
+        ttf.decode_step = record(kept["eager"])
+        tserve.run(cfg, device="cpu", **SERVE)
+        ttf.decode_step = record(kept["graphed"])
+        with cpu_graphs():
+            tserve.run(cfg, device="cpu", **SERVE)
+    finally:
+        ttf.decode_step = saved
+    got, want = kept["graphed"], kept["eager"]
+    assert len(got) == len(want) == SERVE["requests"] * SERVE["decode"]
+    assert len({x.data_ptr() for x in got}) == len(got)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_profiler_started_and_stopped_inside_decode_steps(tmp_path):
