@@ -2117,50 +2117,94 @@ def k4_times(dev, gen, serve_inputs, card):
                 .reshape(b, nblk),
                 torch.full((b,), nblk * page, dtype=torch.int32)]
     long_ctx = [x.to(dev) for x in long_ctx]
-    return {name: k4_time_case(name, args, dev, card)
-            for name, args in (("serve", serve_inputs),
-                               ("ctx4096", long_ctx))}
+    out = {name: k4_time_case(name, args, dev, card)
+           for name, args in (("serve", serve_inputs),
+                              ("ctx4096", long_ctx))}
+    out["mla_cell"] = k4_mla_cell(dev, gen, card)
+    return out
 
 
-def k4_time_case(name, args, dev, card):
-    """K4 on `args`: kernel, the wrapper as the serve loop calls it (its
-    block-table check syncs with the host), bound, plain version and SDPA
-    on the already gathered K/V."""
+def k4_mla_cell(dev, gen, card):
+    """K4's absorbed-MLA instantiation at the DeepSeek-V3 serving cell's
+    shape (8 sequences of 1,024-1,087 positions in 68 pages of 16, 128
+    query heads over one latent head of 576, values its first 512 columns,
+    one f32 pool read as keys and values, DeepSeek-V3's YaRN softmax scale),
+    where the split plan cuts each context into several partitions and the
+    combine pass runs: against its plain version (3e-5, rtol = atol), then
+    timed beside its bound and SDPA (see `k4_time_case`)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import YarnConfig
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import attention as attn
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              rope_scaling=YarnConfig())
+    m = cfg.mla
+    d, dv = m.kv_lora_rank + m.qk_rope_head_dim, m.kv_lora_rank
+    args = contexts_case(gen, [1024 + 9 * i for i in range(8)],
+                         cfg.n_heads, 1, d, 16, 68, torch.float32, dev)
+    args[2] = args[1]                       # the values are the rows'
+    kw = dict(scale=attn.mla_softmax_scale(cfg), v_dim=dv)
+    plan = pa.launch_plan(*args[:4], dv)
+    plain = pa.paged_attention_ref(*args, **kw)
+    diff = (pa.paged_attention(*args, **kw) - plain).abs()
+    err = float(diff.max())
+    if plan["parts"] < 2 or bool((diff > 3e-5 * (1 + plain.abs())).any()):
+        raise AssertionError(f"[time K4] K4 at the MLA cell's shape: "
+                             f"{plan['parts']} partition(s), max|kernel - "
+                             f"plain| {err:.3g} (tolerance 3e-5)")
+    print(f"[time K4] MLA cell: {plan['parts']} partitions, max|kernel - "
+          f"plain| {err:.3g} (tolerance 3e-5, rtol = atol)")
+    return dict(k4_time_case("MLA cell", args, dev, card, **kw),
+                max_abs_err=err)
+
+
+def k4_time_case(name, args, dev, card, **kw):
+    """K4 on `args` (`kw`: its ``scale`` and ``v_dim``): kernel, the
+    wrapper as the serve loop calls it (its block-table check syncs with
+    the host), bound, plain version and SDPA on the already gathered
+    K/V."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     q, kp, vp, bt, cl = args
     bb, hh, dd = q.shape
+    dv = kw.get("v_dim") or dd
     pg, kvh, nb = kp.shape[1], kp.shape[2], bt.shape[1]
-    ms = cuda_ms(lambda: pa._launch(q, kp, vp, bt, cl), warmup=3, reps=50)
-    wrapper_ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, cl),
+    ms = cuda_ms(lambda: pa._launch(q, kp, vp, bt, cl, **kw), warmup=3,
+                 reps=50)
+    wrapper_ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, cl, **kw),
                          warmup=3, reps=50)
-    plain_ms = cuda_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt, cl),
-                       reps=5)
+    plain_ms = cuda_ms(lambda: pa.paged_attention_ref(q, kp, vp, bt, cl,
+                                                      **kw), reps=5)
     # the yardstick: one PyTorch call on K/V gathered beforehand
     live = pa.live_mask(bt, cl, pg)
     idx = torch.where(live, bt.long(), 0)
     kd = kp[idx].reshape(bb, nb * pg, kvh, dd).transpose(1, 2).contiguous()
-    vd = vp[idx].reshape(bb, nb * pg, kvh, dd).transpose(1, 2).contiguous()
+    vd = vp[idx][..., :dv].reshape(bb, nb * pg, kvh, dv).transpose(
+        1, 2).contiguous()
     pos = torch.arange(nb * pg, device=dev)
     mask = None if bool((cl == nb * pg).all()) else \
         (pos[None, :] < cl[:, None])[:, None, None, :]
 
     def sdpa():
         return F.scaled_dot_product_attention(
-            q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)
+            q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True,
+            scale=kw.get("scale"))
     lib_ms = cuda_ms(sdpa, warmup=3, reps=50)
-    plan = pa.launch_plan(q, kp, vp, bt)
-    dev4 = device_times(lambda: pa._launch(q, kp, vp, bt, cl))
+    plan = pa.launch_plan(q, kp, vp, bt, kw.get("v_dim"))
+    dev4 = device_times(lambda: pa._launch(q, kp, vp, bt, cl, **kw))
     part_dev = sum(v for k, v in dev4.items() if "paged_attention" in k)
     combine_dev = sum(v for k, v in dev4.items() if "paged_combine" in k)
     device_ms = sum(dev4.values())
     # an empty context's row is 0 in K4 and NaN in SDPA's fully masked row
     full = cl > 0
-    lib_err = float((sdpa()[:, :, 0] - pa._launch(q, kp, vp, bt, cl))[full]
-                    .abs().max()) if bool(full.any()) else 0.0
-    n_bytes = pa.bound_bytes(q, kp, bt, cl)
-    flops = 4 * int(cl.clamp(0, nb * pg).sum()) * hh * dd
+    lib_err = float((sdpa()[:, :, 0] - pa._launch(q, kp, vp, bt, cl, **kw))[
+        full].abs().max()) if bool(full.any()) else 0.0
+    n_bytes = pa.bound_bytes(q, kp, bt, cl, v_dim=kw.get("v_dim"),
+                             shared_kv="v_dim" in kw and vp is kp)
+    flops = 2 * int(cl.clamp(0, nb * pg).sum()) * hh * (dd + dv)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     out = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
@@ -2520,17 +2564,29 @@ SLICE10_STEPS = 3
 def serve_new_kind(dev, card, arch, over):
     """serve.run at `arch`'s published width (depth cut by `over`), with
     serve.py's defaults: K4 once per decode step over a pool that only the
-    decode steps' zero rows fill; then K4 on the loop's last inputs and on
-    random pools of the same shape, against its plain version, and timed
-    beside SDPA."""
+    decode steps' zero rows fill (for MLA, the latent pool, which the
+    prefill fills with layer 0's latent rows); then K4 on the loop's last
+    inputs and on random pools of the same shape, against its plain
+    version, and timed beside SDPA."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tf
     cfg = dataclasses.replace(get_config(arch), **over)
+    latent = cfg.attn_kind == "mla"
+    # K4's shape: (query heads, kv heads, key width), values, its keywords
+    if latent:
+        shape = (cfg.n_heads, 1,
+                 cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
+        dv = cfg.mla.kv_lora_rank
+        kw = dict(scale=attn.mla_softmax_scale(cfg), v_dim=dv)
+    else:
+        shape, dv, kw = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim), \
+            cfg.head_dim, {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2564,14 +2620,18 @@ def serve_new_kind(dev, card, arch, over):
             launches["paged_attention"] == n_dec
             and launches["paged_attention_ref"] == 0,
         "finite logits": r["logits_finite"],
-        "finite K4 outputs of shape (B, H, D)": all(
-            o.shape == (n_req, cfg.n_heads, cfg.head_dim)
+        "finite K4 outputs of shape (B, H, Dv)": all(
+            o.shape == (n_req, cfg.n_heads, dv)
             and bool(torch.isfinite(o).all()) for o in r["attn_out"]),
         "every request decoded": all(len(t) == n_dec
                                      for t in r["tokens"].values()),
-        "no prefill pages (the first block keeps no K/V)":
-            not bool(kp.any()) and cl.tolist() == [n_dec - 1] * n_req,
     }
+    if latent:
+        checks["the prompts' latent rows in the pool"] = (
+            bool(kp.any()) and cl.tolist() == [n_pre + n_dec - 1] * n_req)
+    else:
+        checks["no prefill pages (the first block keeps no K/V)"] = (
+            not bool(kp.any()) and cl.tolist() == [n_dec - 1] * n_req)
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"[slice 10] serve {arch} failed {bad}")
@@ -2579,22 +2639,24 @@ def serve_new_kind(dev, card, arch, over):
     # K4 against its plain version at this shape: the loop's own inputs and
     # random pools (an empty and a partial context among them)
     gen = torch.Generator().manual_seed(10)
-    rand = paged_case(gen, n_req, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                      16, 6, torch.float32, dev)
+    rand = paged_case(gen, n_req, *shape, 16, 6, torch.float32, dev)
+    if latent:
+        rand[2] = rand[1]                   # the values are the rows'
     err = 0.0
     for label, args in (("serve inputs", r["last_attn_inputs"]),
                         ("random pools", rand)):
-        kern = pa.paged_attention(*args)
-        plain = pa.paged_attention_ref(*args)
+        kern = pa.paged_attention(*args, **kw)
+        plain = pa.paged_attention_ref(*args, **kw)
         diff = (kern - plain).abs()
         err = max(err, float(diff.max()))
         if bool((diff > 3e-5 * (1 + plain.abs())).any()):
             raise AssertionError(f"[slice 10] K4 disagrees with its plain "
                                  f"version at {arch}'s shape ({label})")
-    print(f"[slice 10] K4 at {arch}'s shape (H={cfg.n_heads}, "
-          f"K={cfg.n_kv_heads}, D={cfg.head_dim}): max|kernel - plain| "
+    print(f"[slice 10] K4 at {arch}'s shape (H={shape[0]}, "
+          f"K={shape[1]}, D={shape[2]}, Dv={dv}): max|kernel - plain| "
           f"{err:.3g} (tolerance 3e-5, rtol = atol)")
-    times = k4_time_case(f"serve {arch}", r["last_attn_inputs"], dev, card)
+    times = k4_time_case(f"serve {arch}", r["last_attn_inputs"], dev, card,
+                         **kw)
     return dict(launches=launches, k4=dict(times, max_abs_err=err,
                                            launches=launches[
                                                "paged_attention"]))
@@ -3279,6 +3341,7 @@ def main() -> int:
         "library": "scaled_dot_product_attention(enable_gqa=True) on the "
                    "K/V gathered beforehand (gather not timed)",
         "ctx4096": k4_t["ctx4096"],
+        "mla_cell": k4_t["mla_cell"],
         "slice10_serves": {a: v["k4"] for a, v in s10["serve"].items()},
         "slice12_serve_example": s12["k4"]}, {
         "name": "flash_attention", "route": "cuda",

@@ -26,8 +26,19 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnConfig:
+    """YaRN rope scaling (DeepSeek-V3's ``rope_scaling``, type "yarn")."""
+    factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    n_experts: int = 128
+    n_experts: int = 128           # the router's outputs
     top_k: int = 8
     n_shared: int = 0              # shared (always-on) experts
     expert_d_ff: int = 1536
@@ -36,6 +47,23 @@ class MoEConfig:
     dense_d_ff: int = 0            # d_ff of those dense layers
     capacity_factor: float = 1.25
     router_aux_weight: float = 1e-3
+    # the gate: 'softmax' | 'sigmoid' scores; the top `topk_group` of
+    # `n_group` expert groups kept; the chosen weights times `routed_scale`;
+    # a per-expert bias on the scores that choose (not on the weights)
+    scoring: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
+    score_bias: bool = False
+    # the experts this layer holds, (first, count), of an expert-parallel
+    # deployment: routed over all `n_experts`, computed without drops for
+    # the held ones only.  None: every expert, the capacity dispatch
+    held: Optional[Tuple[int, int]] = None
+
+    @property
+    def n_held(self) -> int:
+        """Experts whose weights this layer holds."""
+        return self.n_experts if self.held is None else self.held[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +85,7 @@ class ModelConfig:
     window: Optional[int] = None   # SWA / local-attn window
     rope: str = "rope"             # 'rope' | 'mrope' | 'none' (sinusoidal)
     rope_theta: float = 10_000.0
+    rope_scaling: Optional[YarnConfig] = None
     mrope_sections: Tuple[int, ...] = (16, 24, 24)
     qk_norm: bool = False
 
@@ -144,7 +173,7 @@ class ModelConfig:
                     raise ValueError(
                         "block kind 'moe' requires a MoE config")
                 total += d * self.moe.n_experts     # router
-                total += self.moe.n_experts * 3 * d * self.moe.expert_d_ff
+                total += self.moe.n_held * 3 * d * self.moe.expert_d_ff
                 sh = self.moe.shared_d_ff or self.moe.expert_d_ff
                 total += self.moe.n_shared * 3 * d * sh
             elif k == "rwkv":

@@ -11,6 +11,9 @@
 // over the positions p < context_lens[b], where position p of sequence b
 // lives at row (p mod page) of page block_table[b, p / page].  GQA: the
 // G = H / K query heads of kv head k are h = k * G .. k * G + G - 1.  The
+// values are the first Dv <= D columns of the V rows (Dv = D for GQA); with
+// `shared` the V rows are the K rows, read once (MLA's absorbed decode over
+// its latent pool: K = 1, H = 128, D = 576, Dv = 512).  The
 // logits are scaled after the dot product (as the oracle, not the Pallas
 // body, does it), the softmax is online in f32, and an empty context gives
 // 0.  Block-table entries past ceil(ctx / page) are never read.
@@ -26,7 +29,8 @@
 // What the design does about it (flash-decoding):
 //   * split-K over the context: each (kv head, sequence) context is cut
 //     into `parts` partitions of `part_len` positions (a whole number of
-//     tiles and pages), one block of 256 threads each: grid K x B x parts.
+//     tiles and pages), one block of 256 threads each per block of at most
+//     16 query heads of the kv head: grid (K x head blocks) x B x parts.
 //     The wrapper's split_plan picks them from the shapes and from how
 //     many blocks an SM holds at once (paged_attention_resident): at least
 //     two blocks per SM where the contexts allow, and as few tiles on the
@@ -62,6 +66,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -71,10 +76,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;        // positions per tile (one per lane)
-constexpr int kMaxDim = 256;     // head_dim limit
-constexpr int kMaxGroups = 16;   // query heads per kv head limit
-constexpr int kAccPerThread = kMaxGroups * kMaxDim / kThreads;
+constexpr int kMaxDim = 576;     // key width limit
+constexpr int kHeadBlock = 16;   // query heads per block, at most
+// accumulator slots per thread: kAccNarrow for the GQA launch (values the
+// whole V rows, at most 16 query heads per kv head, 16 x 256 values a
+// block), kAccWide (16 x 512) for the general one, which alone reads the
+// Shape's head blocks, value width and shared rows
+constexpr int kAccNarrow = 16;
+constexpr int kAccWide = 32;
 constexpr int kCombineThreads = 128;
+constexpr size_t kMaxSmem = 232448;   // a block's dynamic shared memory
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -116,24 +127,32 @@ struct Shape {
   int row_bytes;        // stride of K and V rows in shared memory
   int pieces;           // pieces of D per query head in the logits
   float scale;
+  int dv;               // value width: the leading dv columns of a V row
+  int shared;           // the V rows are the K rows (read once)
+  int gblock;           // query heads per block (the last may hold fewer)
+  int hblocks;          // blocks of query heads per kv head
 };
 
 __host__ __device__ inline int align16(int bytes) {
   return (bytes + 15) & ~15;
 }
 
-// Shared memory: q (G, D) f32 | K, V of two stages (2, 2, kTile rows) |
-// partial logits (G * pieces, kTile) | p (G, kTile) | m, l, alpha (G).
+// Shared memory, for the block's G = gblock heads: q (G, D) f32 | K, V of
+// two stages (2, 2 or 1 with `shared`, kTile rows) | partial logits
+// (G * pieces, kTile) | p (G, kTile) | m, l, alpha (G).
+__host__ __device__ inline int stage_rows(const Shape& s) {
+  return (s.shared ? 1 : 2) * kTile;
+}
 __host__ __device__ inline int kv_offset(const Shape& s) {
-  return align16(s.groups * s.d * 4);
+  return align16(s.gblock * s.d * 4);
 }
 __host__ __device__ inline int part_offset(const Shape& s) {
-  return kv_offset(s) + 4 * kTile * s.row_bytes;
+  return kv_offset(s) + 2 * stage_rows(s) * s.row_bytes;
 }
 size_t smem_bytes(const Shape& s) {
   return part_offset(s) +
-         (static_cast<size_t>(s.groups) * (s.pieces + 1) * kTile +
-          3 * s.groups) * sizeof(float);
+         (static_cast<size_t>(s.gblock) * (s.pieces + 1) * kTile +
+          3 * s.gblock) * sizeof(float);
 }
 
 // Elements of one chunk of a row: a 16-byte vector, or one element on the
@@ -143,11 +162,12 @@ __host__ __device__ constexpr int chunk_elems() {
   return kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
 }
 
-// Positions [base, base + n_t) of kv head `kh` into the stage's K and V
-// rows: cp.async 16-byte vectors, or plain loads and stores.  Warp w takes
+// Positions [base, base + n_t) of kv head `kh` into the stage's K rows
+// (d wide) and V rows (their leading dv columns; none with `shared`):
+// cp.async 16-byte vectors, or plain loads and stores.  Warp w takes
 // rows w, w + 8, ...; its lanes look up those rows' pages together first,
 // so the block-table reads of a tile are in flight at once.
-template <typename TKV, bool kVec>
+template <typename TKV, bool kVec, bool kWide>
 __device__ __forceinline__ void load_tile(const TKV* __restrict__ k_pages,
                                           const TKV* __restrict__ v_pages,
                                           const int* __restrict__ bt,
@@ -170,9 +190,24 @@ __device__ __forceinline__ void load_tile(const TKV* __restrict__ k_pages,
       const char* kg = reinterpret_cast<const char*>(k_pages + row);
       const char* vg = reinterpret_cast<const char*>(v_pages + row);
       const int chunks = s.d * static_cast<int>(sizeof(TKV)) / 16;
-      for (int c = lane; c < chunks; c += 32) {
-        cp_async16(kd + 16 * c, kg + 16 * c);
-        cp_async16(vd + 16 * c, vg + 16 * c);
+      if constexpr (kWide) {
+        const int v_chunks =
+            s.shared ? 0 : s.dv * static_cast<int>(sizeof(TKV)) / 16;
+        for (int c = lane; c < chunks; c += 32) {
+          cp_async16(kd + 16 * c, kg + 16 * c);
+          if (c < v_chunks) cp_async16(vd + 16 * c, vg + 16 * c);
+        }
+      } else {
+        for (int c = lane; c < chunks; c += 32) {
+          cp_async16(kd + 16 * c, kg + 16 * c);
+          cp_async16(vd + 16 * c, vg + 16 * c);
+        }
+      }
+    } else if constexpr (kWide) {
+      const int v_elems = s.shared ? 0 : s.dv;
+      for (int e = lane; e < s.d; e += 32) {
+        reinterpret_cast<TKV*>(kd)[e] = k_pages[row + e];
+        if (e < v_elems) reinterpret_cast<TKV*>(vd)[e] = v_pages[row + e];
       }
     } else {
       for (int e = lane; e < s.d; e += 32) {
@@ -232,24 +267,28 @@ __device__ __forceinline__ float chunk_dot(const float* q_g, const char* kr,
   }
 }
 
-// One partition of one (kv head, sequence): grid K x B x parts.  With one
-// partition `out` gets the normalised result; with more, `ws` gets
-// (m, l, acc) per query head.
-template <typename TQ, typename TKV, bool kVec>
+// One partition of one (kv head, block of its query heads, sequence): grid
+// (K x hblocks) x B x parts.  With one partition `out` gets the normalised
+// result; with more, `ws` gets (m, l, acc) per query head.  kAcc
+// accumulator slots per thread hold the block's heads x dv values.
+template <typename TQ, typename TKV, bool kVec, int kAcc>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const int* __restrict__ block_table,
     const int* __restrict__ context_lens, TQ* __restrict__ out,
     float* __restrict__ ws, Shape s) {
   extern __shared__ __align__(16) char smem[];
-  const int kh = blockIdx.x;
+  constexpr bool kWide = kAcc == kAccWide;
+  const int kh = kWide ? blockIdx.x / s.hblocks : blockIdx.x;
+  const int hb = kWide ? blockIdx.x - kh * s.hblocks : 0;
   const int seq = blockIdx.y;
   const int part = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int d = s.d;
-  const int g_n = s.groups;
+  const int dv = kWide ? s.dv : s.d;
+  const int g_n = kWide ? min(s.gblock, s.groups - hb * s.gblock) : s.groups;
 
   const int capacity = s.nblk * s.page;
   const int ctx = min(max(context_lens[seq], 0), capacity);
@@ -260,14 +299,16 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   float* q_s = reinterpret_cast<float*>(smem);            // [G][D]
   char* kv = smem + kv_offset(s);                         // [2][K|V][kTile]
-  const int stage_bytes = 2 * kTile * s.row_bytes;
+  const int stage_bytes = (kWide ? stage_rows(s) : 2 * kTile) * s.row_bytes;
+  // the V rows of a stage: after its K rows, or the K rows themselves
+  const int v_rows_at = kWide && s.shared ? 0 : kTile * s.row_bytes;
   float* part_s = reinterpret_cast<float*>(smem + part_offset(s));
   float* p_s = part_s + g_n * s.pieces * kTile;           // [G][kTile]
   float* m_s = p_s + g_n * kTile;                         // [G]
   float* l_s = m_s + g_n;                                 // [G]
   float* alpha_s = l_s + g_n;                             // [G]
 
-  const int h0 = kh * g_n;
+  const int h0 = kWide ? kh * s.groups + hb * s.gblock : kh * g_n;
   const TQ* qb = q + (static_cast<long long>(seq) * s.h + h0) * d;
   for (int i = tid; i < g_n * d; i += kThreads) q_s[i] = to_f32(qb[i]);
   for (int g = tid; g < g_n; g += kThreads) {
@@ -275,34 +316,34 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     l_s[g] = 0.0f;
   }
 
-  float acc[kAccPerThread];
+  float acc[kAcc];
 #pragma unroll
-  for (int i = 0; i < kAccPerThread; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
 
   const int* bt = block_table + static_cast<long long>(seq) * s.nblk;
   if (n_tiles > 0)
-    load_tile<TKV, kVec>(k_pages, v_pages, bt, lo, min(kTile, hi - lo), kh,
-                         kv, kv + kTile * s.row_bytes, s, warp, lane);
+    load_tile<TKV, kVec, kWide>(k_pages, v_pages, bt, lo, min(kTile, hi - lo),
+                                kh, kv, kv + v_rows_at, s, warp, lane);
   cp_async_commit();
   __syncthreads();  // q, m and l, also where the partition is empty
 
   constexpr int E = chunk_elems<TKV, kVec>();
   const int chunks = d / E;
-  // P.V items: kPv adjacent elements of a head's D (two where rows are
-  // whole 16-byte vectors, so D is even), kItems items per thread
+  // P.V items: kPv adjacent elements of a head's Dv (two where rows are
+  // whole 16-byte vectors, so Dv is even), kItems items per thread
   constexpr int kPv = kVec ? 2 : 1;
-  constexpr int kItems = kAccPerThread / kPv;
+  constexpr int kItems = kAcc / kPv;
   const int items = g_n * s.pieces;
   for (int it = 0; it < n_tiles; ++it) {
     const int base = lo + it * kTile;
     const int n_t = min(kTile, hi - base);
     char* ks = kv + (it & 1) * stage_bytes;
-    const char* vs = ks + kTile * s.row_bytes;
+    const char* vs = ks + v_rows_at;
     if (it + 1 < n_tiles) {
       char* nk = kv + ((it + 1) & 1) * stage_bytes;
-      load_tile<TKV, kVec>(k_pages, v_pages, bt, base + kTile,
-                           min(kTile, hi - base - kTile), kh, nk,
-                           nk + kTile * s.row_bytes, s, warp, lane);
+      load_tile<TKV, kVec, kWide>(k_pages, v_pages, bt, base + kTile,
+                                  min(kTile, hi - base - kTile), kh, nk,
+                                  nk + v_rows_at, s, warp, lane);
     }
     cp_async_commit();
     cp_async_wait_one();  // this tile's copies, by this thread
@@ -358,10 +399,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int el = (tid + i * kThreads) * kPv;
-      if (el < g_n * d) {
-        const int g = el / d;
+      if (el < g_n * dv) {
+        const int g = el / dv;
         const float* pg = p_s + g * kTile;
-        const char* ve = vs + (el - g * d) * static_cast<int>(sizeof(TKV));
+        const char* ve = vs + (el - g * dv) * static_cast<int>(sizeof(TKV));
         float u[kPv] = {};
         auto step = [&](float p, int t) {
           const Floats<kPv> v = load_pv<TKV, kPv>(ve + t * s.row_bytes);
@@ -390,14 +431,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 
   // slot i * kPv + j of acc is element (tid + i * kThreads) * kPv + j of
-  // the (G, D) block of heads
+  // the (G, Dv) block of heads
   if (s.parts == 1) {
-    TQ* ob = out + (static_cast<long long>(seq) * s.h + h0) * d;
+    TQ* ob = out + (static_cast<long long>(seq) * s.h + h0) * dv;
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int el = (tid + i * kThreads) * kPv;
-      if (el < g_n * d) {
-        const float l = l_s[el / d];
+      if (el < g_n * dv) {
+        const float l = l_s[el / dv];
 #pragma unroll
         for (int j = 0; j < kPv; ++j)
           ob[el + j] = from_f32<TQ>(acc[i * kPv + j] /
@@ -407,7 +448,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     return;
   }
   // (m, l, acc) of each query head of this partition
-  const int w = d + 2;
+  const int w = dv + 2;
   float* wb = ws + (static_cast<long long>(seq) * s.h + h0) * s.parts * w +
               static_cast<long long>(part) * w;
   const long long head_stride = static_cast<long long>(s.parts) * w;
@@ -418,8 +459,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int el = (tid + i * kThreads) * kPv;
-    if (el < g_n * d) {
-      const int g = el / d, e = el - g * d;
+    if (el < g_n * dv) {
+      const int g = el / dv, e = el - g * dv;
 #pragma unroll
       for (int j = 0; j < kPv; ++j)
         wb[g * head_stride + 2 + e + j] = acc[i * kPv + j];
@@ -434,7 +475,7 @@ __global__ void __launch_bounds__(kCombineThreads) paged_combine_kernel(
     const float* __restrict__ ws, const int* __restrict__ context_lens,
     TQ* __restrict__ out, Shape s) {
   const int hh = blockIdx.x, seq = blockIdx.y;
-  const int d = s.d, w = d + 2;
+  const int d = s.dv, w = d + 2;
   const int ctx = min(max(context_lens[seq], 0), s.nblk * s.page);
   const int live = (ctx + s.part_len - 1) / s.part_len;
   const float* wb = ws + (static_cast<long long>(seq) * s.h + hh) * s.parts * w;
@@ -456,13 +497,19 @@ struct Type {
   using type = T;
 };
 
-// f(Type<TQ>, Type<TKV>, std::bool_constant<kVec>) for the dtype codes
-// (0 = float32, 1 = bfloat16) and the load path.
+// f(Type<TQ>, Type<TKV>, std::bool_constant<kVec>, integral_constant<kAcc>)
+// for the dtype codes (0 = float32, 1 = bfloat16), the load path and the
+// accumulator slots.
 template <class F>
-int dispatch(int q_dtype, int kv_dtype, bool vec, F&& f) {
+int dispatch(int q_dtype, int kv_dtype, bool vec, bool wide, F&& f) {
   auto by_kv = [&](auto tq) {
+    auto by_acc = [&](auto tkv, auto vv) {
+      return wide ? f(tq, tkv, vv, std::integral_constant<int, kAccWide>{})
+                  : f(tq, tkv, vv, std::integral_constant<int, kAccNarrow>{});
+    };
     auto by_vec = [&](auto tkv) {
-      return vec ? f(tq, tkv, std::true_type{}) : f(tq, tkv, std::false_type{});
+      return vec ? by_acc(tkv, std::true_type{})
+                 : by_acc(tkv, std::false_type{});
     };
     return kv_dtype == 0 ? by_vec(Type<float>{})
                          : by_vec(Type<__nv_bfloat16>{});
@@ -478,27 +525,29 @@ bool vector_rows(int d, int kv_dtype, bool aligned) {
 
 // The partition kernel's layout for `s` (row stride, pieces of D) and its
 // shared memory, which the kernel is allowed to take.
-template <typename TQ, typename TKV, bool kVec>
+template <typename TQ, typename TKV, bool kVec, int kAcc>
 cudaError_t prepare(Shape* s, size_t* smem) {
   const int elem = static_cast<int>(sizeof(TKV));
   s->row_bytes = kVec ? 16 * (((s->d * elem + 15) / 16) | 1)
                       : (s->d | 1) * elem;
-  s->pieces = s->groups <= kWarps ? kWarps / s->groups : 1;
+  s->pieces = s->gblock <= kWarps ? kWarps / s->gblock : 1;
   *smem = smem_bytes(*s);
-  return cudaFuncSetAttribute(paged_attention_kernel<TQ, TKV, kVec>,
+  if (*smem > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(paged_attention_kernel<TQ, TKV, kVec, kAcc>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
 }
 
-template <typename TQ, typename TKV, bool kVec>
+template <typename TQ, typename TKV, bool kVec, int kAcc>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* block_table, const int* context_lens, void* out,
            float* ws, Shape s, cudaStream_t stream) {
   size_t smem = 0;
-  cudaError_t err = prepare<TQ, TKV, kVec>(&s, &smem);
+  cudaError_t err = prepare<TQ, TKV, kVec, kAcc>(&s, &smem);
   if (err != cudaSuccess) return err;
-  paged_attention_kernel<TQ, TKV, kVec>
-      <<<dim3(s.kv_heads, s.b, s.parts), kThreads, smem, stream>>>(
+  paged_attention_kernel<TQ, TKV, kVec, kAcc>
+      <<<dim3(s.kv_heads * s.hblocks, s.b, s.parts), kThreads, smem,
+         stream>>>(
           static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
           static_cast<const TKV*>(v_pages), block_table, context_lens,
           static_cast<TQ*>(out), ws, s);
@@ -509,10 +558,31 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   return cudaGetLastError();
 }
 
-bool takes(int h, int d, int kv_heads, int q_dtype, int kv_dtype) {
-  return kv_heads > 0 && h % kv_heads == 0 && d > 0 && d <= kMaxDim &&
-         h / kv_heads <= kMaxGroups && q_dtype >= 0 && q_dtype <= 1 &&
-         kv_dtype >= 0 && kv_dtype <= 1;
+bool takes(int h, int d, int kv_heads, int dv, int q_dtype, int kv_dtype) {
+  return kv_heads > 0 && h % kv_heads == 0 && h > 0 && d > 0 &&
+         d <= kMaxDim && dv > 0 && dv <= d &&
+         std::min(h / kv_heads, kHeadBlock) * dv <= kAccWide * kThreads &&
+         q_dtype >= 0 && q_dtype <= 1 && kv_dtype >= 0 && kv_dtype <= 1;
+}
+
+// The shape's head blocks and value width; whether it takes the general
+// launch (the wide accumulator).
+Shape shaped(Shape s, int dv, int shared) {
+  s.dv = dv;
+  s.shared = shared;
+  s.gblock = std::min(s.groups, kHeadBlock);
+  s.hblocks = (s.groups + s.gblock - 1) / s.gblock;
+  return s;
+}
+bool wide(const Shape& s) {
+  return s.shared || s.dv != s.d || s.hblocks > 1 ||
+         s.gblock * s.dv > kAccNarrow * kThreads;
+}
+
+// The 16-byte path for both the K rows and the V columns read.
+bool vector_path(const Shape& s, int kv_dtype, bool aligned) {
+  return vector_rows(s.d, kv_dtype, aligned) &&
+         vector_rows(s.dv, kv_dtype, aligned);
 }
 
 }  // namespace
@@ -522,56 +592,65 @@ bool takes(int h, int d, int kv_heads, int q_dtype, int kv_dtype) {
 // wrapper's split plan sizes its waves by.
 extern "C" int paged_attention_resident(int* blocks, int h, int d,
                                         int kv_heads, int aligned,
-                                        int q_dtype, int kv_dtype,
-                                        int device) {
+                                        int q_dtype, int kv_dtype, int dv,
+                                        int shared, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (!takes(h, d, kv_heads, q_dtype, kv_dtype)) return cudaErrorInvalidValue;
-  Shape s{1, h, d, 1, kv_heads, 1, h / kv_heads, kTile, 1, 0, 0, 1.0f};
-  return dispatch(q_dtype, kv_dtype, vector_rows(d, kv_dtype, aligned != 0),
-                  [&](auto tq, auto tkv, auto vec) -> int {
+  if (!takes(h, d, kv_heads, dv, q_dtype, kv_dtype))
+    return cudaErrorInvalidValue;
+  Shape s = shaped(Shape{1, h, d, 1, kv_heads, 1, h / kv_heads, kTile, 1, 0,
+                         0, 1.0f},
+                   dv, shared);
+  return dispatch(q_dtype, kv_dtype, vector_path(s, kv_dtype, aligned != 0),
+                  wide(s), [&](auto tq, auto tkv, auto vec, auto acc) -> int {
                     using TQ = typename decltype(tq)::type;
                     using TKV = typename decltype(tkv)::type;
                     constexpr bool kV = decltype(vec)::value;
+                    constexpr int kA = decltype(acc)::value;
                     size_t smem = 0;
-                    cudaError_t e = prepare<TQ, TKV, kV>(&s, &smem);
+                    cudaError_t e = prepare<TQ, TKV, kV, kA>(&s, &smem);
                     if (e != cudaSuccess) return e;
                     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        blocks, paged_attention_kernel<TQ, TKV, kV>,
+                        blocks, paged_attention_kernel<TQ, TKV, kV, kA>,
                         kThreads, smem);
                   });
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `parts` partitions of
 // `part_len` positions per context (parts * part_len >= nblk * page,
-// part_len a multiple of 32); with parts > 1, `ws` is (b, h, parts, d + 2)
-// f32 scratch.  Returns a cudaError_t (0 = ok); cudaErrorInvalidValue for a
+// part_len a multiple of 32); with parts > 1, `ws` is (b, h, parts, dv + 2)
+// f32 scratch; `out` is (b, h, dv), the values being the leading dv columns
+// of the V rows, and with `shared` the V rows are the K rows (v_pages is
+// k_pages).  Returns a cudaError_t (0 = ok); cudaErrorInvalidValue for a
 // shape the kernel does not take.
 extern "C" int paged_attention(const void* q, const void* k_pages,
                                const void* v_pages, const int* block_table,
                                const int* context_lens, void* out, void* ws,
                                int b, int h, int d, int page, int kv_heads,
                                int nblk, int part_len, int parts, float scale,
-                               int q_dtype, int kv_dtype, int device,
-                               void* stream) {
+                               int q_dtype, int kv_dtype, int dv, int shared,
+                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (!takes(h, d, kv_heads, q_dtype, kv_dtype) || page <= 0 || nblk < 0 ||
-      parts < 1 || parts > 65535 || part_len <= 0 || part_len % kTile != 0 ||
+  if (!takes(h, d, kv_heads, dv, q_dtype, kv_dtype) || page <= 0 ||
+      nblk < 0 || parts < 1 || parts > 65535 || part_len <= 0 ||
+      part_len % kTile != 0 ||
       static_cast<long long>(part_len) * parts <
           static_cast<long long>(nblk) * page ||
-      (parts > 1 && ws == nullptr))
+      (parts > 1 && ws == nullptr) || (shared && v_pages != k_pages))
     return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
-  const Shape s{b, h, d, page, kv_heads, nblk, h / kv_heads, part_len,
-                parts, 0, 0, scale};
+  const Shape s = shaped(Shape{b, h, d, page, kv_heads, nblk, h / kv_heads,
+                               part_len, parts, 0, 0, scale},
+                         dv, shared);
   const bool aligned = reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
-  return dispatch(q_dtype, kv_dtype, vector_rows(d, kv_dtype, aligned),
-                  [&](auto tq, auto tkv, auto vec) -> int {
+  return dispatch(q_dtype, kv_dtype, vector_path(s, kv_dtype, aligned),
+                  wide(s), [&](auto tq, auto tkv, auto vec, auto acc) -> int {
                     using TQ = typename decltype(tq)::type;
                     using TKV = typename decltype(tkv)::type;
-                    return launch<TQ, TKV, decltype(vec)::value>(
+                    return launch<TQ, TKV, decltype(vec)::value,
+                                  decltype(acc)::value>(
                         q, k_pages, v_pages, block_table, context_lens, out,
                         static_cast<float*>(ws), s,
                         static_cast<cudaStream_t>(stream));

@@ -8,12 +8,18 @@ block table — the layout of the tier-aware paged KV cache
 (:mod:`repro_torch.memory.kvcache`).
 
 Shapes: ``q`` (B, H, D); ``k_pages``/``v_pages`` (P, page, K, D);
-``block_table`` (B, nblk) int32; ``context_lens`` (B,) int32 -> (B, H, D)
-in ``q.dtype``.  GQA: ``H % K == 0``, query head h reads kv head
+``block_table`` (B, nblk) int32; ``context_lens`` (B,) int32 -> (B, H, Dv)
+in ``q.dtype``, the values being the first ``Dv = v_dim`` (default D)
+columns of the V rows.  GQA: ``H % K == 0``, query head h reads kv head
 ``h // (H / K)``.  Positions ``>= context_lens[b]`` are masked; an empty
-context gives 0.  Logits are ``(q . k) * D**-0.5``, scaled after the
-product as the JAX oracle ``repro.kernels.ref.
+context gives 0.  Logits are ``(q . k) * scale`` (default ``D**-0.5``),
+scaled after the product as the JAX oracle ``repro.kernels.ref.
 paged_attention`` does (the Pallas body scales ``q`` first).
+
+MLA's absorbed decode over the latent pool is the case K = 1, H = 128,
+D = 576 (the latent and the rope key), Dv = 512 (the latent), with
+``v_pages`` the same tensor as ``k_pages``: the kernel then reads each row
+once, as keys and as values, and takes the model's softmax scale.
 
 Block-table entries past the live ones (``j >= ceil(ctx / page)``) are
 padding and may hold any value: the kernel never reads them, and the plain
@@ -35,8 +41,9 @@ the lengths, over 3.35 TB/s; see :func:`bound_bytes`.  At the serve shapes
 microsecond and the kernel is launch-bound; at a 4096-token context
 (B = 8, f32 pools) it is 252 MB, about 75 us.  Design (flash-decoding,
 see the source note): each (kv head, sequence) context split into
-partitions, one block each (:func:`split_plan` picks them from the shapes
-and the card's occupancy: one partition at the serve shapes), tiles of 32
+partitions, one block each per ``HEAD_BLOCK`` query heads of the kv head
+(:func:`split_plan` picks them from the shapes and the card's occupancy:
+one partition at the serve shapes), tiles of 32
 positions double-buffered by ``cp.async``, and where there are several
 partitions a second pass that combines them in a fixed order.
 
@@ -56,9 +63,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import LAUNCHES
 
-#: head_dim and query-heads-per-kv-head limits of the CUDA kernel
-MAX_HEAD_DIM = 256
-MAX_GROUPS = 16
+#: key width limit of the CUDA kernel; its blocks take at most
+#: ``HEAD_BLOCK`` query heads of one kv head, and ``HEAD_BLOCK * Dv`` at
+#: most ``MAX_BLOCK_ELEMS`` accumulated elements
+MAX_HEAD_DIM = 576
+HEAD_BLOCK = 16
+MAX_BLOCK_ELEMS = 8192
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: positions per tile of the kernel
 TILE = 32
@@ -122,7 +132,12 @@ def live_mask(block_table: torch.Tensor, context_lens: torch.Tensor,
     return j[None, :] < n_live_blocks(context_lens, page, nblk)[:, None]
 
 
-def _check(q, k_pages, v_pages, block_table, context_lens) -> None:
+def head_blocks(h: int, kv_heads: int) -> int:
+    """Blocks of at most ``HEAD_BLOCK`` query heads per kv head."""
+    return -(-(h // kv_heads) // HEAD_BLOCK)
+
+
+def _check(q, k_pages, v_pages, block_table, context_lens, v_dim) -> None:
     if q.ndim != 3 or k_pages.ndim != 4:
         raise ValueError(f"q must be (B, H, D) and the pools (P, page, K, D);"
                          f" got {tuple(q.shape)} and {tuple(k_pages.shape)}")
@@ -133,6 +148,8 @@ def _check(q, k_pages, v_pages, block_table, context_lens) -> None:
                          f"{tuple(v_pages.shape)} differ")
     if dk != d:
         raise ValueError(f"head_dim of q ({d}) and the pools ({dk}) differ")
+    if not 0 < v_dim <= d:
+        raise ValueError(f"v_dim must lie in [1, {d}], got {v_dim}")
     if h % kh != 0:
         raise ValueError(f"q heads {h} must be a multiple of kv heads {kh}")
     if block_table.ndim != 2 or block_table.shape[0] != b:
@@ -152,9 +169,10 @@ def _check(q, k_pages, v_pages, block_table, context_lens) -> None:
 # Plain version
 # ---------------------------------------------------------------------------
 def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens,
-                        *, scale: Optional[float] = None) -> torch.Tensor:
+                        *, scale: Optional[float] = None,
+                        v_dim: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_attention` (same contract;
-    `scale` defaults to ``D ** -0.5``, as the kernel's).
+    `scale` defaults to ``D ** -0.5`` and `v_dim` to D, as the kernel's).
 
     The JAX oracle's arithmetic: gather every page of the block table
     (padded entries masked to page 0 first), f32 logits scaled after the
@@ -167,8 +185,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens,
     groups = h // kh
     bt = torch.where(live_mask(block_table, context_lens, page),
                      block_table.to(torch.int64), 0)
+    dv = d if v_dim is None else v_dim
     k = k_pages[bt].reshape(b, nblk * page, kh, d)     # (B, S, K, D)
-    v = v_pages[bt].reshape(b, nblk * page, kh, d)
+    v = v_pages[bt][..., :dv].reshape(b, nblk * page, kh, dv)
     qf = q.reshape(b, kh, groups, d).to(torch.float32)
     scale = d ** -0.5 if scale is None else scale
     logits = torch.einsum("bkgd,bskd->bkgs", qf, k.to(torch.float32)) * scale
@@ -177,7 +196,7 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens,
     logits = torch.where(mask, logits, -math.inf)
     probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.to(torch.float32))
-    return out.reshape(b, h, d).to(q.dtype)
+    return out.reshape(b, h, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -191,18 +210,20 @@ _I = ctypes.c_int
 def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     lib.paged_attention.argtypes = ([_P] * 7 + [_I] * 8 + [ctypes.c_float]
-                                    + [_I] * 3 + [_P])
+                                    + [_I] * 5 + [_P])
     lib.paged_attention.restype = _I
-    lib.paged_attention_resident.argtypes = [_P] + [_I] * 7
+    lib.paged_attention_resident.argtypes = [_P] + [_I] * 9
     lib.paged_attention_resident.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k_pages, v_pages, block_table, context_lens) -> torch.Tensor:
+def _launch(q, k_pages, v_pages, block_table, context_lens, scale=None,
+            v_dim=None) -> torch.Tensor:
     """The kernel itself, without :func:`_check`'s validation."""
     b, h, d = q.shape
+    dv = d if v_dim is None else v_dim
     _, page, kh, _ = k_pages.shape
     device = q.device
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
@@ -216,25 +237,29 @@ def _launch(q, k_pages, v_pages, block_table, context_lens) -> torch.Tensor:
                             f"{x.dtype}")
     if k_pages.dtype != v_pages.dtype:
         raise TypeError("k_pages and v_pages must share a dtype")
-    if d > MAX_HEAD_DIM or h // kh > MAX_GROUPS:
+    if d > MAX_HEAD_DIM or min(h // kh, HEAD_BLOCK) * dv > MAX_BLOCK_ELEMS:
         raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM} and "
-                         f"<= {MAX_GROUPS} query heads per kv head; got "
-                         f"{d} and {h // kh}")
-    q_c, k_c, v_c = (x.contiguous() for x in (q, k_pages, v_pages))
+                         f"<= {MAX_BLOCK_ELEMS} values in a block of "
+                         f"{HEAD_BLOCK} query heads; got {d} and "
+                         f"{min(h // kh, HEAD_BLOCK)} x {dv}")
+    shared = v_dim is not None and v_pages is k_pages
+    q_c, k_c = q.contiguous(), k_pages.contiguous()
+    v_c = k_c if shared else v_pages.contiguous()
     bt = block_table.to(torch.int32).contiguous()
     cl = context_lens.to(torch.int32).contiguous()
-    out = torch.empty_like(q_c)
-    plan = launch_plan(q_c, k_c, v_c, bt)
+    out = torch.empty((b, h, dv), dtype=q.dtype, device=device)
+    plan = launch_plan(q_c, k_c, v_c, bt, v_dim)
     # (m, l, acc) of every partition of every (sequence, head), in f32
-    ws = torch.empty((b, h, plan["parts"], d + 2), dtype=torch.float32,
+    ws = torch.empty((b, h, plan["parts"], dv + 2), dtype=torch.float32,
                      device=device) if plan["parts"] > 1 else None
     lib = _library()
     rc = lib.paged_attention(
         q_c.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), bt.data_ptr(),
         cl.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
         b, h, d, page, kh, bt.shape[1], plan["part_len"], plan["parts"],
-        d ** -0.5, _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
-        _device_index(device), torch.cuda.current_stream(device).cuda_stream)
+        d ** -0.5 if scale is None else scale, _DTYPES[q.dtype],
+        _DTYPES[k_pages.dtype], dv, int(shared), _device_index(device),
+        torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel failed: CUDA error {rc} "
                            f"({lib.paged_attention_error_string(rc).decode()})")
@@ -248,13 +273,14 @@ def _device_index(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(h, d, kh, q_dtype, kv_dtype, aligned, index) -> int:
+def _resident(h, d, kh, q_dtype, kv_dtype, aligned, index, dv, shared
+              ) -> int:
     """Partition blocks an SM of card `index` holds at once (the CUDA
     occupancy of the kernel variant these shapes and dtypes launch)."""
     lib = _library()
     out = ctypes.c_int(0)
     rc = lib.paged_attention_resident(ctypes.byref(out), h, d, kh, aligned,
-                                      q_dtype, kv_dtype, index)
+                                      q_dtype, kv_dtype, dv, shared, index)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention_resident failed: CUDA error {rc} "
@@ -263,57 +289,71 @@ def _resident(h, d, kh, q_dtype, kv_dtype, aligned, index) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(b, h, d, kh, page, nblk, q_dtype, kv_dtype, aligned, index):
+def _plan(b, h, d, kh, page, nblk, q_dtype, kv_dtype, aligned, index, dv,
+          shared):
     """(parts, part_len, resident) of a call, cached by its shapes."""
-    resident = _resident(h, d, kh, q_dtype, kv_dtype, aligned, index)
-    parts, part_len = split_plan(b, kh, nblk * page, page, _sm_count(index),
-                                 resident)
+    resident = _resident(h, d, kh, q_dtype, kv_dtype, aligned, index, dv,
+                         shared)
+    parts, part_len = split_plan(b, kh * head_blocks(h, kh), nblk * page,
+                                 page, _sm_count(index), resident)
     return parts, part_len, resident
 
 
-def launch_plan(q, k_pages, v_pages, block_table) -> dict:
+def launch_plan(q, k_pages, v_pages, block_table, v_dim=None) -> dict:
     """How the kernel splits a CUDA call: ``{"parts", "part_len",
     "blocks", "resident"}`` (blocks of the partition pass, and how many an
-    SM holds at once)."""
+    SM holds at once).  With `v_dim` given and ``v_pages`` the same tensor
+    as ``k_pages``, the kernel reads each row once, as keys and values."""
     b, h, d = q.shape
     _, page, kh, _ = k_pages.shape
+    shared = v_dim is not None and v_pages is k_pages
     aligned = int(k_pages.data_ptr() % 16 == 0
                   and v_pages.data_ptr() % 16 == 0)
     parts, part_len, resident = _plan(
         b, h, d, kh, page, block_table.shape[1], _DTYPES[q.dtype],
-        _DTYPES[k_pages.dtype], aligned, _device_index(q.device))
-    return dict(parts=parts, part_len=part_len, blocks=kh * b * parts,
+        _DTYPES[k_pages.dtype], aligned, _device_index(q.device),
+        d if v_dim is None else v_dim, int(shared))
+    return dict(parts=parts, part_len=part_len,
+                blocks=kh * head_blocks(h, kh) * b * parts,
                 resident=resident)
 
 
-def paged_attention(q, k_pages, v_pages, block_table, context_lens
-                    ) -> torch.Tensor:
+def paged_attention(q, k_pages, v_pages, block_table, context_lens, *,
+                    scale: Optional[float] = None,
+                    v_dim: Optional[int] = None) -> torch.Tensor:
     """Decode attention over a paged KV pool.
 
     Shapes: q (B,H,D); k_pages/v_pages (P, page, K, D); block_table
-    (B, nblk) int32; context_lens (B,) int32 -> out (B,H,D) in q.dtype.
-    A CUDA ``q`` launches the kernel (or raises); a CPU ``q`` runs
+    (B, nblk) int32; context_lens (B,) int32 -> out (B,H,Dv) in q.dtype,
+    ``Dv = v_dim`` (default D) the leading columns of the V rows; the
+    logits scaled by `scale` (default ``D ** -0.5``).  A CUDA ``q``
+    launches the kernel (or raises); a CPU ``q`` runs
     :func:`paged_attention_ref`.
     """
-    _check(q, k_pages, v_pages, block_table, context_lens)
+    _check(q, k_pages, v_pages, block_table, context_lens,
+           q.shape[-1] if v_dim is None else v_dim)
     if q.device.type == "cuda":
-        return _launch(q, k_pages, v_pages, block_table, context_lens)
+        return _launch(q, k_pages, v_pages, block_table, context_lens,
+                       scale, v_dim)
     if q.device.type != "cpu":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     return paged_attention_ref(q, k_pages, v_pages, block_table,
-                               context_lens)
+                               context_lens, scale=scale, v_dim=v_dim)
 
 
-def bound_bytes(q, k_pages, block_table, context_lens) -> int:
+def bound_bytes(q, k_pages, block_table, context_lens, *,
+                v_dim: Optional[int] = None, shared_kv: bool = False) -> int:
     """Bytes one call must move at least: q read, each live position's K and
-    V rows of every kv head read, the live table entries and the lengths
+    V rows of every kv head read (one row where the values are the keys'
+    leading columns, `shared_kv`), the live table entries and the lengths
     read, the output written — each once."""
     b, h, d = q.shape
     _, page, kh, _ = k_pages.shape
+    dv = d if v_dim is None else v_dim
     nblk = block_table.shape[1]
     ctx = context_lens.to(torch.int64).clamp(0, nblk * page)
-    kv_elems = int(ctx.sum()) * kh * 2 * d
+    kv_elems = int(ctx.sum()) * kh * (d if shared_kv else d + dv)
     live = int(n_live_blocks(context_lens, page, nblk).sum())
-    return (2 * q.numel() * q.element_size()
+    return (b * h * (d + dv) * q.element_size()
             + kv_elems * k_pages.element_size() + 4 * (live + b))

@@ -31,6 +31,7 @@ from repro_torch.configs import ARCHS, get_smoke
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.memory.kvcache import PagedKVCache
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.runtime.trace import span
 
@@ -49,17 +50,23 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     pages), one K4 launch over the f32-cast layer-0 pool, then one
     ``decode_step`` per sequence.  Where the step can be captured
     (:func:`~repro_torch.models.transformer.graphable`: the CUDA card, GQA
-    attention and dense MLPs, RoPE or M-RoPE), each sequence's caches are
-    a :class:`~repro_torch.models.transformer.StepGraph`: its first step
+    or MLA attention, dense MLPs or MoE FFNs, RoPE or M-RoPE), each
+    sequence's caches are a
+    :class:`~repro_torch.models.transformer.StepGraph`: its first step
     runs eagerly, the second captures the step as a CUDA graph
     (``serve.capture#<sid>``) and every step from then on replays it;
     elsewhere every step runs eagerly.  The prefill stashes layer 0's keys in
     the pool (as both K and V, as the reference does) when its first
-    block has a K/V cache; for rwkv, rec and MLA models only the decode
-    steps' zero rows fill it.  Runs on `device` (default: the CUDA
-    card).  Under a profiler each request's prefill and each decode step
-    is a span (``serve.prefill#<sid>``, ``serve.step``), with the step's
-    stages inside (:mod:`repro_torch.runtime.trace`).
+    block has a K/V cache; an MLA model's pool holds the latent
+    (:class:`PagedKVCache`), and its prefill stashes layer 0's normed
+    compressed KV and roped rope key, one row a token, which K4 reads as
+    keys (all columns) and values (the first ``kv_lora_rank``) at the
+    model's softmax scale, under a query of the row's width; for rwkv and
+    rec models only the decode steps' zero rows fill the pool.  Runs on
+    `device` (default: the CUDA card).  Under a profiler each request's
+    prefill and each decode step is a span (``serve.prefill#<sid>``,
+    ``serve.step``), with the step's stages inside
+    (:mod:`repro_torch.runtime.trace`).
 
     Returns a dict: ``tokens`` ({seq: [token, ...]}), ``kv_stats`` (:class:`KVStats` as a
     dict), ``tier_histogram``, ``attn_out`` (every step's K4 output),
@@ -101,6 +108,10 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
             if "k" in first:
                 k0 = first["k"][0]
                 kv.append_tokens(sid, 0, k0[:prefill], k0[:prefill])
+            elif kv.latent:
+                kv.append_tokens(sid, 0, torch.cat(
+                    [first["ckv"][0, :prefill], first["krope"][0, :prefill]],
+                    dim=-1)[:, None])
             seqs.append(sid)
             dense_caches[sid] = (tf.StepGraph(cache, params, cfg)
                                  if tf.graphable(cfg, dev) else cache)
@@ -115,16 +126,23 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     tokens_out = {sid: [] for sid in seqs}
     attn_out = []
     captured = 0
-    zeros = np.zeros((1, cfg.n_kv_heads, cfg.head_dim), np.float32)
+    heads, width = kv.row()
+    zeros = np.zeros((1, heads, width), np.float32)
     for _ in range(decode):
         with span("serve.step"):
             bt, cl = kv.gather_args(seqs)      # charges CXL fetches
             q = torch.from_numpy(rng.standard_normal(
-                (len(seqs), cfg.n_heads, cfg.head_dim)).astype(np.float32)
+                (len(seqs), cfg.n_heads, width)).astype(np.float32)
             ).to(dev)
             with span("serve.pool_cast"):
-                kp, vp = kv.k_pool[0].float(), kv.v_pool[0].float()
-            attn_out.append(ops.paged_attention(q, kp, vp, bt, cl))
+                kp = kv.k_pool[0].float()
+                vp = kp if kv.latent else kv.v_pool[0].float()
+            if kv.latent:
+                attn_out.append(ops.paged_attention(
+                    q, kp, vp, bt, cl, scale=attn_mod.mla_softmax_scale(cfg),
+                    v_dim=cfg.mla.kv_lora_rank))
+            else:
+                attn_out.append(ops.paged_attention(q, kp, vp, bt, cl))
             for sid in seqs:
                 tok = torch.tensor([next_tok[sid]], dtype=torch.int32,
                                    device=dev)
@@ -143,7 +161,7 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
                 next_tok[sid] = nxt
                 tokens_out[sid].append(nxt)
                 ctxs[sid] += 1
-                kv.append_tokens(sid, 0, zeros, zeros)
+                kv.append_tokens(sid, 0, zeros, None if kv.latent else zeros)
     _sync(dev)
     decode_s = time.perf_counter() - t0
     replayed = sum(c.replayed for c in dense_caches.values()

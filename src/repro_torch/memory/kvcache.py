@@ -8,12 +8,22 @@ migrates pages (LRU-hot promotion / cold demotion), and charges every CXL
 crossing to the calibrated timing model — a simulated clock the serving
 loop reads.
 
+For an MLA configuration the pool holds the latent instead: one row of
+``kv_lora_rank + qk_rope_head_dim`` elements a token (the normed
+compressed KV, then the roped shared rope key), one pool whose rows are
+the keys and whose first ``kv_lora_rank`` columns are the values of the
+absorbed decode; a page is priced at that row.
+
 The pools are device tensors in ``cfg.dtype``, written **in place**: the
 JAX reference's ``.at[pg, off].set`` returns a new pool (a copy per
 token), the port's update does not; the pool values agree.  The block
 tables, the tier map, the LRU clock and the stats stay host Python and
 NumPy, as in the reference, so :class:`KVStats` matches it exactly
 (``sim_seconds`` to the ulp: the same float operations in the same order).
+The count of HBM pages in use is kept as pages move, and the LRU victim is
+found over NumPy arrays of each page's last use, sequence and block, in
+the reference's order (least recent, then first in request order, then
+in block order), where the reference walks every block table for each.
 """
 from __future__ import annotations
 
@@ -46,7 +56,9 @@ class PagedKVCache:
     """Global page pool + block tables + tier map for one layer group.
 
     The pools are ``n_layers`` pairs of (n_pages, page_size, K, hd)
-    tensors on `device` (default: the CUDA card).
+    tensors on `device` (default: the CUDA card); for MLA (``latent``)
+    ``n_layers`` single (n_pages, page_size, 1, kv_lora_rank +
+    qk_rope_head_dim) pools, ``v_pool`` None.
     """
 
     def __init__(self, cfg, *, n_pages: int, page_size: int,
@@ -59,27 +71,45 @@ class PagedKVCache:
         self.hbm_page_budget = hbm_page_budget
         self.timing = timing or TimingConfig()
         self.device = resolve_device(device)
-        kh, hd = cfg.n_kv_heads, cfg.head_dim
+        self.latent = cfg.attn_kind == "mla"
+        kh, hd = self.row()
         dt = getattr(torch, cfg.dtype)
         self.n_layers = n_layers
         shape = (n_pages, page_size, kh, hd)
         self.k_pool = [torch.zeros(shape, dtype=dt, device=self.device)
                        for _ in range(n_layers)]
-        self.v_pool = [torch.zeros(shape, dtype=dt, device=self.device)
-                       for _ in range(n_layers)]
+        self.v_pool = None if self.latent else [
+            torch.zeros(shape, dtype=dt, device=self.device)
+            for _ in range(n_layers)]
         self.free: List[int] = list(range(n_pages))
         self.tier = np.zeros((n_pages,), np.int8)
         self.last_use = np.zeros((n_pages,), np.int64)
         self.block_tables: Dict[int, List[int]] = {}
         self.seq_lens: Dict[int, int] = {}
+        # pages in the block tables on HBM; each page's sequence (its
+        # allocation rank, -1 while free) and block, the LRU's tie order
+        self._hbm_used = 0
+        self._owner = np.full((n_pages,), -1, np.int64)
+        self._block = np.zeros((n_pages,), np.int64)
+        self._rank: Dict[int, int] = {}
+        self._next_rank = 0
         self.max_blocks = max_blocks
         self.clock = 0
         self.stats = KVStats()
 
     # -- bookkeeping ---------------------------------------------------------
+    def row(self) -> Tuple[int, int]:
+        """(heads, width) of one token's row in a pool: the kv heads and
+        head size, or one latent row for MLA."""
+        if self.latent:
+            m = self.cfg.mla
+            return 1, m.kv_lora_rank + m.qk_rope_head_dim
+        return self.cfg.n_kv_heads, self.cfg.head_dim
+
     def page_bytes(self) -> int:
-        kh, hd = self.cfg.n_kv_heads, self.cfg.head_dim
-        return self.page_size * kh * hd * 2 * 2 * self.n_layers
+        kh, hd = self.row()
+        pools = 1 if self.latent else 2
+        return self.page_size * kh * hd * pools * 2 * self.n_layers
 
     def lines_per_page(self) -> int:
         """Cachelines one KV page spans (>= 1): the expansion factor the
@@ -92,15 +122,15 @@ class PagedKVCache:
         return self.tier.copy()
 
     def hbm_pages_in_use(self) -> int:
-        used = [p for t in self.block_tables.values() for p in t]
-        return int(sum(1 for p in used if self.tier[p] == HBM))
+        return self._hbm_used
 
     def _evict_to_cxl_if_needed(self) -> None:
-        while self.hbm_pages_in_use() > self.hbm_page_budget:
-            used = [p for t in self.block_tables.values() for p in t
-                    if self.tier[p] == HBM]
-            victim = min(used, key=lambda p: self.last_use[p])
+        while self._hbm_used > self.hbm_page_budget:
+            used = np.flatnonzero((self._owner >= 0) & (self.tier == HBM))
+            lru = used[self.last_use[used] == self.last_use[used].min()]
+            victim = lru[np.lexsort((self._block[lru], self._owner[lru]))[0]]
             self.tier[victim] = CXL
+            self._hbm_used -= 1
             self.stats.demotions += 1
             self.stats.cxl_bytes += self.page_bytes()
             self.stats.sim_seconds += self.page_bytes() / (
@@ -112,14 +142,21 @@ class PagedKVCache:
             raise KeyError(f"seq {seq_id} already allocated")
         self.block_tables[seq_id] = []
         self.seq_lens[seq_id] = 0
+        self._rank[seq_id] = self._next_rank
+        self._next_rank += 1
 
     def release(self, seq_id: int) -> None:
         for p in self.block_tables.pop(seq_id, []):
+            self._hbm_used -= int(self.tier[p] == HBM)
+            self._owner[p] = -1
             self.free.append(p)
         self.seq_lens.pop(seq_id, None)
+        self._rank.pop(seq_id, None)
 
-    def append_tokens(self, seq_id: int, layer: int, k_new, v_new) -> None:
-        """Append (T, K, hd) keys/values (tensors or arrays) for `seq_id`.
+    def append_tokens(self, seq_id: int, layer: int, k_new,
+                      v_new=None) -> None:
+        """Append (T, K, hd) keys/values (tensors or arrays) for `seq_id`
+        (for the latent pool, (T, 1, width) rows and no values).
 
         The bookkeeping walks the tokens one by one, as the reference; the
         T rows are then written into the pools with one indexed copy each.
@@ -139,6 +176,9 @@ class PagedKVCache:
                         pg = self.free.pop()
                         table.append(pg)
                         self.tier[pg] = HBM
+                        self._owner[pg] = self._rank[seq_id]
+                        self._block[pg] = blk
+                        self._hbm_used += 1
                         self.stats.allocs += 1
                         self._evict_to_cxl_if_needed()
                     pg = table[blk]
@@ -151,8 +191,10 @@ class PagedKVCache:
                     idx = (torch.tensor(pages, device=self.device),
                            torch.tensor(offs, device=self.device))
                     n = len(pages)
-                    for pool, new in ((self.k_pool[layer], k_new),
-                                      (self.v_pool[layer], v_new)):
+                    writes = [(self.k_pool[layer], k_new)]
+                    if not self.latent:
+                        writes.append((self.v_pool[layer], v_new))
+                    for pool, new in writes:
                         pool[idx] = torch.as_tensor(new[:n]).to(self.device,
                                                                 pool.dtype)
             if layer == self.n_layers - 1:
@@ -179,8 +221,9 @@ class PagedKVCache:
                         self.stats.cxl_bytes += self.page_bytes()
                         self.stats.sim_seconds += self.page_bytes() / (
                             self.timing.cxl.payload_read_gbps * 1e9)
-                        if self.hbm_pages_in_use() < self.hbm_page_budget:
+                        if self._hbm_used < self.hbm_page_budget:
                             self.tier[pg] = HBM          # promote while hot
+                            self._hbm_used += 1
                             self.stats.promotions += 1
                     else:
                         self.stats.hbm_hits += 1

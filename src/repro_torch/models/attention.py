@@ -36,19 +36,21 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
-                        kv_chunk: int = 1024) -> torch.Tensor:
+                        kv_chunk: int = 1024, scale: Optional[float] = None
+                        ) -> torch.Tensor:
     """Online-softmax attention. q (B,Sq,N,hd); k,v (B,Skv,K,hd) -> like q.
 
     Positions are end-aligned (query i sits at ``i + Skv - Sq``); a ragged
     last chunk is zero-padded and masked.  Logits and the value sum
     accumulate in f32 from products of the working type, as the
-    reference's ``preferred_element_type=f32`` einsums.
+    reference's ``preferred_element_type=f32`` einsums.  The logits are
+    scaled by `scale` (default ``hd ** -0.5``).
     """
     b, sq, n, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
     g = n // kh
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     kv_chunk = min(kv_chunk, skv)
     skv_pad = -(-skv // kv_chunk) * kv_chunk
     if skv_pad != skv:                      # pad + mask the tail chunk
@@ -142,7 +144,8 @@ def _qkv(params: Dict, x: torch.Tensor, cfg):
 
 def _apply_positional(x: torch.Tensor, positions, cfg) -> torch.Tensor:
     if cfg.rope == "rope":
-        return rope_mod.apply_rope(x, positions, cfg.rope_theta)
+        return rope_mod.apply_rope(x, positions, cfg.rope_theta,
+                                   cfg.rope_scaling)
     if cfg.rope == "mrope":
         return rope_mod.apply_mrope(x, positions, cfg.rope_theta,
                                     cfg.mrope_sections)
@@ -240,8 +243,8 @@ def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
         k = rope_mod.apply_mrope(k, torch.stack([pos] * 3), cfg.rope_theta,
                                  cfg.mrope_sections)
     elif cfg.rope == "rope":
-        q = rope_mod.apply_rope(q, pos, cfg.rope_theta)
-        k = rope_mod.apply_rope(k, pos, cfg.rope_theta)
+        q = rope_mod.apply_rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
+        k = rope_mod.apply_rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
     win = window if window is not None else cfg.window
     if on_device:
         slot = ctx_len.long() % s_cache if win is not None else ctx_len.long()
@@ -284,6 +287,14 @@ def mla_init(gen: torch.Generator, cfg) -> Dict:
     }
 
 
+def mla_softmax_scale(cfg) -> float:
+    """The MLA softmax scale: ``(nope + rope) ** -0.5``, times YaRN's
+    ``mscale ** 2`` under rope scaling (DeepSeek-V3's ``softmax_scale``)."""
+    m = cfg.mla
+    return ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+            * rope_mod.yarn_softmax_factor(cfg.rope_scaling))
+
+
 def _mla_qkv(params: Dict, x: torch.Tensor, cfg, positions):
     """Shared projections. Returns q_nope, q_rope, ckv (normed), k_rope."""
     m = cfg.mla
@@ -294,12 +305,12 @@ def _mla_qkv(params: Dict, x: torch.Tensor, cfg, positions):
                        cfg.norm_eps), params["wq_b"]).reshape(b, s, n, qk)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = rope_mod.apply_rope(q[..., m.qk_nope_head_dim:], positions,
-                                 cfg.rope_theta)
+                                 cfg.rope_theta, cfg.rope_scaling)
     kv = matmul(x, params["wkv_a"])
     ckv = rmsnorm(params["kv_norm"], kv[..., :m.kv_lora_rank], cfg.norm_eps)
     k_rope = rope_mod.apply_rope(
         kv[..., m.kv_lora_rank:][:, :, None, :], positions,
-        cfg.rope_theta)[:, :, 0, :]                         # shared head
+        cfg.rope_theta, cfg.rope_scaling)[:, :, 0, :]       # shared head
     return q_nope, q_rope, ckv, k_rope
 
 
@@ -332,7 +343,8 @@ def mla_attention(params: Dict, x: torch.Tensor, cfg, positions
     reference's does."""
     b, s, _ = x.shape
     q, k, v, _, _ = _mla_expand(params, x, cfg, positions)
-    o = blockwise_attention(q, k, v, causal=True)
+    o = blockwise_attention(q, k, v, causal=True,
+                            scale=mla_softmax_scale(cfg))
     o = o.reshape(b, s, cfg.n_heads * cfg.mla.v_head_dim)
     return shard(matmul(o, params["wo"], reduce_dtype=_reduce(x, cfg)),
                  BATCH, None, None)
@@ -344,7 +356,8 @@ def mla_prefill(params: Dict, x: torch.Tensor, cfg, positions
     attention with ``cfg.kv_chunk``, as the reference's prefill)."""
     b, s, _ = x.shape
     q, k, v, ckv, k_rope = _mla_expand(params, x, cfg, positions)
-    o = blockwise_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk)
+    o = blockwise_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk,
+                            scale=mla_softmax_scale(cfg))
     y = shard(matmul(o.reshape(b, s, cfg.n_heads * cfg.mla.v_head_dim),
                      params["wo"], reduce_dtype=_reduce(x, cfg)),
               BATCH, None, None)
@@ -354,27 +367,39 @@ def mla_prefill(params: Dict, x: torch.Tensor, cfg, positions
 
 
 def mla_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
-               ctx_len: int) -> Tuple[torch.Tensor, Dict]:
+               ctx_len) -> Tuple[torch.Tensor, Dict]:
     """Absorbed-decode MLA over the latent cache {ckv: (B,S,r), krope:
     (B,S,p)}, updated in place; the einsums run in f32 and scale by
-    (nope + rope) ** -0.5."""
+    :func:`mla_softmax_scale`.  `ctx_len` is an int or a 0-d integer
+    tensor on x's device, as in :func:`attention_decode`: with a tensor
+    nothing is read back to the host, and the values are the int path's."""
     m = cfg.mla
     b, _, d = x.shape
     n = cfg.n_heads
-    ctx_len = int(ctx_len)
-    pos = torch.full((b, 1), ctx_len, dtype=torch.int32, device=x.device)
+    on_device = isinstance(ctx_len, torch.Tensor)
+    if on_device:
+        pos = ctx_len.to(torch.int32).expand(b, 1)
+    else:
+        ctx_len = int(ctx_len)
+        pos = torch.full((b, 1), ctx_len, dtype=torch.int32, device=x.device)
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv(params, x, cfg, pos)
     s_len = cache["ckv"].shape[1]
     # dynamic_update_slice clamps the start so the slice fits
-    idx = min(max(ctx_len, 0), s_len - 1)
-    cache["ckv"][:, idx] = ckv_new[:, 0].to(cache["ckv"].dtype)
-    cache["krope"][:, idx] = krope_new[:, 0].to(cache["krope"].dtype)
+    if on_device:
+        idx = ctx_len.long().clamp(0, s_len - 1).reshape(1)
+        cache["ckv"].index_copy_(1, idx, ckv_new.to(cache["ckv"].dtype))
+        cache["krope"].index_copy_(1, idx,
+                                   krope_new.to(cache["krope"].dtype))
+    else:
+        idx = min(max(ctx_len, 0), s_len - 1)
+        cache["ckv"][:, idx] = ckv_new[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][:, idx] = krope_new[:, 0].to(cache["krope"].dtype)
     ckv_c = cache["ckv"].to(F32)
     wkv_b = params["wkv_b"].reshape(m.kv_lora_rank, n,
                                     m.qk_nope_head_dim + m.v_head_dim)
     w_uk = wkv_b[..., :m.qk_nope_head_dim].to(F32)          # (r, n, nope)
     w_uv = wkv_b[..., m.qk_nope_head_dim:].to(F32)          # (r, n, v)
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scale = mla_softmax_scale(cfg)
     q_eff = torch.einsum("bnd,rnd->bnr", q_nope[:, 0].to(F32), w_uk)
     logits = (torch.einsum("bnr,bsr->bns", q_eff, ckv_c)
               + torch.einsum("bnp,bsp->bns", q_rope[:, 0].to(F32),

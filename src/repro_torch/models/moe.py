@@ -1,6 +1,7 @@
-"""Mixture-of-Experts with capacity-based gather dispatch.
+"""Mixture-of-Experts: capacity-based gather dispatch over every expert,
+or an expert-parallel share dispatched without drops.
 
-The port of ``repro.models.moe``:
+The port of ``repro.models.moe`` (``MoEConfig.held`` None):
 
   1. router top-k per token (f32);
   2. an (E, C) token-index table built by scatter: token t's rank within
@@ -16,6 +17,18 @@ products take f32 operands and give f32 results, as the reference's
 under ``tp_reduce_bf16``).  The combine adds in ``x.dtype``; on the card
 its bf16 atomics make the sum's order, and so its last bit, vary from
 run to run.
+
+A layer told which experts it holds (``MoEConfig.held = (first, count)``,
+one rank of an expert-parallel deployment) routes every token over all
+``n_experts`` with :func:`gate`, then computes, without drops, only the
+assignments that land on its own experts: sorted by expert, one SwiGLU
+product pair per held expert in the working dtype (f32 accumulation), and
+a weighted f32 combine.  The shared expert is added once.  What the absent
+experts would add is left out (on one card there is no exchange), so the
+shares' outputs, each with its held experts only and the shared expert
+counted once, sum to the whole layer's.  The sort's expert sizes are read
+back to the host once per call.  Under a profiler the gate and sort are
+the span ``moe.route``, the products and combine ``moe.experts``.
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, mlp, mlp_init, pdtype
+from repro_torch.runtime.trace import span
 
 F32 = torch.float32
 
@@ -36,9 +50,11 @@ def moe_init(gen: torch.Generator, cfg) -> Dict:
     e, f = m.n_experts, m.expert_d_ff
     p = {
         "router": dense_init(gen, (d, e), dtype=F32),
-        "wiu": dense_init(gen, (e, d, 2 * f), in_axis=-2, dtype=dt),
-        "wo": dense_init(gen, (e, f, d), in_axis=-2, dtype=dt),
+        "wiu": dense_init(gen, (m.n_held, d, 2 * f), in_axis=-2, dtype=dt),
+        "wo": dense_init(gen, (m.n_held, f, d), in_axis=-2, dtype=dt),
     }
+    if m.score_bias:
+        p["bias"] = torch.zeros((e,), dtype=F32, device=gen.device)
     if m.n_shared:
         sh = m.shared_d_ff or m.expert_d_ff
         p["shared"] = mlp_init(gen, d, m.n_shared * sh, dtype=dt)
@@ -120,14 +136,108 @@ class _F32Bmm(torch.autograd.Function):
 _bmm_f32 = _F32Bmm.apply
 
 
-def moe_ffn(params: Dict, x: torch.Tensor, cfg
+def gate(params: Dict, xt: torch.Tensor, cfg
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route tokens xt (T, D) over all ``n_experts``: (weights (T, k) f32,
+    experts (T, k) int64), as DeepSeek-V3's ``Gate``.
+
+    Scores are the softmax or sigmoid of ``xt @ router`` in f32; the
+    choice adds the score bias where the layer has one.  With groups, a
+    group's score is its best choice (without a bias) or the sum of its two
+    best (with one); the ``topk_group`` best groups are kept and the rest
+    masked; then the top ``top_k`` choices.  The weights are the chosen
+    experts' unbiased scores, divided by their sum for sigmoid scores,
+    times ``routed_scale``."""
+    m = cfg.moe
+    t = xt.shape[0]
+    logits = xt.to(F32) @ params["router"]
+    scores = (torch.sigmoid(logits) if m.scoring == "sigmoid"
+              else torch.softmax(logits, dim=-1))
+    choice = scores + params["bias"] if "bias" in params else scores
+    if m.n_group > 1:
+        grouped = choice.view(t, m.n_group, -1)
+        g_score = (grouped.topk(2, dim=-1).values.sum(-1) if "bias" in params
+                   else grouped.amax(dim=-1))
+        keep = g_score.topk(m.topk_group, dim=-1).indices
+        drop = torch.ones((t, m.n_group), dtype=torch.bool,
+                          device=xt.device).scatter_(1, keep, False)
+        choice = grouped.masked_fill(drop[..., None], -torch.inf).flatten(1)
+    experts = choice.topk(m.top_k, dim=-1).indices
+    weights = scores.gather(1, experts)
+    if m.scoring == "sigmoid":
+        weights = weights / weights.sum(-1, keepdim=True)
+    return weights * m.routed_scale, experts
+
+
+def _held_ffn(params: Dict, xt: torch.Tensor, cfg, every_held: bool = False
+              ) -> torch.Tensor:
+    """The held experts' part of the routed output, (T, D) f32.
+
+    The assignments to held experts are sorted by expert and each held
+    expert runs on its own tokens, which the host reads back to size the
+    products.  With `every_held` (a decode step's few tokens) every held
+    expert runs on every token instead, and the products are weighted by
+    the gate's weights, zero where a token is not routed to the expert:
+    static shapes and nothing read back, so the host does not wait on the
+    card."""
+    m = cfg.moe
+    first, n = m.held
+    t, d = xt.shape
+    f_ = m.expert_d_ff
+    with span("moe.route"):
+        weights, experts = gate(params, xt, cfg)
+        local = experts - first
+        held = (local >= 0) & (local < n)
+        if every_held:
+            w_held = torch.zeros((t, n), dtype=F32, device=xt.device
+                                 ).scatter_add_(1, torch.where(held, local, 0),
+                                                torch.where(held, weights, 0.0))
+        else:
+            bucket = torch.where(held, local, n).reshape(-1)
+            order = torch.argsort(bucket, stable=True)
+            sizes = torch.bincount(bucket, minlength=n + 1)[:n]
+    with span("moe.experts"):
+        if every_held:
+            gu = torch.matmul(xt, params["wiu"])                # (n, T, 2F)
+            h = F.silu(gu[..., :f_].to(F32)).to(xt.dtype) * gu[..., f_:]
+            out = torch.bmm(h, params["wo"])                     # (n, T, D)
+            return (out.to(F32) * w_held.T[..., None]).sum(0)
+        sizes = sizes.tolist()
+        mine = order[:sum(sizes)]
+        tok = mine // m.top_k
+        xs = xt[tok]
+        out = torch.empty((mine.numel(), d), dtype=xt.dtype,
+                          device=xt.device)
+        at = 0
+        for e, c in enumerate(sizes):
+            if c:
+                gu = xs[at:at + c] @ params["wiu"][e]
+                h = F.silu(gu[:, :f_].to(F32)).to(xt.dtype) * gu[:, f_:]
+                out[at:at + c] = h @ params["wo"][e]
+                at += c
+        w = weights.reshape(-1)[mine]
+        return torch.zeros((t, d), dtype=F32, device=xt.device).index_add_(
+            0, tok, out.to(F32) * w[:, None])
+
+
+def moe_ffn(params: Dict, x: torch.Tensor, cfg, decode: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward. x (B, S, D) -> (y (B, S, D), aux_loss ()).
 
     Dispatch is global: the reference groups tokens by its data shards
-    (a (G, E, C, D) dispatch), which is one group on one card."""
+    (a (G, E, C, D) dispatch), which is one group on one card.  A layer
+    that holds a share of the experts (``MoEConfig.held``) computes its
+    share without drops and has no aux loss; in a `decode` step every held
+    expert runs on the step's tokens (:func:`_held_ffn`)."""
     m = cfg.moe
     b, s, d = x.shape
+    if m.held is not None:
+        y = _held_ffn(params, x.reshape(b * s, d), cfg, every_held=decode)
+        y = y.to(x.dtype).reshape(b, s, d)
+        if "shared" in params:
+            y = y + mlp(params["shared"], x, cfg.act,
+                        reduce_bf16=cfg.tp_reduce_bf16)
+        return y, torch.zeros((), dtype=F32, device=x.device)
     t = b * s
     xt = x.reshape(t, d)
 

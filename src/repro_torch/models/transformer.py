@@ -24,7 +24,9 @@ backward pass), :func:`forward_prefill` (emits the caches) and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -41,6 +43,7 @@ from repro_torch.models.layers import (ShapeOnly, dense_init, embed,
                                        rmsnorm_init, sinusoidal_positions)
 from repro_torch.models.rope import text_mrope_positions
 from repro_torch.models.sharding import BATCH, MODEL, shard
+from repro_torch.runtime.trace import cut_at_spans, span
 
 F32 = torch.float32
 
@@ -114,12 +117,12 @@ def block_init(gen: torch.Generator, kind: str, cfg) -> Dict:
             "ln2": rmsnorm_init(d, gen.device), ffn[0]: ffn[1]}
 
 
-def _ffn(kind: str, p: Dict, h: torch.Tensor, cfg
+def _ffn(kind: str, p: Dict, h: torch.Tensor, cfg, decode: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The feed-forward half of an attention or rec block: (y, MoE aux
-    loss or 0)."""
+    loss or 0); `decode` for a decode step's tokens."""
     if kind == "moe":
-        return moe_mod.moe_ffn(p["moe"], h, cfg)
+        return moe_mod.moe_ffn(p["moe"], h, cfg, decode=decode)
     return (mlp(p["mlp"], h, cfg.act, reduce_bf16=cfg.tp_reduce_bf16),
             torch.zeros((), dtype=F32, device=h.device))
 
@@ -174,7 +177,7 @@ def _block_seq(kind: str, p: Dict, x: torch.Tensor, cfg, positions,
 
 
 def _block_decode(kind: str, p: Dict, x: torch.Tensor, cfg, cache: Dict,
-                  ctx_len: int) -> Tuple[torch.Tensor, Dict]:
+                  ctx_len) -> Tuple[torch.Tensor, Dict]:
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -186,7 +189,8 @@ def _block_decode(kind: str, p: Dict, x: torch.Tensor, cfg, cache: Dict,
         y, cache = attn_mod.attention_decode(p["attn"], h, cfg, cache,
                                              ctx_len)
     x = x + y
-    y, _ = _ffn(kind, p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    y, _ = _ffn(kind, p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
+                decode=True)
     return x + y, cache
 
 
@@ -435,13 +439,57 @@ def _decode(params: Dict, cfg, token: torch.Tensor, caches: List, ctx_len
 
 def graphable(cfg, device) -> bool:
     """Whether :func:`decode_step` of `cfg` on `device` can be captured as
-    a CUDA graph: a CUDA device, every block GQA attention with a dense
-    MLP (whose decode reads nothing back to the host once the context
-    length is a device tensor) and RoPE or M-RoPE positions."""
+    CUDA graphs: a CUDA device, every block attention (GQA or MLA, whose
+    decode reads nothing back to the host once the context length is a
+    device tensor) with a dense MLP or an MoE FFN (whose decode has static
+    shapes), and RoPE or M-RoPE positions."""
     return (torch.device(device).type == "cuda"
-            and cfg.attn_kind != "mla" and cfg.rope in ("rope", "mrope")
-            and all(kind == "attn" for seg in segments(cfg)
+            and cfg.rope in ("rope", "mrope")
+            and all(kind in ("attn", "moe") for seg in segments(cfg)
                     for kind in seg.pattern))
+
+
+def _has_moe(cfg) -> bool:
+    return any(kind == "moe" for seg in segments(cfg) for kind in seg.pattern)
+
+
+class _Pieces:
+    """A decode step captured as CUDA graphs in one memory pool, cut at the
+    spans it opens (a held MoE layer's ``moe.route`` and ``moe.experts``):
+    :meth:`replay` replays the graphs in turn, each span's inside its span,
+    so that a profiler sees the spans of a replayed step."""
+
+    def __init__(self):
+        self.graphs: List[Tuple] = []       # (graph, (name, id) or None)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def begin(self, label=None) -> None:
+        self.graphs.append((torch.cuda.CUDAGraph(), label))
+        self.graphs[-1][0].capture_begin(pool=self.pool)
+
+    def end(self) -> None:
+        with warnings.catch_warnings():
+            # two spans back to back leave an empty graph between them
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            self.graphs[-1][0].capture_end()
+
+    @contextlib.contextmanager
+    def span(self, name: str, id: Optional[int] = None):
+        self.end()
+        self.begin((name, id))
+        try:
+            yield
+        finally:
+            self.end()
+            self.begin()
+
+    def replay(self) -> None:
+        for graph, label in self.graphs:
+            if label is None:
+                graph.replay()
+            else:
+                with span(*label):
+                    graph.replay()
 
 
 class StepGraph(list):
@@ -452,11 +500,12 @@ class StepGraph(list):
     token and the context length as a 0-d device tensor), which warms up
     what the capture records; :meth:`capture` then records the step on
     those inputs, and every later step copies its token and length in,
-    replays the graph and returns a clone of the graph's logits.  The
-    caches are updated in place, as by the eager step, so the list's
-    tensors stay the ones the graph reads and writes; ``params`` and
-    ``cfg`` are those the graph was made for (a call with others runs
-    eagerly).  ``replayed`` counts the replays.
+    replays the graph and returns a clone of the graph's logits.  A step
+    with MoE FFNs is captured as :class:`_Pieces`, cut at the spans of its
+    held layers.  The caches are updated in place, as by the eager step,
+    so the list's tensors stay the ones the graph reads and writes;
+    ``params`` and ``cfg`` are those the graph was made for (a call with
+    others runs eagerly).  ``replayed`` counts the replays.
     """
 
     def __init__(self, caches: List, params: Dict, cfg):
@@ -464,7 +513,7 @@ class StepGraph(list):
         self.params, self.cfg = params, cfg
         self.token: Optional[torch.Tensor] = None
         self.ctx: Optional[torch.Tensor] = None
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graph = None           # a torch.cuda.CUDAGraph or _Pieces
         self.logits: Optional[torch.Tensor] = None
         self.replayed = 0
 
@@ -495,10 +544,28 @@ class StepGraph(list):
 
     def capture(self) -> None:
         """Record the step on the static inputs; nothing runs."""
+        if _has_moe(self.cfg):
+            self.graph = self._capture_pieces()
+            return
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.logits = self._run()
         self.graph = graph
+
+    def _capture_pieces(self) -> _Pieces:
+        torch.cuda.synchronize()
+        pieces = _Pieces()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream), cut_at_spans(pieces.span):
+            pieces.begin()
+            try:
+                logits = self._run()
+            finally:
+                pieces.end()
+        torch.cuda.current_stream().wait_stream(stream)
+        self.logits = logits
+        return pieces
 
     def _run(self) -> torch.Tensor:
         return _decode(self.params, self.cfg, self.token, self, self.ctx)[0]

@@ -9,7 +9,9 @@ the device operations it launched, on the profiler's clock; the span that
 caused it is the one it nests in.  The profiler keeps the ranges in memory
 and writes them out with its trace.  Otherwise a span is one check of
 ``torch.autograd._profiler_enabled()`` and a shared do-nothing context:
-nothing is allocated, no clock is read.
+nothing is allocated, no clock is read.  While a decode step is captured
+as CUDA graphs (:func:`cut_at_spans`), each span's body becomes a graph of
+its own, replayed inside the span, so a replayed step shows its spans too.
 
     with torch.profiler.profile() as prof:
         serve.run(cfg)
@@ -41,16 +43,34 @@ SPANS = (
     "serve.model",         # a sequence's decode_step run or replayed (#<sid>)
     "serve.sample",        # the wait for its logits and the argmax (#<sid>)
     "kv.append_tokens",    # pages walked, evicted, the pools written
+    "moe.route",           # a held MoE layer's gate, group top-k and sort
+    "moe.experts",         # its held experts' products and the combine
 )
 
 _OFF = contextlib.nullcontext()
 _profiling = torch.autograd._profiler_enabled
+_cutter = None
 
 
 def span(name: str, id: Optional[int] = None):
     """The stage `name` (one of :data:`SPANS`), of request `id` when
     given, as a context manager."""
+    if _cutter is not None:
+        return _cutter(name, id)
     if not _profiling():
         return _OFF
     return torch.profiler.record_function(
         PREFIX + name + ("" if id is None else "#%d" % id))
+
+
+@contextlib.contextmanager
+def cut_at_spans(cutter):
+    """While inside, a span opens ``cutter(name, id)`` instead, a context
+    manager that captures the span's body as a CUDA graph of its own
+    (``models.transformer._Pieces.span``)."""
+    global _cutter
+    _cutter = cutter
+    try:
+        yield
+    finally:
+        _cutter = None

@@ -399,9 +399,13 @@ def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
         tops.paged_attention(q.half(), kp, vp, bt, cl)
     with pytest.raises(ValueError, match="outside the pool"):
         tops.paged_attention(q, kp, vp, torch.full_like(bt, 10_000), cl)
-    big = paged_case(0, 2, 2, 1, 272, 4, 2, "float32", card)
+    big = paged_case(0, 2, 2, 1, 592, 4, 2, "float32", card)
     with pytest.raises(ValueError, match="head_dim"):
         tops.paged_attention(*big)
+    # two f32 pools of 576-wide rows: more shared memory than a block has
+    wide = paged_case(0, 2, 2, 1, 576, 4, 2, "float32", card)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        tops.paged_attention(*wide, v_dim=512)
 
 
 def test_serve_runs_on_the_card(card):
@@ -705,6 +709,61 @@ def test_paged_attention_split_matches_plain_version(card, split, d, groups,
     assert torch.all(kern[0] == 0)                  # empty context
 
 
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("dtype,shared", [("float32", True),
+                                          ("bfloat16", True),
+                                          ("bfloat16", False)])
+def test_paged_attention_mla_shape_matches_plain_version(card, split, dtype,
+                                                         shared):
+    """K4 at MLA's absorbed decode: 128 query heads over one latent head of
+    576 (the latent and the rope key), the values the first 512 columns of
+    the same rows (`shared`) or, for bf16 pools, of another pool (two f32
+    pools' tiles of 576 do not fit a block's shared memory), DeepSeek-V3's
+    softmax scale; contexts 0, 1, 33, 255 and the capacity, one partition
+    (capacity 256) or several (4096); two calls give the same bits."""
+    nblk = 256 if split else 16
+    q, kp, vp, bt, cl = long_paged_case(
+        576, [0, 1, 33, 255, nblk * 16], 128, 1, 576, nblk, dtype, card)
+    vp = kp if shared else vp
+    scale = 0.13523377886088
+    tops.reset_launches()
+    kern = tops.paged_attention(q, kp, vp, bt, cl, scale=scale, v_dim=512)
+    again = tops.paged_attention(q, kp, vp, bt, cl, scale=scale, v_dim=512)
+    assert tops.LAUNCHES["paged_attention"] == 2
+    plan = tpa.launch_plan(q, kp, vp, bt, 512)
+    assert (plan["parts"] > 1) == split and plan["resident"] >= 1
+    assert plan["blocks"] == 8 * 5 * plan["parts"]     # 8 blocks of 16 heads
+    plain = tpa.paged_attention_ref(q, kp, vp, bt, cl, scale=scale,
+                                    v_dim=512)
+    torch.cuda.synchronize()
+    assert kern.shape == (5, 128, 512) and kern.dtype == q.dtype
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(kern, again)
+    assert torch.all(kern[0] == 0)                  # empty context
+
+
+def test_mla_serve_runs_on_the_card(card):
+    """deepseek's smoke serve on the card: one K4 launch a step over the
+    latent pool, held against the plain version; the pool's counters as
+    on the CPU."""
+    cfg = get_smoke("deepseek-v3-671b")
+    tops.reset_launches()
+    r = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
+                   hbm_pages=5)
+    assert tops.LAUNCHES["paged_attention"] == 3
+    q, kp, vp, bt, cl = r["last_attn_inputs"]
+    assert vp is kp and kp.shape[2:] == (1, 24)
+    torch.testing.assert_close(
+        r["attn_out"][-1], tpa.paged_attention_ref(
+            q, kp, vp, bt, cl, scale=24 ** -0.5, v_dim=16),
+        rtol=3e-5, atol=3e-5)
+    on_cpu = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
+                        hbm_pages=5, device="cpu")
+    assert r["kv_stats"] == on_cpu["kv_stats"]
+
+
 @pytest.mark.parametrize("case", ["d20_bf16", "misaligned_f32"])
 def test_paged_attention_plain_load_path(card, case):
     """Rows that are no multiple of 16 bytes, and pools that are not
@@ -846,7 +905,9 @@ def test_new_kinds_on_the_card_match_cpu(card, arch):
 @pytest.mark.parametrize("arch", list(NEW_K4_SHAPES))
 def test_serve_runs_the_new_kinds_on_the_card(card, arch):
     """serve.run at smoke size: one K4 launch per decode step over a pool
-    that only the decode steps' zero rows fill; KVStats as on the CPU."""
+    that only the decode steps' zero rows fill (deepseek's latent pool:
+    the prompts' latent rows too, as on the CPU); KVStats as on the
+    CPU."""
     cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
     p_cpu = ttf.init_params(cfg, torch.Generator().manual_seed(6), "cpu")
     kw = dict(requests=3, prefill=20, decode=3, page_size=4, hbm_pages=5)
@@ -858,12 +919,32 @@ def test_serve_runs_the_new_kinds_on_the_card(card, arch):
     on_cpu = tserve.run(cfg, device="cpu", params=p_cpu, **kw)
     assert r["logits_finite"] and r["kv_stats"] == on_cpu["kv_stats"]
     assert r["tokens"] == on_cpu["tokens"]
-    assert not r["last_attn_inputs"][1].any()
+    pool, cpu_pool = r["last_attn_inputs"][1], on_cpu["last_attn_inputs"][1]
+    if cfg.attn_kind == "mla":
+        torch.testing.assert_close(pool.cpu(), cpu_pool, rtol=1e-5,
+                                   atol=1e-5)
+        assert bool(pool.any())
+    else:
+        assert not pool.any()
 
 
 #: smoke configs whose decode step serve.run replays from a CUDA graph:
 #: a rolled 16-token window, M-RoPE, qk-norm
-GRAPHED = ("h2o-danube-3-4b", "qwen2-vl-2b", "stablelm-12b")
+GRAPHED = ("h2o-danube-3-4b", "qwen2-vl-2b", "stablelm-12b",
+           "deepseek-v3-671b", "qwen3-moe-235b-a22b", "deepseek-v3-671b:held")
+
+
+def _graphed_config(arch):
+    """The smoke config of `arch`; with ``:held``, its MoE layers hold
+    experts 2-5 of 8 behind DeepSeek-V3's gate (sigmoid scores, a bias, 4
+    groups of which 2 are kept), the benchmark cell's path."""
+    name, _, held = arch.partition(":")
+    cfg = get_smoke(name)
+    if not held:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, scoring="sigmoid", n_group=4, topk_group=2,
+        routed_scale=2.5, score_bias=True, held=(2, 4)))
 
 
 def _twin(caches):
@@ -881,7 +962,7 @@ def test_serve_replays_decode_step_from_a_cuda_graph(card, monkeypatch,
     (int context length) on copies of its inputs, as a tensor of its own;
     the tokens, KVStats and K4 outputs are those of the serve with the
     graph path off."""
-    cfg = get_smoke(arch)
+    cfg = _graphed_config(arch)
     kw = dict(requests=3, prefill=20, decode=4, page_size=4, hbm_pages=5)
     params = ttf.init_params(cfg, torch.Generator(device=card).manual_seed(3),
                              card)
@@ -918,10 +999,10 @@ def test_serve_replays_decode_step_from_a_cuda_graph(card, monkeypatch,
                for a, b in zip(r["attn_out"], eager["attn_out"]))
 
 
-@pytest.mark.parametrize("arch", list(NEW_K4_SHAPES))
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
 def test_serve_keeps_the_steps_a_graph_does_not_take_eager(card, arch):
-    """rwkv, rec and MLA blocks: serve.run captures nothing and runs
-    every step eagerly."""
+    """rwkv and rec blocks: serve.run captures nothing and runs every step
+    eagerly (MLA and MoE steps are graphed, in GRAPHED)."""
     cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
     r = tserve.run(cfg, device=card, requests=3, prefill=20, decode=3,
                    page_size=4, hbm_pages=5)

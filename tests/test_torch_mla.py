@@ -12,6 +12,8 @@ tolerances and the scale-relative bf16 comparison are those of
 1e-4 / atol 1e-5).
 """
 import dataclasses
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +39,17 @@ from test_torch_serve import _reference_loop
 from test_torch_train import batch, configs
 
 MLA = "deepseek-v3-671b"
+def load_by_path(path: pathlib.Path):
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_mla_" + path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: the benchmark's dense reference: the serving loop's pool accounting
+DENSE_REF = load_by_path(pathlib.Path(__file__).resolve().parents[1]
+                         / "bench" / "reference" / "dense_lm.py")
 jmla = jax.jit(jattn.mla_attention, static_argnums=(2,))
 jmla_prefill = jax.jit(jattn.mla_prefill, static_argnums=(2,))
 jmla_decode = jax.jit(jattn.mla_decode, static_argnums=(2,))
@@ -152,8 +165,13 @@ def test_pad_cache_pads_the_latent_and_never_windows_it():
 
 def test_serve_run_matches_reference_loop(monkeypatch, capsys):
     """`serve.run` on deepseek smoke against ``repro.launch.serve.main``
-    (the jnp oracle for K4): the latent cache keeps no K/V pages; tokens,
-    KVStats and every K4 output equal."""
+    (the jnp oracle for K4): the same tokens and K4 queries.  The
+    reference's pool keeps no pages for MLA; the port's holds layer 0's
+    normed latent and roped rope key, one row of 16 + 8 a token, from the
+    prompts on, so its counters follow the benchmark reference's accounting
+    of a pool filled so, its pages priced at that row, and every K4 output
+    is the absorbed attention over the rows: scores over the whole row,
+    values its first 16 columns."""
     shape = dict(requests=3, prefill=20, decode=3, page_size=4, hbm_pages=5)
     jcfg, tcfg = configs(MLA)
     argv = [f"--{k.replace('_', '-')}={v}" for k, v in shape.items()]
@@ -166,9 +184,35 @@ def test_serve_run_matches_reference_loop(monkeypatch, capsys):
     got = tserve.run(tcfg, device="cpu", params=params, **shape)
     assert tops.LAUNCHES["paged_attention_ref"] == shape["decode"]
     assert got["tokens"] == reference_tokens(seen, shape["requests"])
-    assert got["kv_stats"] == dataclasses.asdict(seen["kv"].stats)
-    assert got["tier_histogram"] == seen["kv"].tier_histogram()
-    for (args, want), out in zip(calls, got["attn_out"]):
-        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+    kv = got["kv"]
+    rd, wr = (kv.timing.cxl.payload_read_gbps, kv.timing.cxl.payload_write_gbps)
+    assert got["kv_stats"] == DENSE_REF.kv_accounting(
+        3, 20, 3, 4, 5, 4 * 24 * 2, rd, wr)
+    assert kv.v_pool is None and kv.page_bytes() == 4 * 24 * 2
+    pool = kv.k_pool[0].float().numpy()
+    rng = np.random.default_rng(0)
+    for sid in range(shape["requests"]):
+        toks = rng.integers(0, tcfg.vocab_size, (1, shape["prefill"]))
+        _, cache = ttf.forward_prefill(params, tcfg, torch.from_numpy(
+            toks.astype(np.int32)))
+        first = cache[0][0]["b0"]
+        rows = torch.cat([first["ckv"][0], first["krope"][0]], -1).numpy()
+        table = kv.block_tables[sid]
+        stashed = np.concatenate([pool[pg, :, 0] for pg in table])
+        np.testing.assert_array_equal(stashed[:shape["prefill"]], rows)
+        assert not stashed[shape["prefill"]:].any()   # the decode steps'
+    scale = (16 + 8) ** -0.5
+    for step, ((args, _), out) in enumerate(zip(calls, got["attn_out"])):
+        jq = args[0]                    # the same draws as the port's
+        for b in range(shape["requests"]):
+            rows = np.concatenate([pool[pg, :, 0]
+                                   for pg in kv.block_tables[b]])
+            rows = rows[:shape["prefill"] + step].astype(np.float64)
+            att = jq[b].astype(np.float64) @ rows.T * scale
+            att = np.exp(att - att.max(-1, keepdims=True))
+            att /= att.sum(-1, keepdims=True)
+            np.testing.assert_allclose(out[b].numpy(), att @ rows[:, :16],
+                                       rtol=1e-5, atol=1e-5)
     q = got["last_attn_inputs"][0]
-    assert tuple(q.shape) == (3, tcfg.n_heads, tcfg.head_dim)
+    assert np.array_equal(q.numpy(), calls[-1][0][0])
+    assert tuple(q.shape) == (3, tcfg.n_heads, 16 + 8)

@@ -226,9 +226,36 @@ def test_attention_decode_takes_the_context_length_as_a_tensor(arch, ctx):
     assert all(torch.equal(twin[k], cache[k]) for k in cache)
 
 
+@pytest.mark.parametrize("arch,ctx", [
+    ("deepseek-v3-671b", 0),        # the first slot
+    ("deepseek-v3-671b", 9),        # the middle
+    ("deepseek-v3-671b", 15),       # the last slot
+    ("deepseek-v3-671b", 21),       # past the end: clamped at S - 1
+])
+def test_mla_decode_takes_the_context_length_as_a_tensor(arch, ctx):
+    """MLA's absorbed decode with `ctx_len` a 0-d tensor: the output and
+    the latent cache written bitwise those of the int path."""
+    cfg = tget_smoke(arch)
+    gen = torch.Generator().manual_seed(ctx)
+    p = tattn.mla_init(gen, cfg)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen).to(torch.bfloat16)
+    m = cfg.mla
+    cache = {"ckv": torch.randn((2, 16, m.kv_lora_rank), generator=gen),
+             "krope": torch.randn((2, 16, m.qk_rope_head_dim),
+                                  generator=gen)}
+    cache = {k: v.to(torch.bfloat16) for k, v in cache.items()}
+    twin = {k: v.clone() for k, v in cache.items()}
+    want, _ = tattn.mla_decode(p, x, cfg, cache, ctx)
+    got, _ = tattn.mla_decode(p, x, cfg, twin, torch.tensor(ctx))
+    assert torch.equal(got, want)
+    assert all(torch.equal(twin[k], cache[k]) for k in cache)
+
+
 @pytest.mark.parametrize("arch,prefill,capacity", [
     ("h2o-danube-3-4b", 20, 26),    # rolled in a 16-token window
     ("granite-3-8b", 12, 15),       # the last steps clamp at S - 1
+    ("deepseek-v3-671b", 12, 15),   # MLA's latent cache, MoE layers
+    ("qwen3-moe-235b-a22b", 12, 20),  # GQA with MoE layers
 ])
 def test_decode_step_takes_the_context_length_as_a_tensor(arch, prefill,
                                                           capacity):
@@ -251,12 +278,14 @@ def test_decode_step_takes_the_context_length_as_a_tensor(arch, prefill,
 
 
 def test_graphable_takes_gqa_dense_rope_blocks_on_cuda_only():
-    """The decode steps a CUDA graph takes: every block GQA attention
-    with a dense MLP, RoPE or M-RoPE positions, on a CUDA device."""
+    """The decode steps CUDA graphs take: every block attention (GQA or
+    MLA) with a dense MLP or an MoE FFN, RoPE or M-RoPE positions, on a
+    CUDA device."""
     from repro_torch.configs import ARCHS
     took = {a for a in ARCHS if ttf.graphable(tget_smoke(a), "cuda")}
     assert took == {"granite-3-8b", "h2o-danube-3-4b", "qwen2-vl-2b",
-                    "stablelm-12b", "starcoder2-3b"}
+                    "stablelm-12b", "starcoder2-3b", "deepseek-v3-671b",
+                    "qwen3-moe-235b-a22b"}
     assert not any(ttf.graphable(tget_smoke(a), dev) for a in took
                    for dev in ("cpu", "meta"))
 

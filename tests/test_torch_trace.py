@@ -22,6 +22,7 @@
 """
 import collections
 import contextlib
+import dataclasses
 import json
 import types
 
@@ -97,8 +98,24 @@ def _serve_graphed():
         return _serve()
 
 
+def held_moe_smoke():
+    """deepseek's smoke config with DeepSeek-V3's gate (sigmoid scores, a
+    score bias, the best 2 of 4 groups) over 8 experts, of which each MoE
+    layer holds 4, from expert 2."""
+    cfg = get_smoke("deepseek-v3-671b")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, scoring="sigmoid", n_group=4, topk_group=2,
+        routed_scale=2.5, score_bias=True, held=(2, 4)))
+
+
+def _serve_moe():
+    out = tserve.run(held_moe_smoke(), device="cpu", **SERVE)
+    return {"tokens": out["tokens"], "kv_stats": out["kv_stats"],
+            "attn_out": out["attn_out"]}
+
+
 RUNS = {"static": _static, "tiering": _tiering, "serve": _serve,
-        "serve_graphed": _serve_graphed}
+        "serve_graphed": _serve_graphed, "serve_moe": _serve_moe}
 STAGES = {
     "static": {"sweep", "engine.build", "engine.traces", "engine.simulate",
                "machine.time_batch", "engine.rows"},
@@ -108,6 +125,7 @@ STAGES = {
 }
 STAGES["tiering"] = STAGES["static"]
 STAGES["serve_graphed"] = STAGES["serve"] | {"serve.capture"}
+STAGES["serve_moe"] = STAGES["serve"] | {"moe.route", "moe.experts"}
 
 
 def _spans(events):
@@ -236,6 +254,11 @@ def test_spans_nest_as_the_stages_call_each_other(runs, kind):
             assert parents["serve.capture"] == {"serve.step"}
             for sid in range(n):
                 assert count["serve.capture", sid] == 1
+        if kind == "serve_moe":
+            # each of the 2 MoE layers in every prefill and decode_step
+            for name in ("moe.route", "moe.experts"):
+                assert parents[name] == {"serve.prefill", "serve.model"}
+                assert count[name, None] == 2 * (n + n * d)
         return
     assert parents["sweep"] == {None} and count["sweep", None] == 1
     assert parents["engine.traces"] == {"engine.build"}
@@ -262,6 +285,7 @@ def test_outputs_equal_with_the_profiler_on_and_off(runs, kind):
         assert on["tokens"] == off["tokens"]
         assert on["kv_stats"] == off["kv_stats"]
         assert _same(on["attn_out"], off["attn_out"])
+        assert on.get("moe") == off.get("moe")
     else:
         assert json.dumps(on) == json.dumps(off)
         assert len(on) == {"static": 24, "tiering": 6}[kind]
