@@ -1017,6 +1017,8 @@ def serve_main_path(dev, card):
         "one K4 launch per decode step, no plain version":
             launches["paged_attention"] == n_dec
             and launches["paged_attention_ref"] == 0,
+        "every prefill's attention on K5":
+            launches["flash_attention"] == cfg.n_layers * n_req,
         "finite logits": r["logits_finite"],
         "finite K4 outputs of shape (B, H, D)": all(
             o.shape == (n_req, cfg.n_heads, cfg.head_dim)
@@ -1383,13 +1385,56 @@ def read_k5_launches():
     return dict(launches, variants=dict(fa.VARIANT_LAUNCHES))
 
 
+def k5_prefill_path(dev, cfg, params, seqs=(8192, 1024, 1000)):
+    """K5 as the serve's GQA prefill calls it: ``prefill_attention`` on
+    `cfg`'s layer-0 q, k, v (kv heads broadcast, a ragged S padded to K5's
+    tile) with no window, at each prompt length of `seqs`, the launch
+    counts set to 0 just before each call and read just after, held to the
+    plain version on the broadcast heads at the main path's limits.
+    Returns each length's agreement, the summed launch counts and the
+    first length's inputs for timing."""
+    import torch
+    from repro_torch.models.attention import prefill_attention
+    errs, inputs = {}, None
+    launches = {"flash_attention": 0, "variants": {}}
+    for seq in seqs:
+        q, k, v = danube_layer0_qkv(cfg, params, seq, dev)
+        reset_k5_launches()
+        got = prefill_attention(q, k, v, window=None, kv_chunk=cfg.kv_chunk)
+        torch.cuda.synchronize()
+        counts = read_k5_launches()
+        launches["flash_attention"] += counts["flash_attention"]
+        for n, c in counts["variants"].items():
+            launches["variants"][n] = launches["variants"].get(n, 0) + c
+        qh, kh, vh = heads_first(q, k, v, cfg.n_heads)
+        plain = plain_by_heads(qh, kh, vh, 4, causal=True, window=None)
+        agree = k5_agreement(got.transpose(1, 2), plain, K5_PATH_TOL,
+                             K5_PATH_RMS)
+        print(f"[slice 4] K5 through prefill_attention on {cfg.arch} layer "
+              f"0, prompt {seq}, no window: q {tuple(q.shape)} "
+              f"{str(q.dtype)[6:]} (kv heads {cfg.n_kv_heads}); launch "
+              f"counts {counts}; against the plain version on the broadcast "
+              f"heads {agree['text']}")
+        if not (got.shape == q.shape and got.dtype == q.dtype
+                and bool(torch.isfinite(got).all()) and agree["ok"]):
+            raise AssertionError(f"K5 through prefill_attention disagrees "
+                                 f"at a {seq}-token prompt")
+        errs[seq] = {"plain": agree["max"], "ref_rms": agree["ref_rms"],
+                     "rel_rms": agree["rel_rms"]}
+        if inputs is None:
+            inputs = dict(q=q, k=k, v=v)
+        del plain, got, qh, kh, vh
+    return dict(err=errs, launches=launches, **inputs)
+
+
 def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
                      triad_shape=TRIAD_SHAPE):
     """Slice 4's path through kernels.ops at full width, the launch counts
     set to 0 just before each call and read just after: K5 on `cfg`'s
-    layer-0 attention on a `seq`-token prompt and on a seeded (1, H, 2 seq,
-    D) windowed case, K6 on the trace `a8` at the Table-I L2, K7 at
-    `triad_shape`."""
+    layer-0 attention on a `seq`-token prompt, on a seeded (1, H, 2 seq,
+    D) windowed case and through the serve's prefill
+    (:func:`k5_prefill_path`), K6 on the trace `a8` at the Table-I L2, K7
+    at `triad_shape`."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.attention import blockwise_attention
@@ -1440,6 +1485,8 @@ def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
         raise AssertionError("K5 windowed disagrees")
     out["k5w"] = dict(q=wq, k=wk, v=wv, err=err_w)
     del plain_w, got_w
+    out["k5p"] = k5_prefill_path(dev, cfg, params)
+    launches_p = out["k5p"]["launches"]
     # K6 over the whole 8 x L2 triad trace at the Table-I L2
     sets, ways = table1_l2()
     ops.reset_launches()
@@ -1476,9 +1523,11 @@ def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
     out["k7"] = dict(b=b, c=c)
     out["launches"] = {
         "flash_attention": (launches["flash_attention"]
-                            + launches_w["flash_attention"]),
+                            + launches_w["flash_attention"]
+                            + launches_p["flash_attention"]),
         "flash_attention_variants": {
-            k: launches["variants"][k] + launches_w["variants"][k]
+            k: (launches["variants"][k] + launches_w["variants"][k]
+                + launches_p["variants"][k])
             for k in launches["variants"]},
         "cache_sim": sum(launches6.values()),
         "stream_triad": sum(launches7.values())}
@@ -1573,6 +1622,27 @@ def slice4_times(path, cfg, card):
               f"{n_bytes} B at 3.35 TB/s), plain version {plain_ms:.3f} ms, "
               f"{lib_note} {lib_ms:.3f} ms via {backend} (max|SDPA - "
               f"kernel| {lib_err:.3g}) ({card})")
+    # K5 through the serve's prefill: the first prompt length, causal, no
+    # window; the wrapper (heads broadcast, S padded) and K5 alone
+    from repro_torch.models.attention import prefill_attention
+    p = path["k5p"]
+    qh, kh, vh = heads_first(p["q"], p["k"], p["v"], cfg.n_heads)
+    wrapper_ms = cuda_ms(lambda: prefill_attention(
+        p["q"], p["k"], p["v"], window=None, kv_chunk=cfg.kv_chunk),
+        warmup=1, reps=5)
+    ms = cuda_ms(lambda: ops.flash_attention(qh, kh, vh, causal=True,
+                                             window=None), warmup=1, reps=5)
+    bound, by, n_bytes, flops = fa.bound_ms(qh, kh, causal=True, window=None)
+    out["prefill"] = dict(ms=ms, prefill_attention_ms=wrapper_ms,
+                          bound_ms=bound, bound_by=by, window=None,
+                          tflops=flops / ms / 1e9, shape=list(qh.shape),
+                          flops=flops, bytes=n_bytes)
+    print(f"[time K5] serve prefill {tuple(qh.shape)} bf16 causal, no "
+          f"window: tensor-core kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+          f"TFLOP/s), through prefill_attention (kv heads broadcast) "
+          f"{wrapper_ms:.4f} ms, bound {bound:.4f} ms ({by}: {flops} flops "
+          f"at 989 TFLOP/s, {n_bytes} B at 3.35 TB/s) ({card})")
+    del qh, kh, vh
     # K6 on the whole trace
     a8 = path["k6"]["addr"]
     n = path["k6"]["n"]
@@ -2958,7 +3028,7 @@ EXAMPLES_GOLDEN = ROOT / "examples" / "expected_output"
 SLICE12_EXAMPLES = {
     "quickstart": {"mesi_segment": None},
     "characterize_cxl": {"mesi_segment": None, "mesi_dyn_segment": None},
-    "serve_kv_cxl": {"paged_attention": 12},
+    "serve_kv_cxl": {"paged_attention": 12, "flash_attention": 2 * 6},
     "train_e2e": {},
 }
 
@@ -3204,7 +3274,8 @@ def main() -> int:
     t0 = time.perf_counter()
     s4_t = slice4_times(s4, serve["cfg"], card)
     s4_launches = s4["launches"]
-    s4_errs = (s4["k5"]["err"], s4["k6"]["err"], s4["k5w"]["err"])
+    s4_errs = (s4["k5"]["err"], s4["k6"]["err"], s4["k5w"]["err"],
+               s4["k5p"]["err"])
     del s4, a8                  # free the slice's inputs before phase 4
     torch.cuda.empty_cache()
     print(f"[time slice 4] phase took {time.perf_counter() - t0:.1f} s")
@@ -3353,6 +3424,7 @@ def main() -> int:
         "max_abs_err_bf16": k5_err[torch.bfloat16],
         "max_abs_err_danube": s4_errs[0],
         "max_abs_err_windowed": s4_errs[2],
+        "max_abs_err_prefill": s4_errs[3],
         "variant_launches": s4_launches["flash_attention_variants"],
         "sass": sass,
         "ms": s4_t["causal"]["ms"], "shape": s4_t["causal"]["shape"],
@@ -3364,7 +3436,7 @@ def main() -> int:
         "library_ms": s4_t["causal"]["library_ms"],
         "library": s4_t["causal"]["library"],
         "library_backend": s4_t["causal"]["library_backend"],
-        "windowed": s4_t["windowed"]}, {
+        "windowed": s4_t["windowed"], "prefill": s4_t["prefill"]}, {
         "name": "cache_sim", "route": "cuda",
         "launches_by_path": by_path("cache_sim"),
         "source": "src/repro_torch/kernels/csrc/cache_sim.cu",

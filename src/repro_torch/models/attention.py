@@ -2,11 +2,15 @@
 
 The port of the JAX package's ``models/attention.py``.
 :func:`blockwise_attention` is the same online-softmax loop over KV chunks
-in plain PyTorch (the reference computes it outside any Pallas kernel, so
-no kernel replaces it), and :func:`decode_attention` the one-token softmax
-against a dense cache.  Multi-head latent attention (DeepSeek-V3's MLA)
-expands its latent to per-head K/V for training and prefill, and decodes
-in the absorbed form (q pre-multiplied by W_uk) against the latent cache.
+in plain PyTorch (the reference computes it outside any Pallas kernel), and
+:func:`decode_attention` the one-token softmax against a dense cache.  A
+GQA prefill on the card runs its attention on K5 instead
+(:func:`prefill_attention`, :func:`gqa_flash_attention`) where the inputs
+are what K5's tensor-core kernel takes; training, the dry run's fake
+tensors and every other type or width keep the loop.  Multi-head latent
+attention (DeepSeek-V3's MLA) expands its latent to per-head K/V for
+training and prefill, and decodes in the absorbed form (q pre-multiplied
+by W_uk) against the latent cache.
 
 Caches:
   GQA: ``{k, v: (B, S, K, hd)}``, with S = window for SWA, rolled so slot
@@ -22,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import (dense_init, matmul, pdtype, rmsnorm,
                                        rmsnorm_init)
@@ -89,6 +94,58 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     safe_l = torch.where(l == 0.0, 1.0, l)
     out = (acc / safe_l[..., None]).to(q.dtype)             # (B,K,G,Sq,hd_v)
     return torch.movedim(out, 3, 1).reshape(b, sq, n, hd_v)
+
+
+def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: Optional[int] = None) -> torch.Tensor:
+    """Causal self-attention through K5 (:func:`fa.flash_attention`).
+
+    q (B,S,N,hd); k,v (B,S,K,hd) -> (B,S,N,hd).  K5 takes heads
+    pre-broadcast, (B, N, S, hd): query head n reads KV head n // (N // K),
+    :func:`blockwise_attention`'s grouping.  K5 wants S to be a multiple of
+    min(128, S), so a longer S that is not is padded at the tail with zeros
+    and the output cut back: row r < S sees keys j <= r only, so no padded
+    key is ever live, under the causal mask and a window alike.
+    """
+    s, n = q.shape[1], q.shape[2]
+    g = n // k.shape[2]
+    pad = -s % fa.TILE if s > fa.TILE else 0
+
+    def heads(x: torch.Tensor, rep: int) -> torch.Tensor:
+        x = torch.movedim(x, 2, 1)
+        if rep > 1:
+            x = x.repeat_interleave(rep, dim=1)
+        return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
+
+    out = fa.flash_attention(heads(q, 1), heads(k, g), heads(v, g),
+                             causal=True, window=window)
+    return torch.movedim(out[:, :, :s], 1, 2)
+
+
+def _on_card(*xs: torch.Tensor) -> bool:
+    """Real CUDA tensors: not the dry run's fake ones, not meta."""
+    from torch._subclasses.fake_tensor import is_fake
+    return all(x.is_cuda and not is_fake(x) for x in xs)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, window: Optional[int] = None,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Causal prefill attention, q (B,S,N,hd); k,v (B,S,K,hd) -> like q.
+
+    :func:`gqa_flash_attention` on K5 where its tensor-core kernel takes
+    the inputs: real CUDA tensors needing no gradient (K5 has no
+    backward), bf16 with hd % 8 == 0, hd <= 128 and v as wide as q and k;
+    else :func:`blockwise_attention` with `kv_chunk`."""
+    hd = q.shape[-1]
+    if (_on_card(q, k, v)
+            and not (q.requires_grad or k.requires_grad or v.requires_grad)
+            and q.dtype == k.dtype == v.dtype
+            and fa.variant(q.dtype, hd) == "tensor_cores"
+            and hd <= fa.MAX_HEAD_DIM and v.shape[-1] == hd):
+        return gqa_flash_attention(q, k, v, window=window)
+    return blockwise_attention(q, k, v, causal=True, window=window,
+                               kv_chunk=kv_chunk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -188,7 +245,9 @@ def attention_prefill(params: Dict, x: torch.Tensor, cfg, positions,
                       *, window: Optional[int] = None,
                       seq_shard: bool = False
                       ) -> Tuple[torch.Tensor, Dict]:
-    """Like :func:`attention` but also returns the decode cache.
+    """Like :func:`attention` but also returns the decode cache; the
+    attention is :func:`prefill_attention`'s (on K5 where it takes the
+    inputs).
 
     For SWA the cache holds the last `window` tokens, rolled so slot
     (p mod window) carries token p — the invariant :func:`attention_decode`
@@ -196,8 +255,7 @@ def attention_prefill(params: Dict, x: torch.Tensor, cfg, positions,
     b, s, _ = x.shape
     q, k, v = projected_qkv(params, x, cfg, positions, seq_shard)
     win = window if window is not None else cfg.window
-    o = blockwise_attention(q, k, v, causal=True, window=win,
-                            kv_chunk=cfg.kv_chunk)
+    o = prefill_attention(q, k, v, window=win, kv_chunk=cfg.kv_chunk)
     y = shard(matmul(o.reshape(b, s, cfg.n_heads * cfg.head_dim),
                      params["wo"], reduce_dtype=_reduce(x, cfg)),
               BATCH, None, None)

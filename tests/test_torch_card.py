@@ -409,12 +409,14 @@ def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
 
 
 def test_serve_runs_on_the_card(card):
+    """danube's smoke serve: each prefill's attention on K5 (2 layers x 3
+    requests), one K4 launch a decode step."""
     cfg = get_smoke("h2o-danube-3-4b")
     tops.reset_launches()
     r = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
                    hbm_pages=5)
     assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
-                                  paged_attention=3)
+                                  paged_attention=3, flash_attention=6)
     assert r["logits_finite"] and r["kv_stats"]["demotions"] > 0
     q, kp, vp, bt, cl = r["last_attn_inputs"]
     assert q.is_cuda and kp.is_cuda and bt.dtype == torch.int32
@@ -567,22 +569,107 @@ def test_flash_attention_tensor_core_kernel_matches_plain_version(
         assert torch.all(kern[:, :, :sq - sk] == 0)
 
 
-def test_flash_attention_tensor_core_kernel_meets_the_main_path_limits(card):
-    """(1, 4, 1024, 120) bf16, causal, danube's window: within rtol = atol
-    = 5e-3 of the plain version and RMS(err) <= 1e-3 RMS(ref), the limits
-    chip_smoke.py holds the danube prefill to (a bf16 p would miss them)."""
-    rng = np.random.default_rng(1024)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 1024, 120))
+@pytest.mark.parametrize("heads,s,window", [
+    ((4, 4), 1024, 4096), ((32, 8), 8192, None), ((32, 8), 8192, 4096),
+    ((32, 8), 1000, None)])
+def test_flash_attention_tensor_core_kernel_meets_the_main_path_limits(
+        card, heads, s, window):
+    """bf16 at D = 120, causal: within rtol = atol = 5e-3 of the plain
+    version and RMS(err) <= 1e-3 RMS(ref), the limits chip_smoke.py holds
+    the danube prefill to (a bf16 p would miss them).  (1, 4, 1024) runs
+    K5 directly; the GQA cases (32 query heads over 8 KV heads, as the
+    serve's prefill gives them: 8192 causal and windowed, a ragged 1000)
+    through gqa_flash_attention against the plain version on the broadcast
+    heads, computed 8 heads at a time."""
+    from repro_torch.models import attention as tattn
+    n, kh = heads
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, h, 120))
                                 .astype(np.float32)).to(card, torch.bfloat16)
-               for _ in range(3))
+               for h in (n, kh, kh))
+    qh, kh_, vh = (x.movedim(2, 1).repeat_interleave(n // x.shape[2], dim=1)
+                   for x in (q, k, v))
     tfa.reset_variant_launches()
-    got = tops.flash_attention(q, k, v, causal=True, window=4096).float()
-    ref = tfa.flash_attention_ref(q, k, v, causal=True, window=4096).float()
-    assert tfa.VARIANT_LAUNCHES["tensor_cores"] == 1
+    if n == kh:
+        got = tops.flash_attention(qh, kh_, vh, causal=True, window=window)
+    else:
+        got = tattn.gqa_flash_attention(q, k, v, window=window).movedim(1, 2)
+    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1, "cuda_cores": 0}
+    assert got.shape == qh.shape and got.dtype == torch.bfloat16
+    ref = torch.cat([tfa.flash_attention_ref(
+        qh[:, i:i + 8], kh_[:, i:i + 8], vh[:, i:i + 8], causal=True,
+        window=window).float() for i in range(0, n, 8)], dim=1)
+    got = got.float()
     diff = (got - ref).abs()
     assert bool((diff <= 5e-3 * (1 + ref.abs())).all())
     assert float(diff.square().mean().sqrt()) <= 1e-3 * float(
         ref.square().mean().sqrt())
+
+
+@pytest.mark.parametrize("s,window", [(1024, None), (1000, None),
+                                      (8192, None), (8192, 4096)])
+def test_attention_prefill_runs_on_k5(card, monkeypatch, s, window):
+    """danube's attention layer at its widths (32 heads over 8 KV heads of
+    120, bf16): the prefill's attention on K5's tensor-core kernel (a
+    ragged S padded to its tile) against the loop on the same layer,
+    within K5's bf16 tolerance, the layer's output within 2% of its
+    largest entry, and the caches bitwise: a loose check on the loop's
+    bf16 p.  The main path's limits hold K5 to its plain version at these
+    shapes in
+    test_flash_attention_tensor_core_kernel_meets_the_main_path_limits."""
+    from repro_torch.models import attention as tattn
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), window=window)
+    gen = torch.Generator(device=card).manual_seed(s)
+    params = tattn.attn_init(gen, cfg)
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=card,
+                    dtype=torch.bfloat16)
+    pos = torch.arange(s, device=card, dtype=torch.int32)[None]
+    tops.reset_launches()
+    tfa.reset_variant_launches()
+    y, cache = tattn.attention_prefill(params, x, cfg, pos)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1, "cuda_cores": 0}
+    assert tops.LAUNCHES["flash_attention"] == 1
+    monkeypatch.setattr(tattn, "_on_card", lambda *xs: False)
+    y_loop, cache_loop = tattn.attention_prefill(params, x, cfg, pos)
+    assert tops.LAUNCHES["flash_attention"] == 1
+    assert all(torch.equal(cache[n], cache_loop[n]) for n in ("k", "v"))
+    assert cache["k"].shape[1] == (s if window is None else window)
+    err = float((y.float() - y_loop.float()).abs().max())
+    assert err <= 2e-2 * float(y_loop.float().abs().max()), err
+    q, k, v = tattn.projected_qkv(params, x, cfg, pos, False)
+    torch.testing.assert_close(
+        tattn.gqa_flash_attention(q, k, v, window=window).float(),
+        tattn.blockwise_attention(q, k, v, window=window,
+                                  kv_chunk=cfg.kv_chunk).float(),
+        rtol=3e-2, atol=3e-2)
+
+
+def test_dryrun_prefill_on_fake_cuda_keeps_the_loop(card, monkeypatch):
+    """The dry run's danube prefill on fake CUDA tensors runs the loop,
+    once a layer and never K5, and counts the FLOPs of the same trace on
+    fake CPU tensors."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import model as tmodel
+    full, cfg = get_config("h2o-danube-3-4b"), get_smoke("h2o-danube-3-4b")
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if getattr(cfg, f.name) != getattr(full, f.name)}
+    cell = tmodel.ShapeCell("smoke_prefill", 256, 2, "prefill")
+    calls, real = [], tattn.blockwise_attention
+
+    def loop(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+    monkeypatch.setattr(tattn, "blockwise_attention", loop)
+    tops.reset_launches()
+    on_card = dryrun.run_cell("h2o-danube-3-4b", cell, overrides=over)
+    assert on_card.status == "ok" and on_card.device == "cuda", on_card.note
+    assert len(calls) == cfg.n_layers
+    assert tops.LAUNCHES["flash_attention"] == 0
+    on_cpu = dryrun.run_cell("h2o-danube-3-4b", cell, overrides=over,
+                             device="cpu")
+    assert on_card.flops == on_cpu.flops > 0
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -753,6 +840,7 @@ def test_mla_serve_runs_on_the_card(card):
     r = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
                    hbm_pages=5)
     assert tops.LAUNCHES["paged_attention"] == 3
+    assert tops.LAUNCHES["flash_attention"] == 0
     q, kp, vp, bt, cl = r["last_attn_inputs"]
     assert vp is kp and kp.shape[2:] == (1, 24)
     torch.testing.assert_close(

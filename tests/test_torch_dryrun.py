@@ -248,7 +248,8 @@ def real_inputs(cfg, cell, gen):
 @pytest.mark.parametrize("arch,kind", [
     ("h2o-danube-3-4b", "train"), ("qwen3-moe-235b-a22b", "train"),
     ("rwkv6-1.6b", "train"), ("recurrentgemma-9b", "train"),
-    ("deepseek-v3-671b", "train"), ("qwen2-vl-2b", "prefill"),
+    ("deepseek-v3-671b", "train"), ("h2o-danube-3-4b", "prefill"),
+    ("qwen2-vl-2b", "prefill"),
     ("musicgen-large", "prefill"), ("stablelm-12b", "prefill"),
     ("granite-3-8b", "decode"), ("starcoder2-3b", "decode"),
     ("deepseek-v3-671b", "decode"), ("rwkv6-1.6b", "decode"),

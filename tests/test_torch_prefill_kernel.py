@@ -1,0 +1,133 @@
+"""The GQA prefill's attention on K5, checked on the CPU.
+
+:func:`repro_torch.models.attention.gqa_flash_attention` (heads broadcast,
+a ragged S padded at the tail) against :func:`blockwise_attention`,
+through K5's plain version, which ``flash_attention`` runs on CPU tensors:
+within 2e-5 in float32 and 3e-2 in bf16 (the JAX test's K5 tolerances
+widened to the loop's own rounding of q and p).  Then the dispatch of
+:func:`prefill_attention`: every input that K5's tensor-core kernel does
+not take keeps the loop bitwise; and the paths ``serve.run``'s prefills
+take.  The card's side is in ``tests/test_torch_card.py``.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import ops as tops
+from repro_torch.launch import serve as tserve
+from repro_torch.models import attention as tattn
+
+
+def qkv(s, n, kh, d, dtype, seed=0, dv=None):
+    g = torch.Generator().manual_seed(seed)
+    shapes = ((1, s, n, d), (1, s, kh, d), (1, s, kh, dv or d))
+    return [torch.randn(sh, generator=g).to(getattr(torch, dtype))
+            for sh in shapes]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("s", [96, 200, 1000, 1100])
+def test_gqa_flash_attention_matches_blockwise(s, window, dtype, tol):
+    """danube's GQA (32 query heads over 8 KV heads of 120): K5's plain
+    version on the broadcast heads, S padded to K5's tile above it."""
+    q, k, v = qkv(s, 32, 8, 120, dtype, seed=s)
+    tops.reset_launches()
+    got = tattn.gqa_flash_attention(q, k, v, window=window)
+    assert tops.LAUNCHES["flash_attention_ref"] == 1
+    want = tattn.blockwise_attention(q, k, v, causal=True, window=window)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def count_paths(monkeypatch):
+    """Counts :func:`prefill_attention`'s calls by path from here on: on K5
+    (``kernel``, through :func:`gqa_flash_attention`) or the loop."""
+    n = {"kernel": 0, "blockwise": 0}
+    real_pa, real_gqa = tattn.prefill_attention, tattn.gqa_flash_attention
+
+    def gqa(*args, **kw):
+        n["kernel"] += 1
+        return real_gqa(*args, **kw)
+
+    def pa(*args, **kw):
+        k0 = n["kernel"]
+        out = real_pa(*args, **kw)
+        n["blockwise"] += n["kernel"] == k0
+        return out
+    monkeypatch.setattr(tattn, "gqa_flash_attention", gqa)
+    monkeypatch.setattr(tattn, "prefill_attention", pa)
+    return n
+
+
+CASES = {
+    # name: (q/k width, v width, dtype, requires grad, taken by K5)
+    "kernel": (120, 120, "bfloat16", False, True),
+    "grad": (120, 120, "bfloat16", True, False),
+    "f32": (120, 120, "float32", False, False),
+    "mla_192_128": (192, 128, "bfloat16", False, False),
+    "d256": (256, 256, "bfloat16", False, False),
+    "d12": (12, 12, "bfloat16", False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_prefill_attention_takes_k5_only_where_it_can(monkeypatch, case):
+    """With the card's condition met (a stand-in here), the dispatch runs
+    K5 for bf16 with D % 8 == 0, D <= 128 and v as wide as q; anything
+    else, or an input needing a gradient, keeps the loop bitwise."""
+    d, dv, dtype, grad, kernel = CASES[case]
+    q, k, v = qkv(40, 4, 2, d, dtype, dv=dv)
+    for x in (q, k, v):
+        x.requires_grad_(grad)
+    monkeypatch.setattr(tattn, "_on_card", lambda *xs: True)
+    if kernel:
+        want = tattn.gqa_flash_attention(q, k, v, window=16)
+    else:
+        want = tattn.blockwise_attention(q, k, v, window=16, kv_chunk=16)
+    counted = count_paths(monkeypatch)
+    got = tattn.prefill_attention(q, k, v, window=16, kv_chunk=16)
+    assert counted == {"kernel": int(kernel), "blockwise": int(not kernel)}
+    assert torch.equal(got, want)
+
+
+def test_prefill_attention_keeps_the_loop_off_the_card(monkeypatch):
+    """CPU tensors and the dry run's fake CUDA tensors are not on the
+    card: the loop runs (on this CPU build a fake CUDA tensor cannot run
+    it, so a stand-in records the call)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    q, k, v = qkv(40, 4, 2, 16, "bfloat16")
+    assert not tattn._on_card(q, k, v)
+    want = tattn.blockwise_attention(q, k, v, kv_chunk=16)
+    counted = count_paths(monkeypatch)
+    assert torch.equal(tattn.prefill_attention(q, k, v, kv_chunk=16), want)
+    calls = []
+    monkeypatch.setattr(tattn, "blockwise_attention",
+                        lambda q, k, v, **kw: calls.append(kw) or q)
+    with FakeTensorMode():
+        fake = [torch.empty(x.shape, dtype=x.dtype, device="cuda")
+                for x in (q, k, v)]
+        assert fake[0].is_cuda and not tattn._on_card(*fake)
+        tattn.prefill_attention(*fake, window=8, kv_chunk=16)
+    assert calls == [{"causal": True, "window": 8, "kv_chunk": 16}]
+    assert counted == {"kernel": 0, "blockwise": 2}
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("h2o-danube-3-4b", {"kernel": 0, "blockwise": 2 * 3}),
+    ("h2o-danube-3-4b:f32", {"kernel": 0, "blockwise": 2 * 3}),
+    ("deepseek-v3-671b", {"kernel": 0, "blockwise": 0})])
+def test_serve_run_counts_its_prefill_attentions(monkeypatch, arch, want):
+    """On the CPU every GQA prefill keeps the loop (2 layers x 3 requests
+    at danube's smoke size); MLA's prefill is not a GQA one."""
+    name, _, f32 = arch.partition(":")
+    cfg = get_smoke(name)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    counted = count_paths(monkeypatch)
+    r = tserve.run(cfg, requests=3, prefill=20, decode=2, page_size=4,
+                   hbm_pages=5, device="cpu")
+    assert r["logits_finite"] and counted == want
