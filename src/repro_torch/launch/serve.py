@@ -49,24 +49,21 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     Per decode step: ``gather_args`` (charges CXL fetches, promotes hot
     pages), one K4 launch over the f32-cast layer-0 pool, then one
     ``decode_step`` per sequence.  Where the step can be captured
-    (:func:`~repro_torch.models.transformer.graphable`: the CUDA card, GQA
-    or MLA attention, dense MLPs or MoE FFNs, RoPE or M-RoPE), each
-    sequence's caches are a
+    (:func:`~repro_torch.models.transformer.graphable`: the CUDA card,
+    attention blocks, RoPE or M-RoPE), each sequence's caches are a
     :class:`~repro_torch.models.transformer.StepGraph`: its first step
     runs eagerly, the second captures the step as a CUDA graph
     (``serve.capture#<sid>``) and every step from then on replays it;
-    elsewhere every step runs eagerly.  The prefill stashes layer 0's keys in
-    the pool (as both K and V, as the reference does) when its first
-    block has a K/V cache; an MLA model's pool holds the latent
-    (:class:`PagedKVCache`), and its prefill stashes layer 0's normed
-    compressed KV and roped rope key, one row a token, which K4 reads as
-    keys (all columns) and values (the first ``kv_lora_rank``) at the
-    model's softmax scale, under a query of the row's width; for rwkv and
-    rec models only the decode steps' zero rows fill the pool.  Runs on
-    `device` (default: the CUDA card).  Under a profiler each request's
-    prefill and each decode step is a span (``serve.prefill#<sid>``,
-    ``serve.step``), with the step's stages inside
-    (:mod:`repro_torch.runtime.trace`).
+    elsewhere every step runs eagerly.  The prefill stashes the rows that
+    :func:`~repro_torch.models.attention.pool_rows` takes from layer 0's
+    cache, and K4 runs with
+    :func:`~repro_torch.models.attention.pool_kernel_kwargs`: the pool's
+    row format is the attention's; a model whose first block keeps no K/V
+    stashes nothing, and only the decode steps' zero rows fill its pool.
+    Runs on `device` (default: the CUDA card).  Under a profiler each
+    request's prefill and each decode step is a span
+    (``serve.prefill#<sid>``, ``serve.step``), with the step's stages
+    inside (:mod:`repro_torch.runtime.trace`).
 
     Returns a dict: ``tokens`` ({seq: [token, ...]}), ``kv_stats`` (:class:`KVStats` as a
     dict), ``tier_histogram``, ``attn_out`` (every step's K4 output),
@@ -102,16 +99,9 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
             logits, cache = tf.forward_prefill(params, cfg, toks)
             cache = tf.pad_cache(cache, cfg, prefill + decode)
             kv.allocate(sid)
-            # an architecture whose first block keeps no K/V (rwkv, rec, MLA)
-            # stashes no pages; K4 still runs over the pool every step
-            first = cache[0][0]["b0"]
-            if "k" in first:
-                k0 = first["k"][0]
-                kv.append_tokens(sid, 0, k0[:prefill], k0[:prefill])
-            elif kv.latent:
-                kv.append_tokens(sid, 0, torch.cat(
-                    [first["ckv"][0, :prefill], first["krope"][0, :prefill]],
-                    dim=-1)[:, None])
+            rows = attn_mod.pool_rows(cache[0][0]["b0"], prefill)
+            if rows is not None:
+                kv.append_tokens(sid, 0, *rows)
             seqs.append(sid)
             dense_caches[sid] = (tf.StepGraph(cache, params, cfg)
                                  if tf.graphable(cfg, dev) else cache)
@@ -128,6 +118,7 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     captured = 0
     heads, width = kv.row()
     zeros = np.zeros((1, heads, width), np.float32)
+    k4_kwargs = attn_mod.pool_kernel_kwargs(cfg)
     for _ in range(decode):
         with span("serve.step"):
             bt, cl = kv.gather_args(seqs)      # charges CXL fetches
@@ -135,14 +126,9 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
                 (len(seqs), cfg.n_heads, width)).astype(np.float32)
             ).to(dev)
             with span("serve.pool_cast"):
-                kp = kv.k_pool[0].float()
-                vp = kp if kv.latent else kv.v_pool[0].float()
-            if kv.latent:
-                attn_out.append(ops.paged_attention(
-                    q, kp, vp, bt, cl, scale=attn_mod.mla_softmax_scale(cfg),
-                    v_dim=cfg.mla.kv_lora_rank))
-            else:
-                attn_out.append(ops.paged_attention(q, kp, vp, bt, cl))
+                kp, vp = kv.f32_pools(0)
+            attn_out.append(ops.paged_attention(q, kp, vp, bt, cl,
+                                                **k4_kwargs))
             for sid in seqs:
                 tok = torch.tensor([next_tok[sid]], dtype=torch.int32,
                                    device=dev)
@@ -161,7 +147,7 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
                 next_tok[sid] = nxt
                 tokens_out[sid].append(nxt)
                 ctxs[sid] += 1
-                kv.append_tokens(sid, 0, zeros, None if kv.latent else zeros)
+                kv.append_tokens(sid, 0, zeros, zeros)
     _sync(dev)
     decode_s = time.perf_counter() - t0
     replayed = sum(c.replayed for c in dense_caches.values()

@@ -8,11 +8,9 @@ migrates pages (LRU-hot promotion / cold demotion), and charges every CXL
 crossing to the calibrated timing model — a simulated clock the serving
 loop reads.
 
-For an MLA configuration the pool holds the latent instead: one row of
-``kv_lora_rank + qk_rope_head_dim`` elements a token (the normed
-compressed KV, then the roped shared rope key), one pool whose rows are
-the keys and whose first ``kv_lora_rank`` columns are the values of the
-absorbed decode; a page is priced at that row.
+For an MLA configuration one pool holds one latent row a token, keys
+and values at once (:func:`repro_torch.models.attention.pool_rows`); a
+page is priced at that row.
 
 The pools are device tensors in ``cfg.dtype``, written **in place**: the
 JAX reference's ``.at[pg, off].set`` returns a new pool (a copy per
@@ -111,6 +109,12 @@ class PagedKVCache:
         pools = 1 if self.latent else 2
         return self.page_size * kh * hd * pools * 2 * self.n_layers
 
+    def f32_pools(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`layer`'s K and V pools cast to float32 for K4; the latent
+        pool's V pool is its K pool, so K4 reads each row once."""
+        kp = self.k_pool[layer].float()
+        return kp, (kp if self.latent else self.v_pool[layer].float())
+
     def lines_per_page(self) -> int:
         """Cachelines one KV page spans (>= 1): the expansion factor the
         trace generator (:mod:`repro_torch.workloads.kv_decode`) uses to
@@ -156,7 +160,7 @@ class PagedKVCache:
     def append_tokens(self, seq_id: int, layer: int, k_new,
                       v_new=None) -> None:
         """Append (T, K, hd) keys/values (tensors or arrays) for `seq_id`
-        (for the latent pool, (T, 1, width) rows and no values).
+        (for the latent pool, (T, 1, width) rows; its values are ignored).
 
         The bookkeeping walks the tokens one by one, as the reference; the
         T rows are then written into the pools with one indexed copy each.

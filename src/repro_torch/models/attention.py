@@ -152,8 +152,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, ctx_len) -> torch.Tensor:
     """One-token attention against a dense cache.
 
-    q (B,N,hd); k/v_cache (B,S,K,hd); ctx_len an int, a 0-d or a (B,)
-    tensor of valid slots -> (B,N,hd).
+    q (B,N,hd); k/v_cache (B,S,K,hd); ctx_len a 0-d or a (B,) tensor of
+    valid slots (or an int) -> (B,N,hd).
     """
     b, n, hd = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
@@ -162,10 +162,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(b, kh, g, hd).to(F32) * scale
     logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(F32))
     pos = torch.arange(s, dtype=torch.int32, device=q.device)
-    if isinstance(ctx_len, int):        # no host-to-device copy
-        valid = (pos < ctx_len)[None, :]
-    else:
-        valid = pos[None, :] < ctx_len.to(q.device).reshape(-1, 1)
+    valid = pos[None, :] < torch.as_tensor(ctx_len,
+                                           device=q.device).reshape(-1, 1)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.to(F32))
@@ -269,32 +267,31 @@ def attention_prefill(params: Dict, x: torch.Tensor, cfg, positions,
     return y, cache
 
 
+def context_length(length, device) -> torch.Tensor:
+    """A decode step's context length as the 0-d tensor the decode path
+    takes: a tensor as it is, an int filled in on `device` (no upload)."""
+    if isinstance(length, torch.Tensor):
+        return length
+    return torch.full((), length, dtype=torch.int64, device=device)
+
+
 def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
                      ctx_len, *, window: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. x (B,1,D); cache {k,v: (B,S,K,hd)}; `ctx_len` the
-    tokens already cached, an int or a 0-d integer tensor on x's device.
-    Returns (y (B,1,D), cache), the cache updated in place; SWA caches
-    roll modulo the window.
-
-    With a tensor `ctx_len` the positions, the cache slot and the valid
-    length are computed on the device and nothing is read back to the
-    host, so the step can be captured into a CUDA graph and replayed for
-    another length; the values are those of the int path."""
+    tokens already cached (:func:`context_length`).  Returns (y (B,1,D),
+    cache), the cache updated in place; SWA caches roll modulo the window.
+    Nothing is read back to the host, so the step can be captured into a
+    CUDA graph and replayed for another length."""
     b, _, d = x.shape
     n, hd = cfg.n_heads, cfg.head_dim
     s_cache = cache["k"].shape[1]
-    on_device = isinstance(ctx_len, torch.Tensor)
-    if not on_device:
-        ctx_len = int(ctx_len)
+    ctx_len = context_length(ctx_len, x.device)
     q, k, v = _qkv(params, x, cfg)
     if cfg.qk_norm:
         q = rmsnorm(params["qnorm"], q, cfg.norm_eps)
         k = rmsnorm(params["knorm"], k, cfg.norm_eps)
-    if on_device:
-        pos = ctx_len.to(torch.int32).expand(b, 1)
-    else:
-        pos = torch.full((b, 1), ctx_len, dtype=torch.int32, device=x.device)
+    pos = ctx_len.to(torch.int32).expand(b, 1)
     if cfg.rope == "mrope":
         q = rope_mod.apply_mrope(q, torch.stack([pos] * 3), cfg.rope_theta,
                                  cfg.mrope_sections)
@@ -304,19 +301,12 @@ def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
         q = rope_mod.apply_rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
         k = rope_mod.apply_rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
     win = window if window is not None else cfg.window
-    if on_device:
-        slot = ctx_len.long() % s_cache if win is not None else ctx_len.long()
-        slot = slot.clamp(0, s_cache - 1).reshape(1)
-        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-        valid = torch.clamp(ctx_len + 1, max=s_cache)
-    else:
-        slot = ctx_len % s_cache if win is not None else ctx_len
-        # dynamic_update_slice clamps the start so the slice fits
-        slot = min(max(slot, 0), s_cache - 1)
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-        valid = min(ctx_len + 1, s_cache)
+    slot = ctx_len.long() % s_cache if win is not None else ctx_len.long()
+    # dynamic_update_slice clamps the start so the slice fits
+    slot = slot.clamp(0, s_cache - 1).reshape(1)
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    valid = torch.clamp(ctx_len + 1, max=s_cache)
     o = decode_attention(q[:, 0], cache["k"], cache["v"], valid)
     y = matmul(o.reshape(b, n * hd), params["wo"],
                reduce_dtype=_reduce(x, cfg)).reshape(b, 1, d)
@@ -351,6 +341,30 @@ def mla_softmax_scale(cfg) -> float:
     m = cfg.mla
     return ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
             * rope_mod.yarn_softmax_factor(cfg.rope_scaling))
+
+
+def pool_rows(entry: Dict, n: int
+              ) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """The paged KV pool's (keys, values) from the first `n` slots of a
+    block's prefill cache `entry` (batch 1): GQA's ``k`` rows as both, as
+    the reference does; MLA's latent ``[ckv | krope]``, one row a token,
+    as keys only (values are its first columns, :func:`pool_kernel_kwargs`);
+    None for a block with no K/V cache (rwkv, rec)."""
+    if "k" in entry:
+        k = entry["k"][0, :n]
+        return k, k
+    if "ckv" in entry:
+        return torch.cat([entry["ckv"][0, :n], entry["krope"][0, :n]],
+                         dim=-1)[:, None], None
+    return None
+
+
+def pool_kernel_kwargs(cfg) -> Dict:
+    """K4's keywords over `cfg`'s KV pool: none for GQA; MLA's softmax
+    scale and its latent rows' value columns, ``kv_lora_rank``."""
+    if cfg.attn_kind != "mla":
+        return {}
+    return {"scale": mla_softmax_scale(cfg), "v_dim": cfg.mla.kv_lora_rank}
 
 
 def _mla_qkv(params: Dict, x: torch.Tensor, cfg, positions):
@@ -428,30 +442,18 @@ def mla_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
                ctx_len) -> Tuple[torch.Tensor, Dict]:
     """Absorbed-decode MLA over the latent cache {ckv: (B,S,r), krope:
     (B,S,p)}, updated in place; the einsums run in f32 and scale by
-    :func:`mla_softmax_scale`.  `ctx_len` is an int or a 0-d integer
-    tensor on x's device, as in :func:`attention_decode`: with a tensor
-    nothing is read back to the host, and the values are the int path's."""
+    :func:`mla_softmax_scale`; `ctx_len` as in :func:`attention_decode`."""
     m = cfg.mla
     b, _, d = x.shape
     n = cfg.n_heads
-    on_device = isinstance(ctx_len, torch.Tensor)
-    if on_device:
-        pos = ctx_len.to(torch.int32).expand(b, 1)
-    else:
-        ctx_len = int(ctx_len)
-        pos = torch.full((b, 1), ctx_len, dtype=torch.int32, device=x.device)
+    ctx_len = context_length(ctx_len, x.device)
+    pos = ctx_len.to(torch.int32).expand(b, 1)
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv(params, x, cfg, pos)
     s_len = cache["ckv"].shape[1]
     # dynamic_update_slice clamps the start so the slice fits
-    if on_device:
-        idx = ctx_len.long().clamp(0, s_len - 1).reshape(1)
-        cache["ckv"].index_copy_(1, idx, ckv_new.to(cache["ckv"].dtype))
-        cache["krope"].index_copy_(1, idx,
-                                   krope_new.to(cache["krope"].dtype))
-    else:
-        idx = min(max(ctx_len, 0), s_len - 1)
-        cache["ckv"][:, idx] = ckv_new[:, 0].to(cache["ckv"].dtype)
-        cache["krope"][:, idx] = krope_new[:, 0].to(cache["krope"].dtype)
+    idx = ctx_len.long().clamp(0, s_len - 1).reshape(1)
+    cache["ckv"].index_copy_(1, idx, ckv_new.to(cache["ckv"].dtype))
+    cache["krope"].index_copy_(1, idx, krope_new.to(cache["krope"].dtype))
     ckv_c = cache["ckv"].to(F32)
     wkv_b = params["wkv_b"].reshape(m.kv_lora_rank, n,
                                     m.qk_nope_head_dim + m.v_head_dim)

@@ -416,17 +416,17 @@ def decode_step(params: Dict, cfg, token: torch.Tensor, caches: List,
 
     When `caches` is a :class:`StepGraph` built for these `params` and
     `cfg`, the step runs through it: replayed from its CUDA graph once
-    captured, the logits a fresh tensor either way."""
+    captured, the logits a fresh tensor either way; eagerly otherwise."""
     if isinstance(caches, StepGraph) and caches.takes(params, cfg, token):
         return caches.step(token, ctx_len), caches
-    return _decode(params, cfg, token, caches, ctx_len)
+    return _decode(params, cfg, token, caches,
+                   attn_mod.context_length(ctx_len, token.device))
 
 
-def _decode(params: Dict, cfg, token: torch.Tensor, caches: List, ctx_len
-            ) -> Tuple[torch.Tensor, List]:
+def _decode(params: Dict, cfg, token: torch.Tensor, caches: List,
+            ctx_len: torch.Tensor) -> Tuple[torch.Tensor, List]:
     tok = token[:, None] if token.ndim == 1 else token[..., None]
-    offset = ctx_len if isinstance(ctx_len, torch.Tensor) else int(ctx_len)
-    x = _embed_inputs(params, cfg, tok, None, offset=offset)
+    x = _embed_inputs(params, cfg, tok, None, offset=ctx_len)
     for seg, seg_params, seg_cache in zip(segments(cfg), params["segments"],
                                           caches):
         for pp, entry in zip(seg_params, seg_cache):
@@ -440,9 +440,8 @@ def _decode(params: Dict, cfg, token: torch.Tensor, caches: List, ctx_len
 def graphable(cfg, device) -> bool:
     """Whether :func:`decode_step` of `cfg` on `device` can be captured as
     CUDA graphs: a CUDA device, every block attention (GQA or MLA, whose
-    decode reads nothing back to the host once the context length is a
-    device tensor) with a dense MLP or an MoE FFN (whose decode has static
-    shapes), and RoPE or M-RoPE positions."""
+    decode reads nothing back to the host) with a dense MLP or an MoE FFN
+    (whose decode has static shapes), and RoPE or M-RoPE positions."""
     return (torch.device(device).type == "cuda"
             and cfg.rope in ("rope", "mrope")
             and all(kind in ("attn", "moe") for seg in segments(cfg)

@@ -100,10 +100,10 @@ def test_decode_attention_matches_jax(ctx):
 # ---------------------------------------------------------------------------
 # the model: prefill, then teacher-forced decode
 # ---------------------------------------------------------------------------
-def _models(dtype: str):
-    jcfg = dataclasses.replace(jget_smoke(ARCH), dtype=dtype)
-    tcfg = dataclasses.replace(tget_smoke(ARCH), dtype=dtype)
-    jparams = jtf.init_params(jcfg, jax.random.key(1))
+def _models(dtype: str, arch: str = ARCH, seed: int = 1):
+    jcfg = dataclasses.replace(jget_smoke(arch), dtype=dtype)
+    tcfg = dataclasses.replace(tget_smoke(arch), dtype=dtype)
+    jparams = jtf.init_params(jcfg, jax.random.key(seed))
     tparams = convert.model_params(
         tcfg, jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     return jcfg, tcfg, jparams, tparams
@@ -185,7 +185,8 @@ def test_decode_from_a_carried_cache_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# the context length as a 0-d tensor (the path a CUDA graph captures)
+# the context length as an int and as a 0-d tensor (the form a CUDA graph
+# captures), both against the reference
 # ---------------------------------------------------------------------------
 def _twin(caches):
     """A copy of a decode cache tree whose tensors share nothing."""
@@ -194,10 +195,26 @@ def _twin(caches):
             for seg in caches]
 
 
-def _same_caches(a, b):
-    return all(torch.equal(x[blk][k], y[blk][k])
-               for sa, sb in zip(a, b) for x, y in zip(sa, sb)
-               for blk in x for k in x[blk])
+def _jax_tree(tree):
+    """A tree of dicts of tensors as JAX arrays."""
+    if isinstance(tree, dict):
+        return {k: _jax_tree(v) for k, v in tree.items()}
+    return jnp.asarray(tree.numpy())
+
+
+def _decode_both_ways(decode, reference, p, x, cfg, jcfg, cache, ctx):
+    """`decode` with `ctx` as an int and as a 0-d tensor, each on its own
+    copy of `cache`, against the JAX package's `reference` on the same
+    inputs: outputs and the caches written within float32's tolerance."""
+    jy, jcache = reference(_jax_tree(p), jnp.asarray(x.numpy()), jcfg,
+                           _jax_tree(cache), jnp.int32(ctx))
+    for length in (ctx, torch.tensor(ctx)):
+        twin = {k: v.clone() for k, v in cache.items()}
+        y, twin = decode(p, x, cfg, twin, length)
+        close(jy, y)
+        assert twin.keys() == jcache.keys()
+        for k in twin:
+            close(jcache[k], twin[k])
 
 
 @pytest.mark.parametrize("arch,ctx", [
@@ -210,20 +227,17 @@ def _same_caches(a, b):
     ("stablelm-12b", 9),            # qk-norm
 ])
 def test_attention_decode_takes_the_context_length_as_a_tensor(arch, ctx):
-    """With `ctx_len` a 0-d tensor, the output and the cache written are
-    bitwise those of the int path."""
-    cfg = tget_smoke(arch)
+    """`attention_decode` with `ctx_len` an int and a 0-d tensor: the
+    output and the cache written those of the reference's."""
+    jcfg, cfg = (dataclasses.replace(get(arch), dtype="float32")
+                 for get in (jget_smoke, tget_smoke))
     gen = torch.Generator().manual_seed(ctx)
     p = tattn.attn_init(gen, cfg)
-    x = torch.randn((2, 1, cfg.d_model), generator=gen).to(torch.bfloat16)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen)
     shape = (2, 16, cfg.n_kv_heads, cfg.head_dim)
-    cache = {k: torch.randn(shape, generator=gen).to(torch.bfloat16)
-             for k in ("k", "v")}
-    twin = {k: v.clone() for k, v in cache.items()}
-    want, _ = tattn.attention_decode(p, x, cfg, cache, ctx)
-    got, _ = tattn.attention_decode(p, x, cfg, twin, torch.tensor(ctx))
-    assert torch.equal(got, want)
-    assert all(torch.equal(twin[k], cache[k]) for k in cache)
+    cache = {k: torch.randn(shape, generator=gen) for k in ("k", "v")}
+    _decode_both_ways(tattn.attention_decode, jattn.attention_decode, p, x,
+                      cfg, jcfg, cache, ctx)
 
 
 @pytest.mark.parametrize("arch,ctx", [
@@ -233,22 +247,19 @@ def test_attention_decode_takes_the_context_length_as_a_tensor(arch, ctx):
     ("deepseek-v3-671b", 21),       # past the end: clamped at S - 1
 ])
 def test_mla_decode_takes_the_context_length_as_a_tensor(arch, ctx):
-    """MLA's absorbed decode with `ctx_len` a 0-d tensor: the output and
-    the latent cache written bitwise those of the int path."""
-    cfg = tget_smoke(arch)
+    """MLA's absorbed decode with `ctx_len` an int and a 0-d tensor: the
+    output and the latent cache written those of the reference's."""
+    jcfg, cfg = (dataclasses.replace(get(arch), dtype="float32")
+                 for get in (jget_smoke, tget_smoke))
     gen = torch.Generator().manual_seed(ctx)
     p = tattn.mla_init(gen, cfg)
-    x = torch.randn((2, 1, cfg.d_model), generator=gen).to(torch.bfloat16)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen)
     m = cfg.mla
     cache = {"ckv": torch.randn((2, 16, m.kv_lora_rank), generator=gen),
              "krope": torch.randn((2, 16, m.qk_rope_head_dim),
                                   generator=gen)}
-    cache = {k: v.to(torch.bfloat16) for k, v in cache.items()}
-    twin = {k: v.clone() for k, v in cache.items()}
-    want, _ = tattn.mla_decode(p, x, cfg, cache, ctx)
-    got, _ = tattn.mla_decode(p, x, cfg, twin, torch.tensor(ctx))
-    assert torch.equal(got, want)
-    assert all(torch.equal(twin[k], cache[k]) for k in cache)
+    _decode_both_ways(tattn.mla_decode, jattn.mla_decode, p, x, cfg, jcfg,
+                      cache, ctx)
 
 
 @pytest.mark.parametrize("arch,prefill,capacity", [
@@ -260,21 +271,29 @@ def test_mla_decode_takes_the_context_length_as_a_tensor(arch, ctx):
 def test_decode_step_takes_the_context_length_as_a_tensor(arch, prefill,
                                                           capacity):
     """Teacher-forced `decode_step`s with `ctx_len` as an int and as a 0-d
-    tensor: logits and caches bitwise equal at every step."""
-    cfg = tget_smoke(arch)
-    params = ttf.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    tensor from the reference's own prefill cache: logits and caches those
+    of the reference's `decode_step` at every step."""
+    jcfg, cfg, jparams, params = _models("float32", arch, seed=4)
     rng = np.random.default_rng(5)
-    toks = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (2, prefill + 5)).astype(np.int32))
-    _, cache = ttf.forward_prefill(params, cfg, toks[:, :prefill])
-    cache = ttf.pad_cache(cache, cfg, capacity)
+    toks = rng.integers(0, cfg.vocab_size, (2, prefill + 5)).astype(np.int32)
+    _, jcache = jprefill(jparams, jcfg, jnp.asarray(toks[:, :prefill]))
+    jcache = jtf.pad_cache(jcache, jcfg, capacity)
+    cache = convert.dense_cache(jax.tree_util.tree_map(np.asarray, jcache),
+                                device="cpu")
     twin = _twin(cache)
     for ctx in range(prefill, prefill + 5):
-        want, cache = ttf.decode_step(params, cfg, toks[:, ctx], cache, ctx)
-        got, twin = ttf.decode_step(params, cfg, toks[:, ctx], twin,
-                                    torch.tensor(ctx))
-        assert torch.equal(got, want), ctx
-        assert _same_caches(twin, cache), ctx
+        tok = toks[:, ctx]
+        jl, jcache = jdecode(jparams, jcfg, jnp.asarray(tok), jcache,
+                             jnp.int32(ctx))
+        for length, caches in ((ctx, cache), (torch.tensor(ctx), twin)):
+            got, _ = ttf.decode_step(params, cfg, torch.from_numpy(tok),
+                                     caches, length)
+            close(jl, got)
+            for jseg, seg in zip(jcache, caches):
+                for i, period in enumerate(seg):
+                    for blk, entry in period.items():
+                        for k, v in entry.items():
+                            close(jseg[blk][k][i], v)
 
 
 def test_graphable_takes_gqa_dense_rope_blocks_on_cuda_only():

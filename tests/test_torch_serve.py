@@ -30,10 +30,13 @@ from repro.memory.kvcache import PagedKVCache as JCache
 from repro.serving.scheduler import ContinuousBatcher as JBatcher
 from repro.serving.scheduler import Request as JRequest
 from repro_torch import convert
+from repro_torch.configs import ARCHS
 from repro_torch.configs import get_smoke as tget_smoke
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.memory.kvcache import PagedKVCache as TCache
+from repro_torch.models import attention as tattn
+from repro_torch.models import transformer as ttf
 from repro_torch.serving.scheduler import ContinuousBatcher as TBatcher
 from repro_torch.serving.scheduler import Request as TRequest
 
@@ -247,6 +250,60 @@ def test_serve_run_matches_reference_loop(monkeypatch, capsys, dtype, tol):
     assert all(len(t) == shape["decode"] for t in got["tokens"].values())
     assert got["n_params"] == sum(x.size for x in jax.tree_util.tree_leaves(
         seen["params"]))
+
+
+def _expected_pool_rows(cfg, first, n):
+    """The pool rows and K4 keywords written out from the cache entries:
+    a GQA block's keys as keys and values, MLA's ``[ckv | krope]`` at its
+    softmax scale with its latent's value columns, else nothing."""
+    if "k" in first:
+        return (first["k"][0][:n], first["k"][0][:n]), {}
+    if cfg.attn_kind == "mla":
+        rows = torch.cat([first["ckv"][0, :n], first["krope"][0, :n]],
+                         dim=-1)[:, None]
+        return (rows, None), {"scale": tattn.mla_softmax_scale(cfg),
+                              "v_dim": cfg.mla.kv_lora_rank}
+    return None, {}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pool_rows_and_k4_keywords_are_the_attention_s(arch):
+    """After a smoke prefill (20 tokens: past a 16-token window), the rows
+    `pool_rows` gives and `pool_kernel_kwargs` are the loop's own: GQA's
+    layer-0 keys as keys and values (windowed, M-RoPE and MoE alike),
+    MLA's ``[ckv | krope]`` as keys at its softmax scale with its latent's
+    value columns, nothing for rwkv and rec; the rows fit the pool's row
+    and `f32_pools` gives K4 the pools written."""
+    cfg = tget_smoke(arch)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    shape = (1, 20) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, shape).astype(np.int32))
+    _, cache = ttf.forward_prefill(params, cfg, toks)
+    first = ttf.pad_cache(cache, cfg, 24)[0][0]["b0"]
+    want_rows, want_kw = _expected_pool_rows(cfg, first, 20)
+    rows = tattn.pool_rows(first, 20)
+    assert tattn.pool_kernel_kwargs(cfg) == want_kw
+    if want_rows is None:
+        assert rows is None
+        return
+    assert len(rows) == 2 and torch.equal(rows[0], want_rows[0])
+    assert (rows[1] is None if want_rows[1] is None
+            else torch.equal(rows[1], want_rows[1]))
+    kv = TCache(cfg, n_pages=8, page_size=4, max_blocks=8,
+                hbm_page_budget=8, device="cpu")
+    assert tuple(rows[0].shape[1:]) == kv.row()
+    kv.allocate(0)
+    kv.append_tokens(0, 0, *rows)
+    kp, vp = kv.f32_pools(0)
+    assert torch.equal(kp, kv.k_pool[0].float())
+    assert vp is kp if kv.v_pool is None else torch.equal(
+        vp, kv.v_pool[0].float())
+    table = kv.block_tables[0]
+    for pool, want in zip((kp, vp), rows):
+        if want is not None:
+            got = torch.cat([pool[pg] for pg in table])[:want.shape[0]]
+            assert torch.equal(got, want.float())
 
 
 def test_serve_main_runs_on_the_cpu(monkeypatch, capsys):
