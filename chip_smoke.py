@@ -1019,6 +1019,10 @@ def serve_main_path(dev, card):
             and launches["paged_attention_ref"] == 0,
         "every prefill's attention on K5":
             launches["flash_attention"] == cfg.n_layers * n_req,
+        "every layer's decode attention on K4 (a sequence's eager step "
+        "and its capture), no einsum":
+            launches["decode_attention"] == cfg.n_layers * n_req * 2
+            and launches["decode_attention_ref"] == 0,
         "finite logits": r["logits_finite"],
         "finite K4 outputs of shape (B, H, D)": all(
             o.shape == (n_req, cfg.n_heads, cfg.head_dim)
@@ -2194,6 +2198,121 @@ def k4_times(dev, gen, serve_inputs, card):
     return out
 
 
+#: K4's dense entry at the danube cells' decode shapes: (cell, cache slots
+#: S, the valid lengths of the cell's decode steps)
+DENSE_DECODE = (("prefill-long", 8200, tuple(range(8193, 8201))),
+                ("serve-spill", 1088, tuple(range(1025, 1089, 9))))
+#: (rtol, atol) of K4's dense entry against the einsums, bf16 output: both
+#: round an f32 result to bf16, and the other summation order can flip one
+#: rounding, at most one ulp, 2 ** -7 of the value; atol covers outputs
+#: near 0
+DENSE_RTOL, DENSE_ATOL = 8e-3, 1e-4
+
+
+def decode_attention_times(dev, card):
+    """K4's dense entry as a GQA decode step calls it
+    (``attention.decode_attention``) at the danube cells' shapes: one
+    sequence, 32 query heads over 8 KV heads of 120, a bf16 cache of S
+    slots, one call per valid length of the cell's decode steps (a 0-d
+    length, as the step passes it).  The kernel by CUDA events and by the
+    profiler's device time, beside its byte bound, the einsums it replaced
+    and SDPA on the same cache (the library yardstick, which the port
+    never calls); the kernel held against the einsums within
+    ``DENSE_RTOL`` and ``DENSE_ATOL``.  Beside that limit, what it would
+    have to miss: at the last length, the einsums over the cache without
+    each one of the kernel's partitions in turn, the smallest over the
+    partitions of the largest change and of its ratio to the limit, which
+    must exceed 1."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import attention as attn
+    h, kh, d = 32, 8, 120
+    gen = torch.Generator(device=dev).manual_seed(30)
+    out = {}
+    for label, s, lengths in DENSE_DECODE:
+        q = torch.randn((1, h, d), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((1, s, kh, d), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        page, table = pa.dense_layout(1, s, q.device)
+        kp = k.reshape(-1, page, kh, d)
+        plan = pa.launch_plan(q, kp, v.reshape(-1, page, kh, d), table)
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        pos = torch.arange(s, device=dev)
+        rows = []
+        for n in lengths:
+            lens = torch.tensor(n, device=dev)
+            mask = (pos < n)[None, None, None, :]
+
+            def kernel():
+                return attn.decode_attention(q, k, v, lens)
+
+            def einsums():
+                return attn.decode_attention_ref(q, k, v, lens)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kt, vt, attn_mask=mask,
+                    enable_gqa=True)[:, :, 0]
+            got, want = kernel(), einsums()
+            err = float((got.float() - want.float()).abs().max())
+            if bool(((got.float() - want.float()).abs()
+                     > DENSE_ATOL + DENSE_RTOL * want.float().abs()).any()):
+                raise AssertionError(f"[time K4 dense] {label}, length {n}: "
+                                     f"max|kernel - einsums| {err:.3g}")
+            dev_k = device_times(kernel)
+            n_bytes = pa.bound_bytes(q, kp, table, lens.reshape(1))
+            rows.append(dict(
+                length=n, ms=cuda_ms(kernel, warmup=3, reps=50),
+                device_ms=sum(dev_k.values()),
+                k4_device_ms=sum(t for key, t in dev_k.items()
+                                 if "paged_" in key),
+                einsum_ms=cuda_ms(einsums, warmup=1, reps=10),
+                library_ms=cuda_ms(sdpa, warmup=3, reps=50),
+                bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                max_abs_err=err,
+                library_err=float((sdpa().float() - got.float()).abs().max())))
+        n, want = lengths[-1], want.float()
+        lost = []
+        for lo in range(0, n, plan["part_len"]):
+            hi = min(n, lo + plan["part_len"])
+            kk, vv = (torch.cat([x[:, :lo], x[:, hi:]], 1) for x in (k, v))
+            moved = (attn.decode_attention_ref(
+                q, kk, vv, torch.tensor(n - (hi - lo), device=dev)).float()
+                - want).abs()
+            lost.append((float(moved.max()), float(
+                (moved / (DENSE_ATOL + DENSE_RTOL * want.abs())).max())))
+        lost_err, lost_ratio = min(e for e, _ in lost), min(r for _, r in lost)
+        if lost_ratio <= 1:
+            raise AssertionError(f"[time K4 dense] {label}: a lost partition "
+                                 f"stays within the limit ({lost_ratio:.3g})")
+        mean = {key: sum(r[key] for r in rows) / len(rows)
+                for key in ("ms", "device_ms", "k4_device_ms", "einsum_ms",
+                            "library_ms", "bound_ms")}
+        out[label] = dict(mean, rows=rows, parts=plan["parts"],
+                          part_len=plan["part_len"], blocks=plan["blocks"],
+                          shape=dict(B=1, H=h, K=kh, D=d, S=s, page=page),
+                          max_abs_err=max(r["max_abs_err"] for r in rows),
+                          rtol=DENSE_RTOL, atol=DENSE_ATOL,
+                          lost_partition_err=lost_err,
+                          lost_partition_over_limit=lost_ratio)
+        print(f"[time K4 dense] {label}: B=1 H={h} K={kh} D={d}, bf16 cache "
+              f"of {s} slots (page {page}, {plan['parts']} partitions of "
+              f"{plan['part_len']}, {plan['blocks']} blocks), lengths "
+              f"{lengths[0]}..{lengths[-1]}, means: kernel {mean['ms']:.4f} "
+              f"ms by events, device {mean['device_ms']:.4f} ms (K4's "
+              f"passes {mean['k4_device_ms']:.4f}), bound "
+              f"{mean['bound_ms']:.4f} ms (bytes; "
+              f"{100 * mean['bound_ms'] / max(mean['k4_device_ms'], 1e-9):.1f}"
+              f"% of it on K4's device time), einsums "
+              f"{mean['einsum_ms']:.4f} ms, SDPA on the same cache "
+              f"{mean['library_ms']:.4f} ms; max|kernel - einsums| "
+              f"{out[label]['max_abs_err']:.3g} (limit {DENSE_ATOL:g} + "
+              f"{DENSE_RTOL:g} |einsums|); a lost partition moves it at "
+              f"least {lost_err:.3g}, {lost_ratio:.3g}x the limit ({card})")
+    return out
+
+
 def k4_mla_cell(dev, gen, card):
     """K4's absorbed-MLA instantiation at the DeepSeek-V3 serving cell's
     shape (8 sequences of 1,024-1,087 positions in 68 pages of 16, 128
@@ -3008,8 +3127,11 @@ def slice11_path(dev, card, train_peaks):
     launches = dict(ops.LAUNCHES)
     print(f"[slice 11] launch counts over the dry run {launches}")
     off = {k: r for k, r in ratios.items() if abs(r - 1) > PEAK_TOLERANCE}
+    # the decode cells trace the model's einsums, which count as the plain
+    # path of K4's dense entry; nothing else may run
     if failed or off or len(ratios) != len(train_peaks) \
-            or any(launches.values()):
+            or any(n for k, n in launches.items()
+                   if k != "decode_attention_ref"):
         raise AssertionError(f"[slice 11] failed cells {failed}; peaks off "
                              f"by more than {PEAK_TOLERANCE:.0%}: {off}; "
                              f"launches {launches}")
@@ -3028,7 +3150,8 @@ EXAMPLES_GOLDEN = ROOT / "examples" / "expected_output"
 SLICE12_EXAMPLES = {
     "quickstart": {"mesi_segment": None},
     "characterize_cxl": {"mesi_segment": None, "mesi_dyn_segment": None},
-    "serve_kv_cxl": {"paged_attention": 12, "flash_attention": 2 * 6},
+    "serve_kv_cxl": {"paged_attention": 12, "flash_attention": 2 * 6,
+                     "decode_attention": 2 * 6 * 2},
     "train_e2e": {},
 }
 
@@ -3310,6 +3433,7 @@ def main() -> int:
             f"slice 8 (d): pollution_probe {label}",
             kernel="mesi_chain_kernel")
     k4_t = k4_times(dev, gen, serve["r"]["last_attn_inputs"], card)
+    dense_t = decode_attention_times(dev, card)
     from repro_torch.launch import serve as serve_mod
     profile(lambda: serve_mod.run(serve["cfg"], device=dev,
                                   params=serve["params"], decode=4),
@@ -3413,6 +3537,8 @@ def main() -> int:
                    "K/V gathered beforehand (gather not timed)",
         "ctx4096": k4_t["ctx4096"],
         "mla_cell": k4_t["mla_cell"],
+        "decode_attention_launches": serve["launches"]["decode_attention"],
+        "decode_attention": dense_t,
         "slice10_serves": {a: v["k4"] for a, v in s10["serve"].items()},
         "slice12_serve_example": s12["k4"]}, {
         "name": "flash_attention", "route": "cuda",

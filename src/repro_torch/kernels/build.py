@@ -18,6 +18,9 @@ raises; there is no fallback.  Nothing here runs at import time.
 :data:`LAUNCHES` is the one launch count of every kernel: each wrapper adds
 one to its kernel's key where it launches the kernel, and to
 ``"<kernel>_ref"`` where it runs the plain version instead.
+``"decode_attention"`` counts K4's launches over a decode step's dense
+caches apart from the serve loop's ``"paged_attention"``, and
+``"decode_attention_ref"`` the decode steps that keep the model's einsums.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARIES = ("mesi", "mesi_dyn", "paged_attention", "cache_sim",
              "stream_triad", "flash_attention")
 KERNELS = ("mesi_segment", "mesi_dyn_segment", "paged_attention",
-           "cache_sim", "stream_triad", "flash_attention")
+           "cache_sim", "stream_triad", "flash_attention",
+           "decode_attention")
 LAUNCHES: Dict[str, int] = {k + s: 0 for k in KERNELS for s in ("", "_ref")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

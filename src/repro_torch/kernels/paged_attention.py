@@ -47,9 +47,16 @@ one partition at the serve shapes), tiles of 32
 positions double-buffered by ``cp.async``, and where there are several
 partitions a second pass that combines them in a fixed order.
 
-The wrapper counts kernel launches (``"paged_attention"``) and
-plain-version calls (``"paged_attention_ref"``) in
-:data:`repro_torch.kernels.build.LAUNCHES`.
+A second launch entry, :func:`decode_attention`, runs the kernel over the
+dense per-sequence caches of a model's decode step, (B, S, K, D) each: the
+caches are viewed, not copied, as a pool of ``B * S / page`` pages read
+through an identity block table (:func:`dense_pages`).  It skips the
+wrapper's check, which reads the table back to the host, so it can be
+captured into a CUDA graph.
+
+The wrappers count kernel launches (``"paged_attention"``, and
+``"decode_attention"`` for the dense entry) and plain-version calls
+(``"paged_attention_ref"``) in :data:`repro_torch.kernels.build.LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -76,6 +83,10 @@ TILE = 32
 MIN_PARTITION = 256
 #: the split prefers at least this many partition blocks per SM
 FILL = 2
+#: page sizes :func:`dense_layout` tries on a dense cache, largest first
+DENSE_PAGES = (16, 8, 4, 2, 1)
+#: cache shapes whose block tables :func:`dense_layout` keeps
+DENSE_LAYOUTS = 16
 
 
 def split_plan(b: int, kv_heads: int, capacity: int, page: int, sms: int,
@@ -130,6 +141,15 @@ def live_mask(block_table: torch.Tensor, context_lens: torch.Tensor,
     nblk = block_table.shape[1]
     j = torch.arange(nblk, device=block_table.device)
     return j[None, :] < n_live_blocks(context_lens, page, nblk)[:, None]
+
+
+def takes(h: int, kv_heads: int, d: int, dv: int) -> bool:
+    """Whether the kernel takes these widths: `h` query heads over
+    `kv_heads`, keys `d` wide, values the leading `dv` columns; at most
+    ``MAX_HEAD_DIM`` wide and ``MAX_BLOCK_ELEMS`` values in a block of
+    ``HEAD_BLOCK`` query heads."""
+    return (kv_heads > 0 and h % kv_heads == 0 and 0 < dv <= d <= MAX_HEAD_DIM
+            and min(h // kv_heads, HEAD_BLOCK) * dv <= MAX_BLOCK_ELEMS)
 
 
 def head_blocks(h: int, kv_heads: int) -> int:
@@ -221,7 +241,8 @@ def _library() -> ctypes.CDLL:
 
 def _launch(q, k_pages, v_pages, block_table, context_lens, scale=None,
             v_dim=None) -> torch.Tensor:
-    """The kernel itself, without :func:`_check`'s validation."""
+    """The kernel itself, without :func:`_check`'s validation and without
+    counting the launch."""
     b, h, d = q.shape
     dv = d if v_dim is None else v_dim
     _, page, kh, _ = k_pages.shape
@@ -237,7 +258,7 @@ def _launch(q, k_pages, v_pages, block_table, context_lens, scale=None,
                             f"{x.dtype}")
     if k_pages.dtype != v_pages.dtype:
         raise TypeError("k_pages and v_pages must share a dtype")
-    if d > MAX_HEAD_DIM or min(h // kh, HEAD_BLOCK) * dv > MAX_BLOCK_ELEMS:
+    if not takes(h, kh, d, dv):
         raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM} and "
                          f"<= {MAX_BLOCK_ELEMS} values in a block of "
                          f"{HEAD_BLOCK} query heads; got {d} and "
@@ -263,7 +284,6 @@ def _launch(q, k_pages, v_pages, block_table, context_lens, scale=None,
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel failed: CUDA error {rc} "
                            f"({lib.paged_attention_error_string(rc).decode()})")
-    LAUNCHES["paged_attention"] += 1
     return out
 
 
@@ -333,13 +353,75 @@ def paged_attention(q, k_pages, v_pages, block_table, context_lens, *,
     _check(q, k_pages, v_pages, block_table, context_lens,
            q.shape[-1] if v_dim is None else v_dim)
     if q.device.type == "cuda":
-        return _launch(q, k_pages, v_pages, block_table, context_lens,
-                       scale, v_dim)
+        out = _launch(q, k_pages, v_pages, block_table, context_lens, scale,
+                      v_dim)
+        LAUNCHES["paged_attention"] += 1
+        return out
     if q.device.type != "cpu":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     return paged_attention_ref(q, k_pages, v_pages, block_table,
                                context_lens, scale=scale, v_dim=v_dim)
+
+
+def dense_layout(b: int, s: int, device) -> tuple:
+    """``(page, block_table)`` that view `b` dense caches of `s` slots as
+    a pool of ``b * s / page`` pages: the largest page of
+    :data:`DENSE_PAGES` dividing `s`, and the identity table (sequence i
+    holds pages ``i * nblk .. i * nblk + nblk - 1``), int32 on `device`.
+
+    A pure function of the shape, built once and kept for the last
+    :data:`DENSE_LAYOUTS` shapes (``cuda`` is read as the current card, so
+    it and ``cuda:<n>`` share a table).  Its build may not fall inside a
+    CUDA graph capture, which would record the table's fill instead of
+    running it: the eager step before the capture builds it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _dense_layout(b, s, dev)
+
+
+@functools.lru_cache(maxsize=DENSE_LAYOUTS)
+def _dense_layout(b: int, s: int, dev: torch.device) -> tuple:
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("dense_layout: build the table before a capture "
+                           "(run the step once eagerly)")
+    page = next(p for p in DENSE_PAGES if s % p == 0)
+    nblk = s // page
+    table = torch.arange(b * nblk, dtype=torch.int32, device=dev)
+    return page, table.reshape(b, nblk)
+
+
+def dense_pages(k_cache, v_cache, context_lens) -> tuple:
+    """Dense caches (B, S, K, D), slot j of sequence b at ``[b, j]``, and
+    an int, a 0-d or a (B,) tensor of valid slots -> ``(k_pages, v_pages,
+    block_table, context_lens)`` as K4 reads them: the caches viewed, not
+    copied, as pages (:func:`dense_layout`), the lengths int32 (B,),
+    converted on the cache's device (a tensor there is read with no host
+    round trip)."""
+    b, s = k_cache.shape[:2]
+    page, table = dense_layout(b, s, k_cache.device)
+    lens = torch.as_tensor(context_lens, device=k_cache.device)
+    return (k_cache.reshape(b * s // page, page, *k_cache.shape[2:]),
+            v_cache.reshape(b * s // page, page, *v_cache.shape[2:]),
+            table, lens.to(torch.int32).reshape(-1).expand(b))
+
+
+def decode_attention(q, k_cache, v_cache, context_lens) -> torch.Tensor:
+    """Decode attention on the card over dense caches: q (B, H, D) CUDA;
+    k_cache, v_cache (B, S, K, D) and `context_lens` as
+    :func:`dense_pages` takes them -> (B, H, D) in q.dtype, logits scaled
+    by ``D ** -0.5`` after the product.
+
+    The kernel reads the caches' rows where they lie, in their own dtype,
+    with neither :func:`_check` nor any host read: the table is whole by
+    construction and the output and workspace come from PyTorch's
+    allocator, so the call can be captured into a CUDA graph and replayed
+    at other lengths.  Widths must be what :func:`takes` admits.
+    """
+    out = _launch(q, *dense_pages(k_cache, v_cache, context_lens))
+    LAUNCHES["decode_attention"] += 1
+    return out
 
 
 def bound_bytes(q, k_pages, block_table, context_lens, *,

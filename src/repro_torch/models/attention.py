@@ -3,11 +3,13 @@
 The port of the JAX package's ``models/attention.py``.
 :func:`blockwise_attention` is the same online-softmax loop over KV chunks
 in plain PyTorch (the reference computes it outside any Pallas kernel), and
-:func:`decode_attention` the one-token softmax against a dense cache.  A
+:func:`decode_attention_ref` the one-token softmax against a dense cache.  A
 GQA prefill on the card runs its attention on K5 instead
 (:func:`prefill_attention`, :func:`gqa_flash_attention`) where the inputs
 are what K5's tensor-core kernel takes; training, the dry run's fake
-tensors and every other type or width keep the loop.  Multi-head latent
+tensors and every other type or width keep the loop.  A GQA decode step on
+the card runs its attention on K4 over the dense cache as it lies
+(:func:`decode_attention`); elsewhere it keeps the einsums.  Multi-head latent
 attention (DeepSeek-V3's MLA) expands its latent to per-head K/V for
 training and prefill, and decodes in the absorbed form (q pre-multiplied
 by W_uk) against the latent cache.
@@ -27,6 +29,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels.build import LAUNCHES
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import (dense_init, matmul, pdtype, rmsnorm,
                                        rmsnorm_init)
@@ -153,8 +157,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """One-token attention against a dense cache.
 
     q (B,N,hd); k/v_cache (B,S,K,hd); ctx_len a 0-d or a (B,) tensor of
-    valid slots (or an int) -> (B,N,hd).
+    valid slots, at least 1 (or an int) -> (B,N,hd).  On K4
+    (:func:`pa.decode_attention`: the cache read in its own dtype, f32
+    logits scaled after the product, an f32 online softmax and sum) where
+    the kernel takes the inputs: real CUDA tensors needing no gradient (K4
+    has no backward), q and the caches f32 or bf16, the caches alike in
+    shape and dtype, widths that :func:`pa.takes` admits; else
+    :func:`decode_attention_ref`.
     """
+    h, d = q.shape[1:]
+    if (_on_card(q, k_cache, v_cache)
+            and not (q.requires_grad or k_cache.requires_grad
+                     or v_cache.requires_grad)
+            and {q.dtype, k_cache.dtype} <= {torch.float32, torch.bfloat16}
+            and k_cache.dtype == v_cache.dtype
+            and k_cache.shape == v_cache.shape and k_cache.shape[-1] == d
+            and pa.takes(h, k_cache.shape[2], d, d)):
+        return pa.decode_attention(q, k_cache, v_cache, ctx_len)
+    return decode_attention_ref(q, k_cache, v_cache, ctx_len)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, ctx_len) -> torch.Tensor:
+    """:func:`decode_attention` as the reference computes it: f32 einsums
+    over an f32 copy of the cache, q scaled before the product, a masked
+    softmax over every slot.  Counts ``LAUNCHES["decode_attention_ref"]``.
+    """
+    LAUNCHES["decode_attention_ref"] += 1
     b, n, hd = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = n // kh

@@ -14,7 +14,11 @@ gradients within rtol 1e-4 and 1e-4 of each leaf's largest entry), and
 K4 at their serve shapes (D = 64, 256 with 16 groups, 192 with 128
 heads) within its tolerances.  The CXL.mem flit codec runs on the card
 bitwise as on the CPU, and the dry run on fake CUDA tensors counts the
-FLOPs of the same step run on the card.  The analyzer's graph audit is
+FLOPs of the same step run on the card.  A GQA decode step's attention
+runs on K4 over the dense cache, against the model's einsums on the card
+within one bf16 rounding in bf16 and 1e-4 in f32, a limit that a lost
+partition breaks, and bitwise between a replayed step and its eager
+twin.  The analyzer's graph audit is
 clean on the card, where it traces the kernel entry points and
 triangulates the MESI and epoch kernels against the reference, and that
 triangulation catches a kernel whose counters come out reordered.
@@ -49,9 +53,11 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch import tree as ttree
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
+from repro_torch.models import attention as tattn
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 from repro_torch.workloads import HotCold
+from test_torch_decode_kernel import gqa_layers
 
 pytestmark = pytest.mark.cuda
 
@@ -410,13 +416,16 @@ def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
 
 def test_serve_runs_on_the_card(card):
     """danube's smoke serve: each prefill's attention on K5 (2 layers x 3
-    requests), one K4 launch a decode step."""
+    requests), one K4 launch a decode step, and each layer's decode
+    attention on K4's dense entry in a sequence's eager step and its
+    capture (2 layers x 3 requests x 2; replays launch nothing new)."""
     cfg = get_smoke("h2o-danube-3-4b")
     tops.reset_launches()
     r = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
                    hbm_pages=5)
     assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
-                                  paged_attention=3, flash_attention=6)
+                                  paged_attention=3, flash_attention=6,
+                                  decode_attention=2 * 3 * 2)
     assert r["logits_finite"] and r["kv_stats"]["demotions"] > 0
     q, kp, vp, bt, cl = r["last_attn_inputs"]
     assert q.is_cuda and kp.is_cuda and bt.dtype == torch.int32
@@ -994,8 +1003,9 @@ def test_new_kinds_on_the_card_match_cpu(card, arch):
 def test_serve_runs_the_new_kinds_on_the_card(card, arch):
     """serve.run at smoke size: one K4 launch per decode step over a pool
     that only the decode steps' zero rows fill (deepseek's latent pool:
-    the prompts' latent rows too, as on the CPU); KVStats as on the
-    CPU."""
+    the prompts' latent rows too, as on the CPU); recurrentgemma's
+    local-attention layer decodes on K4's dense entry at every (eager)
+    step; KVStats as on the CPU."""
     cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
     p_cpu = ttf.init_params(cfg, torch.Generator().manual_seed(6), "cpu")
     kw = dict(requests=3, prefill=20, decode=3, page_size=4, hbm_pages=5)
@@ -1003,7 +1013,8 @@ def test_serve_runs_the_new_kinds_on_the_card(card, arch):
     r = tserve.run(cfg, params=ttree.tree_map(lambda x: x.to(card), p_cpu),
                    **kw)
     assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
-                                  paged_attention=3)
+                                  paged_attention=3,
+                                  decode_attention=gqa_layers(cfg) * 3 * 3)
     on_cpu = tserve.run(cfg, device="cpu", params=p_cpu, **kw)
     assert r["logits_finite"] and r["kv_stats"] == on_cpu["kv_stats"]
     assert r["tokens"] == on_cpu["tokens"]
@@ -1120,6 +1131,150 @@ def test_serve_capture_under_the_profiler(card):
         "captured": 3, "replayed": 9, "eager": 3}
     assert on["tokens"] == off["tokens"]
     assert on["kv_stats"] == off["kv_stats"]
+
+
+# ---------------------------------------------------------------------------
+# The decode step's attention on K4 over the dense cache
+# ---------------------------------------------------------------------------
+#: (B, S, H, K, D, q dtype): danube's heads over serve-spill's and
+#: prefill-long's cache lengths, one sequence and two; an f32 q over
+#: prefill-long's bf16 cache; recurrentgemma's local attention (one KV head
+#: of 256) over its 2,048-slot window
+DENSE = {"danube_1088_b1": (1, 1088, 32, 8, 120, "bfloat16"),
+         "danube_1088_b2": (2, 1088, 32, 8, 120, "bfloat16"),
+         "danube_8200_b1": (1, 8200, 32, 8, 120, "bfloat16"),
+         "danube_8200_b2": (2, 8200, 32, 8, 120, "bfloat16"),
+         "danube_8200_b1_q_f32": (1, 8200, 32, 8, 120, "float32"),
+         "recurrentgemma_2048": (1, 2048, 16, 1, 256, "bfloat16")}
+#: (rtol, atol) by output dtype.  bf16: both paths round an f32 result to
+#: bf16, and the kernel's other summation order and its scaling after the
+#: product can flip one rounding, at most one ulp, 2 ** -7 of the value
+#: (1.2e-4 at a typical output of ~0.018 at S 8,200); atol covers outputs
+#: near 0.  f32: only the summation order differs.
+DENSE_TOL = {torch.bfloat16: (8e-3, 1e-4), torch.float32: (1e-4, 1e-4)}
+
+
+def within(got, want, rtol, atol) -> bool:
+    """``assert_close``'s rule: |got - want| <= atol + rtol |want|."""
+    return bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("case", list(DENSE))
+@pytest.mark.parametrize("form", ["0-d", "(B,)"])
+def test_decode_attention_on_k4_matches_the_einsums(card, case, form):
+    """``attention.decode_attention`` on the card (K4 over the dense bf16
+    cache) against its einsums on the same card, at lengths 1, 17, a page
+    boundary, a partition boundary, S - 1 and S; a 0-d length or one per
+    sequence; within ``DENSE_TOL`` (see there).  Two calls give the same
+    bits.  The limit is tight enough to see a lost partition: at the full
+    length, the einsums over the cache without any one of the kernel's
+    partitions (the last holds 8 slots at S 8,200) fall outside it for
+    every sequence."""
+    b, s, h, kh, d, q_dt = DENSE[case]
+    g = torch.Generator(device=card).manual_seed(s + b + d)
+    q = torch.randn((b, h, d), generator=g, device=card).to(
+        getattr(torch, q_dt))
+    k, v = (torch.randn((b, s, kh, d), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    rtol, atol = DENSE_TOL[q.dtype]
+    page, table = tpa.dense_layout(b, s, q.device)
+    assert tpa.dense_layout(b, s, "cuda")[1] is table
+    plan = tpa.launch_plan(q, k.reshape(-1, page, kh, d),
+                           v.reshape(-1, page, kh, d), table)
+    assert (plan["parts"] > 1) == (s > 256)
+    for n in sorted({1, 17, 64 * page, plan["part_len"], s - 1, s}):
+        if form == "0-d":
+            lens = torch.tensor(n, device=card)
+        else:
+            lens = torch.tensor([max(1, n - 7 * i) for i in range(b)],
+                                dtype=torch.int32, device=card)
+        tops.reset_launches()
+        got = tattn.decode_attention(q, k, v, lens)
+        again = tattn.decode_attention(q, k, v, lens)
+        assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                      decode_attention=2)
+        want = tattn.decode_attention_ref(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        assert torch.equal(got, again)
+    if form != "0-d" or plan["parts"] == 1:
+        return
+    for lo in range(0, s, plan["part_len"]):
+        hi = min(s, lo + plan["part_len"])
+        kk, vv = (torch.cat([x[:, :lo], x[:, hi:]], 1) for x in (k, v))
+        lost = tattn.decode_attention_ref(
+            q, kk, vv, torch.tensor(s - (hi - lo), device=card))
+        assert not any(within(lost[i], want[i], rtol, atol)
+                       for i in range(b)), (lo, hi)
+
+
+def test_rolled_window_decode_steps_on_k4_match_the_einsums(card,
+                                                            monkeypatch):
+    """danube's smoke config in f32 (its 16-token window, the cache rolled
+    modulo it): ten decode steps past a 20-token prompt for two sequences,
+    each step's logits on K4 within rtol = atol = 1e-4 of the same steps
+    run on the einsums (f32: only the summation order differs)."""
+    cfg = dataclasses.replace(get_smoke("h2o-danube-3-4b"), dtype="float32")
+    params = ttf.init_params(cfg, torch.Generator(device=card).manual_seed(5),
+                             card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(6)).to(card)
+    _, cache = ttf.forward_prefill(params, cfg, toks)
+    cache = ttf.pad_cache(cache, cfg, 40)
+    assert cache[0][0]["b0"]["k"].shape[1] == cfg.window == 16
+    ein = _twin(cache)
+    tops.reset_launches()
+    for ctx in range(20, 30):
+        tok = toks[:, ctx % 20]
+        got, cache = ttf.decode_step(params, cfg, tok, cache, ctx)
+        with monkeypatch.context() as m:
+            m.setattr(tattn, "decode_attention", tattn.decode_attention_ref)
+            want, ein = ttf.decode_step(params, cfg, tok, ein, ctx)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert tops.LAUNCHES["decode_attention"] == 2 * 10
+    assert tops.LAUNCHES["decode_attention_ref"] == 2 * 10
+
+
+def test_replayed_decode_step_on_k4_equals_its_eager_step(card):
+    """danube's smoke config over a 1,088-slot cache: a decode_step with K4
+    inside, run eagerly once, captured, then replayed at three lengths
+    that cross a partition boundary; each step's logits and caches are
+    bitwise those of an eager step on copies of its inputs.  The dense
+    entry launches once a layer in the eager step and once in the
+    capture; the replays launch nothing new."""
+    cfg = dataclasses.replace(get_smoke("h2o-danube-3-4b"), window=None)
+    s, kh, d = 1088, cfg.n_kv_heads, cfg.head_dim
+    page, table = tpa.dense_layout(1, s, card)
+    kp = torch.empty((s // page, page, kh, d), dtype=torch.bfloat16,
+                     device=card)
+    plan = tpa.launch_plan(torch.empty((1, cfg.n_heads, d), dtype=kp.dtype,
+                                       device=card), kp, kp, table)
+    assert plan["parts"] > 1
+    n = plan["part_len"] - 2            # valid lengths part_len - 1 .. + 2
+    params = ttf.init_params(cfg, torch.Generator(device=card).manual_seed(7),
+                             card)
+    toks = torch.randint(0, cfg.vocab_size, (1, n + 4), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(8)).to(card)
+    _, cache = ttf.forward_prefill(params, cfg, toks[:, :n])
+    graph = ttf.StepGraph(ttf.pad_cache(cache, cfg, s), params, cfg)
+    launched = 0
+    for i in range(4):
+        tok = toks[:, n + i]
+        want, twin = ttf.decode_step(params, cfg, tok, _twin(graph), n + i)
+        before = tops.LAUNCHES["decode_attention"]
+        if graph.warm and graph.graph is None:
+            graph.capture()
+        got, graph = ttf.decode_step(params, cfg, tok, graph, n + i)
+        launched += tops.LAUNCHES["decode_attention"] - before
+        assert torch.equal(got, want)
+        assert all(torch.equal(x[b][k], y[b][k])
+                   for sa, sb in zip(graph, twin) for x, y in zip(sa, sb)
+                   for b in x for k in x[b])
+    assert graph.replayed == 3
+    assert launched == 2 * gqa_layers(cfg)
 
 
 def test_codec_on_the_card_matches_cpu(card):
