@@ -52,7 +52,10 @@ makes the script exit non-zero:
    a seed) with serve.py's defaults (8 requests, prefill 48, decode 16,
    16-token pages, 24 HBM pages): one paged-attention (K4) launch per
    decode step, finite logits, and the same loop at smoke size in float32
-   equal on the card and on the CPU; the goldens also include
+   equal on the card and on the CPU; mimo-v2-flash-309b's smoke serve
+   (``hybrid_serve_path``: two K4 pool launches a step, every decode
+   attention on K4's dense entry, the sinks' launches, no einsum, the
+   pool's counters as on the CPU); the goldens also include
    ``tests/golden/{distribute,resilience}.json``, run as
    ``tests/test_golden_stats.py`` runs them (2 shards x 8 streamed
    segments; a crash at segment 2, then the resumed run's 6 launches);
@@ -1054,6 +1057,62 @@ def serve_main_path(dev, card):
     if not same or err > 1e-4:
         raise AssertionError("the serve loop disagrees between card and CPU")
     return dict(r=r, cfg=cfg, params=params, launches=launches, peak=peak)
+
+
+def hybrid_serve_path(dev, card):
+    """mimo-v2-flash-309b's smoke serve on the card (layer 0 full, layers
+    1-3 window with sinks, held-share MoE FFNs; windows of 8 shorter than
+    the prompts, so the rings roll), graphed, from launch counts reset just
+    before: two K4 pool launches a step (the full and the window kind,
+    the window one with its sinks), every layer's decode attention on K4's
+    dense entry in each sequence's eager step and its capture, the window
+    layers' with their sinks, none on the einsums; the pool's counters,
+    summed and per kind, as on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = get_smoke("mimo-v2-flash-309b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           held=(2, 4)))
+    n_req, n_dec = 3, 4
+    kw = dict(requests=n_req, prefill=20, decode=n_dec, page_size=4,
+              hbm_pages=5)
+    window = sum(cfg.is_window_layer(i) for i in range(cfg.n_layers))
+    ops.reset_launches()
+    r = serve.run(cfg, device=dev, **kw)
+    launches = dict(ops.LAUNCHES)
+    on_cpu = serve.run(cfg, device="cpu", **kw)
+    print(f"[serve] {cfg.arch} smoke: {cfg.n_layers} layers ({window} "
+          f"window), {n_req} requests, prefill 20, decode {n_dec}, page 4, "
+          f"5 HBM pages: launch counts {launches}; graphs "
+          f"{r['decode_graph']}; kv kinds {r['kv_kinds']} ({card})")
+    checks = {
+        "two K4 pool launches a step, the window kind's with sinks":
+            launches["paged_attention"] == 2 * n_dec
+            and launches["paged_attention_ref"] == 0,
+        "every layer's decode attention on K4's dense entry (eager step "
+        "and capture)":
+            launches["decode_attention"] == cfg.n_layers * n_req * 2,
+        "sinks on the window pool launches and the window layers":
+            launches["attention_sinks"] == n_dec + window * n_req * 2
+            and launches["attention_sinks_ref"] == 0,
+        "no decode attention on the einsums":
+            launches["decode_attention_ref"] == 0,
+        "graphed after each sequence's first two steps":
+            r["decode_graph"] == {"captured": n_req,
+                                  "replayed": n_req * (n_dec - 1),
+                                  "eager": n_req},
+        "the pool's counters as on the CPU":
+            r["kv_stats"] == on_cpu["kv_stats"]
+            and r["kv_kinds"] == on_cpu["kv_kinds"],
+        "finite logits": r["logits_finite"],
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"the hybrid serve path failed {bad}")
+    return dict(launches=launches, decode_graph=r["decode_graph"],
+                kv_kinds=r["kv_kinds"])
 
 
 def paged_case(gen, b, h, kh, d, page, nblk, dtype, dev):
@@ -2195,13 +2254,21 @@ def k4_times(dev, gen, serve_inputs, card):
            for name, args in (("serve", serve_inputs),
                               ("ctx4096", long_ctx))}
     out["mla_cell"] = k4_mla_cell(dev, gen, card)
+    out.update(k4_hybrid_cell(dev, gen, card))
     return out
 
 
-#: K4's dense entry at the danube cells' decode shapes: (cell, cache slots
-#: S, the valid lengths of the cell's decode steps)
-DENSE_DECODE = (("prefill-long", 8200, tuple(range(8193, 8201))),
-                ("serve-spill", 1088, tuple(range(1025, 1089, 9))))
+#: K4's dense entry at the serving cells' decode shapes: (cell, cache slots
+#: S, the valid lengths of the cell's decode steps, query heads, KV heads,
+#: key width, value width, a sink logit per query head): danube's two
+#: cells, and MiMo-V2-Flash's full layers (the whole context) and window
+#: layers (a ring of 128, always full in its cell, with the sinks)
+DENSE_DECODE = (
+    ("prefill-long", 8200, tuple(range(8193, 8201)), 32, 8, 120, 120, False),
+    ("serve-spill", 1088, tuple(range(1025, 1089, 9)), 32, 8, 120, 120,
+     False),
+    ("mimo full", 4160, tuple(range(4097, 4161, 9)), 64, 4, 192, 128, False),
+    ("mimo window", 128, (128,), 64, 8, 192, 128, True))
 #: (rtol, atol) of K4's dense entry against the einsums, bf16 output: both
 #: round an f32 result to bf16, and the other summation order can flip one
 #: rounding, at most one ulp, 2 ** -7 of the value; atol covers outputs
@@ -2211,10 +2278,10 @@ DENSE_RTOL, DENSE_ATOL = 8e-3, 1e-4
 
 def decode_attention_times(dev, card):
     """K4's dense entry as a GQA decode step calls it
-    (``attention.decode_attention``) at the danube cells' shapes: one
-    sequence, 32 query heads over 8 KV heads of 120, a bf16 cache of S
-    slots, one call per valid length of the cell's decode steps (a 0-d
-    length, as the step passes it).  The kernel by CUDA events and by the
+    (``attention.decode_attention``) at the shapes of `DENSE_DECODE`: one
+    sequence, a bf16 cache of S slots (V rows of their own width, and the
+    sinks where the cell's layer has them), one call per valid length of
+    the cell's decode steps (a 0-d length, as the step passes it).  The kernel by CUDA events and by the
     profiler's device time, beside its byte bound, the einsums it replaced
     and SDPA on the same cache (the library yardstick, which the port
     never calls); the kernel held against the einsums within
@@ -2227,16 +2294,18 @@ def decode_attention_times(dev, card):
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import attention as attn
-    h, kh, d = 32, 8, 120
     gen = torch.Generator(device=dev).manual_seed(30)
     out = {}
-    for label, s, lengths in DENSE_DECODE:
+    for label, s, lengths, h, kh, d, dv, with_sinks in DENSE_DECODE:
         q = torch.randn((1, h, d), generator=gen, device=dev).bfloat16()
-        k, v = (torch.randn((1, s, kh, d), generator=gen,
-                            device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn((1, s, kh, w), generator=gen,
+                            device=dev).bfloat16() for w in (d, dv))
+        sinks = (4.85 + torch.randn((h,), generator=gen, device=dev)
+                 if with_sinks else None)
         page, table = pa.dense_layout(1, s, q.device)
         kp = k.reshape(-1, page, kh, d)
-        plan = pa.launch_plan(q, kp, v.reshape(-1, page, kh, d), table)
+        plan = pa.launch_plan(q, kp, v.reshape(-1, page, kh, dv), table,
+                              sinks=sinks)
         kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
         pos = torch.arange(s, device=dev)
         rows = []
@@ -2245,10 +2314,10 @@ def decode_attention_times(dev, card):
             mask = (pos < n)[None, None, None, :]
 
             def kernel():
-                return attn.decode_attention(q, k, v, lens)
+                return attn.decode_attention(q, k, v, lens, sinks)
 
             def einsums():
-                return attn.decode_attention_ref(q, k, v, lens)
+                return attn.decode_attention_ref(q, k, v, lens, sinks)
 
             def sdpa():
                 return F.scaled_dot_product_attention(
@@ -2261,7 +2330,8 @@ def decode_attention_times(dev, card):
                 raise AssertionError(f"[time K4 dense] {label}, length {n}: "
                                      f"max|kernel - einsums| {err:.3g}")
             dev_k = device_times(kernel)
-            n_bytes = pa.bound_bytes(q, kp, table, lens.reshape(1))
+            n_bytes = pa.bound_bytes(q, kp, table, lens.reshape(1),
+                                     v_dim=dv, sinks=with_sinks)
             rows.append(dict(
                 length=n, ms=cuda_ms(kernel, warmup=3, reps=50),
                 device_ms=sum(dev_k.values()),
@@ -2278,8 +2348,8 @@ def decode_attention_times(dev, card):
             hi = min(n, lo + plan["part_len"])
             kk, vv = (torch.cat([x[:, :lo], x[:, hi:]], 1) for x in (k, v))
             moved = (attn.decode_attention_ref(
-                q, kk, vv, torch.tensor(n - (hi - lo), device=dev)).float()
-                - want).abs()
+                q, kk, vv, torch.tensor(n - (hi - lo), device=dev),
+                sinks).float() - want).abs()
             lost.append((float(moved.max()), float(
                 (moved / (DENSE_ATOL + DENSE_RTOL * want.abs())).max())))
         lost_err, lost_ratio = min(e for e, _ in lost), min(r for _, r in lost)
@@ -2291,12 +2361,14 @@ def decode_attention_times(dev, card):
                             "library_ms", "bound_ms")}
         out[label] = dict(mean, rows=rows, parts=plan["parts"],
                           part_len=plan["part_len"], blocks=plan["blocks"],
-                          shape=dict(B=1, H=h, K=kh, D=d, S=s, page=page),
+                          shape=dict(B=1, H=h, K=kh, D=d, Dv=dv, S=s,
+                                     page=page, sinks=with_sinks),
                           max_abs_err=max(r["max_abs_err"] for r in rows),
                           rtol=DENSE_RTOL, atol=DENSE_ATOL,
                           lost_partition_err=lost_err,
                           lost_partition_over_limit=lost_ratio)
-        print(f"[time K4 dense] {label}: B=1 H={h} K={kh} D={d}, bf16 cache "
+        print(f"[time K4 dense] {label}: B=1 H={h} K={kh} D={d} Dv={dv}"
+              f"{', sinks' if with_sinks else ''}, bf16 cache "
               f"of {s} slots (page {page}, {plan['parts']} partitions of "
               f"{plan['part_len']}, {plan['blocks']} blocks), lengths "
               f"{lengths[0]}..{lengths[-1]}, means: kernel {mean['ms']:.4f} "
@@ -2349,6 +2421,42 @@ def k4_mla_cell(dev, gen, card):
                 max_abs_err=err)
 
 
+def k4_hybrid_cell(dev, gen, card):
+    """K4 at the MiMo-V2-Flash serving cell's two pool kinds (8 sequences,
+    64 query heads, keys 192 wide, values 128 in their own f32 pool): the
+    full kind over 4 KV heads and 4,097-4,160 positions in 262 pages of
+    16, the window kind over 8 KV heads and a ring of 8 pages with a sink
+    logit per query head; each against its plain version (3e-5, rtol =
+    atol), then timed beside its bound and SDPA (see `k4_time_case`, whose
+    SDPA leaves the sinks out)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    out = {}
+    for kind, kh, nblk, ctxs in (
+            ("full", 4, 262, [4097 + 9 * i for i in range(8)]),
+            ("window", 8, 8, [128] * 8)):
+        args = contexts_case(gen, ctxs, 64, kh, 192, 16, nblk,
+                             torch.float32, dev)
+        args[2] = args[2][..., :128].contiguous()
+        kw = {"sinks": (4.85 + torch.randn((64,), generator=gen)).to(dev)
+              } if kind == "window" else {}
+        plan = pa.launch_plan(*args[:4], **kw)
+        plain = pa.paged_attention_ref(*args, **kw)
+        diff = (pa.paged_attention(*args, **kw) - plain).abs()
+        err = float(diff.max())
+        if bool((diff > 3e-5 * (1 + plain.abs())).any()):
+            raise AssertionError(f"[time K4] K4 at the MiMo cell's {kind} "
+                                 f"kind: max|kernel - plain| {err:.3g} "
+                                 f"(tolerance 3e-5)")
+        print(f"[time K4] MiMo cell, {kind} kind: {plan['parts']} "
+              f"partition(s), max|kernel - plain| {err:.3g} (tolerance "
+              f"3e-5, rtol = atol)")
+        out[f"hybrid_{kind}"] = dict(
+            k4_time_case(f"MiMo {kind}", args, dev, card, **kw),
+            max_abs_err=err)
+    return out
+
+
 def k4_time_case(name, args, dev, card, **kw):
     """K4 on `args` (`kw`: its ``scale`` and ``v_dim``): kernel, the
     wrapper as the serve loop calls it (its block-table check syncs with
@@ -2359,7 +2467,7 @@ def k4_time_case(name, args, dev, card, **kw):
     from repro_torch.kernels import paged_attention as pa
     q, kp, vp, bt, cl = args
     bb, hh, dd = q.shape
-    dv = kw.get("v_dim") or dd
+    dv = kw.get("v_dim") or vp.shape[-1]
     pg, kvh, nb = kp.shape[1], kp.shape[2], bt.shape[1]
     ms = cuda_ms(lambda: pa._launch(q, kp, vp, bt, cl, **kw), warmup=3,
                  reps=50)
@@ -2382,7 +2490,7 @@ def k4_time_case(name, args, dev, card, **kw):
             q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True,
             scale=kw.get("scale"))
     lib_ms = cuda_ms(sdpa, warmup=3, reps=50)
-    plan = pa.launch_plan(q, kp, vp, bt, kw.get("v_dim"))
+    plan = pa.launch_plan(q, kp, vp, bt, kw.get("v_dim"), kw.get("sinks"))
     dev4 = device_times(lambda: pa._launch(q, kp, vp, bt, cl, **kw))
     part_dev = sum(v for k, v in dev4.items() if "paged_attention" in k)
     combine_dev = sum(v for k, v in dev4.items() if "paged_combine" in k)
@@ -2391,8 +2499,9 @@ def k4_time_case(name, args, dev, card, **kw):
     full = cl > 0
     lib_err = float((sdpa()[:, :, 0] - pa._launch(q, kp, vp, bt, cl, **kw))[
         full].abs().max()) if bool(full.any()) else 0.0
-    n_bytes = pa.bound_bytes(q, kp, bt, cl, v_dim=kw.get("v_dim"),
-                             shared_kv="v_dim" in kw and vp is kp)
+    n_bytes = pa.bound_bytes(q, kp, bt, cl, v_dim=dv,
+                             shared_kv="v_dim" in kw and vp is kp,
+                             sinks="sinks" in kw)
     flops = 2 * int(cl.clamp(0, nb * pg).sum()) * hh * (dd + dv)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
@@ -3368,6 +3477,7 @@ def main() -> int:
     golden_launches = goldens_on_the_card(dev)
     t0 = time.perf_counter()
     serve = serve_main_path(dev, card)
+    hybrid_serve = hybrid_serve_path(dev, card)
     print(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 3c. slice 8: streamed, sharded, resumed; probe; MoEStream -------
@@ -3537,6 +3647,8 @@ def main() -> int:
                    "K/V gathered beforehand (gather not timed)",
         "ctx4096": k4_t["ctx4096"],
         "mla_cell": k4_t["mla_cell"],
+        "hybrid_cell": {k: k4_t[f"hybrid_{k}"] for k in ("full", "window")},
+        "hybrid_serve": hybrid_serve,
         "decode_attention_launches": serve["launches"]["decode_attention"],
         "decode_attention": dense_t,
         "slice10_serves": {a: v["k4"] for a, v in s10["serve"].items()},

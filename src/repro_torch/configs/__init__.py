@@ -19,13 +19,23 @@ _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
+#: the JAX package's registry, mirrored
 ARCHS = tuple(_MODULES)
+
+# architectures of the port alone (not in the JAX package)
+_PORT_MODULES = {
+    "mimo-v2-flash-309b": "mimo_v2_flash_309b",
+}
+
+#: every architecture the port builds: ARCHS, then the port's own
+PORT_ARCHS = ARCHS + tuple(_PORT_MODULES)
 
 
 def _mod(arch: str):
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    name = _MODULES.get(arch) or _PORT_MODULES.get(arch)
+    if name is None:
+        raise KeyError(f"unknown arch {arch!r}; known: {PORT_ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -10,6 +10,7 @@ LMs, ``("rec", "rec", "attn")`` for recurrentgemma's 2:1 hybrid,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 BlockKind = str  # 'attn' | 'moe' | 'rwkv' | 'rec'
@@ -34,6 +35,21 @@ class YarnConfig:
     beta_slow: float = 1.0
     mscale: float = 1.0
     mscale_all_dim: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridAttention:
+    """Layers of two attention kinds (MiMo-V2-Flash's
+    ``hybrid_layer_pattern``): layer i is a window layer where
+    ``pattern[i]`` is 1, with this window, these KV heads, this rope theta
+    and (with `sinks`) a learnable sink logit per query head; a full layer
+    where it is 0, with the :class:`ModelConfig`'s own (``window``,
+    ``n_kv_heads``, ``rope_theta``, ``attn_sinks``)."""
+    pattern: Tuple[int, ...]
+    window: int = 128
+    n_kv_heads: int = 8
+    rope_theta: float = 10_000.0
+    sinks: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +104,11 @@ class ModelConfig:
     rope_scaling: Optional[YarnConfig] = None
     mrope_sections: Tuple[int, ...] = (16, 24, 24)
     qk_norm: bool = False
+    v_head_dim: int = 0            # 0 => head_dim (GQA values' width)
+    rotary_dim: int = 0            # 0 => head_dim (leading dims rotated)
+    value_scale: float = 1.0       # v = value_scale * x @ Wv
+    attn_sinks: bool = False       # a learnable sink logit per query head
+    hybrid: Optional[HybridAttention] = None   # window and full layers
 
     # mixture of experts
     moe: Optional[MoEConfig] = None
@@ -131,6 +152,26 @@ class ModelConfig:
             object.__setattr__(self, "lru_width", self.d_model)
 
     # ---- derived -----------------------------------------------------------
+    @property
+    def v_dim(self) -> int:
+        """Width of a GQA value head."""
+        return self.v_head_dim or self.head_dim
+
+    @property
+    def rot_dim(self) -> int:
+        """Leading dims of a GQA q or k head that RoPE rotates."""
+        return self.rotary_dim or self.head_dim
+
+    def is_window_layer(self, i: int) -> bool:
+        """Whether layer `i` is a window layer of a hybrid model."""
+        return self.hybrid is not None and self.hybrid.pattern[i] == 1
+
+    def layer(self, i: int) -> "ModelConfig":
+        """Layer `i`'s configuration: a hybrid model's window layer with
+        its window, KV heads, rope theta and sinks put in (and no
+        ``hybrid``); every other layer's is this one."""
+        return _layer_config(self, i) if self.is_window_layer(i) else self
+
     def layer_kinds(self) -> Tuple[BlockKind, ...]:
         """Expand block_pattern over depth (+ first_dense override for MoE)."""
         kinds = []
@@ -146,12 +187,13 @@ class ModelConfig:
         """Approximate parameter count (embedding + blocks + head)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.head_dim
-        n_q = self.n_heads * hd
-        n_kv = self.n_kv_heads * hd
         total = v * d * self.n_codebooks            # embed
         if not self.tie_embeddings:
             total += d * v * self.n_codebooks       # head(s)
-        for k in self.layer_kinds():
+        for i, k in enumerate(self.layer_kinds()):
+            lc = self.layer(i)
+            n_q = lc.n_heads * hd
+            n_kv = lc.n_kv_heads * hd
             if k in ("attn", "moe"):
                 if self.attn_kind == "mla" and self.mla:
                     m = self.mla
@@ -163,7 +205,9 @@ class ModelConfig:
                               (m.qk_nope_head_dim + m.v_head_dim)
                               + self.n_heads * m.v_head_dim * d)
                 else:
-                    total += d * (n_q + 2 * n_kv) + n_q * d
+                    n_v = lc.n_kv_heads * lc.v_dim
+                    total += (d * (n_q + n_kv + n_v) + lc.n_heads * lc.v_dim
+                              * d + lc.n_heads * lc.attn_sinks)
             if k == "attn":
                 ff = (self.moe.dense_d_ff if self.moe and self.moe.dense_d_ff
                       else f)
@@ -195,3 +239,11 @@ class ModelConfig:
         n_moe_layers = sum(1 for k in self.layer_kinds() if k == "moe")
         inactive = n_moe_layers * (m.n_experts - m.top_k) * 3 * d * m.expert_d_ff
         return int(full - inactive)
+
+
+@functools.lru_cache(maxsize=None)
+def _layer_config(cfg: ModelConfig, i: int) -> ModelConfig:
+    h = cfg.hybrid
+    return dataclasses.replace(cfg, window=h.window, n_kv_heads=h.n_kv_heads,
+                               rope_theta=h.rope_theta, attn_sinks=h.sinks,
+                               hybrid=None)

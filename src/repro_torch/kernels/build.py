@@ -21,6 +21,9 @@ one to its kernel's key where it launches the kernel, and to
 ``"decode_attention"`` counts K4's launches over a decode step's dense
 caches apart from the serve loop's ``"paged_attention"``, and
 ``"decode_attention_ref"`` the decode steps that keep the model's einsums.
+``"attention_sinks"`` counts K4's launches with a sink per head, through
+either entry, and ``"attention_sinks_ref"`` the plain versions' calls with
+sinks (K4's and the decode einsums').
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ LIBRARIES = ("mesi", "mesi_dyn", "paged_attention", "cache_sim",
              "stream_triad", "flash_attention")
 KERNELS = ("mesi_segment", "mesi_dyn_segment", "paged_attention",
            "cache_sim", "stream_triad", "flash_attention",
-           "decode_attention")
+           "decode_attention", "attention_sinks")
 LAUNCHES: Dict[str, int] = {k + s: 0 for k in KERNELS for s in ("", "_ref")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -11,12 +11,16 @@
 // over the positions p < context_lens[b], where position p of sequence b
 // lives at row (p mod page) of page block_table[b, p / page].  GQA: the
 // G = H / K query heads of kv head k are h = k * G .. k * G + G - 1.  The
-// values are the first Dv <= D columns of the V rows (Dv = D for GQA); with
-// `shared` the V rows are the K rows, read once (MLA's absorbed decode over
-// its latent pool: K = 1, H = 128, D = 576, Dv = 512).  The
-// logits are scaled after the dot product (as the oracle, not the Pallas
-// body, does it), the softmax is online in f32, and an empty context gives
-// 0.  Block-table entries past ceil(ctx / page) are never read.
+// values are the first Dv <= W columns of the V rows, which lie in their
+// own pool, W <= D wide (Dv = W = D for GQA; MiMo-V2-Flash's D = 192, W =
+// Dv = 128); with `shared` the V rows are the K rows, read once (MLA's
+// absorbed decode over its latent pool: K = 1, H = 128, D = 576, Dv = 512).
+// The logits are scaled after the dot product (as the oracle, not the
+// Pallas body, does it), the softmax is online in f32, and an empty context
+// gives 0.  Block-table entries past ceil(ctx / page) are never read.
+// Optional sinks, an f32 logit per query head, take softmax mass and add no
+// value: out = sum_p e^(s_p) V_p / (sum_p e^(s_p) + e^(sink)), added once,
+// in f32, where the block or the combine normalises.
 //
 // What bounds it: bytes.  Each live position's K and V rows of one kv head
 // (2 * D elements) are read once, q once, out written once; the work is
@@ -131,6 +135,8 @@ struct Shape {
   int shared;           // the V rows are the K rows (read once)
   int gblock;           // query heads per block (the last may hold fewer)
   int hblocks;          // blocks of query heads per kv head
+  int v_row;            // width of the V pool's rows (d where shared)
+  int sinks;            // a sink logit per query head is given
 };
 
 __host__ __device__ inline int align16(int bytes) {
@@ -163,11 +169,12 @@ __host__ __device__ constexpr int chunk_elems() {
 }
 
 // Positions [base, base + n_t) of kv head `kh` into the stage's K rows
-// (d wide) and V rows (their leading dv columns; none with `shared`):
-// cp.async 16-byte vectors, or plain loads and stores.  Warp w takes
-// rows w, w + 8, ...; its lanes look up those rows' pages together first,
-// so the block-table reads of a tile are in flight at once.
-template <typename TKV, bool kVec, bool kWide>
+// (d wide) and V rows (their leading dv columns; none with `shared`; with
+// kOwnV, the leading dv columns of the V pool's v_row-wide rows):
+// cp.async 16-byte vectors, or plain loads and stores.  Warp w takes rows
+// w, w + 8, ...; its lanes look up those rows' pages together first, so
+// the block-table reads of a tile are in flight at once.
+template <typename TKV, bool kVec, bool kWide, bool kOwnV>
 __device__ __forceinline__ void load_tile(const TKV* __restrict__ k_pages,
                                           const TKV* __restrict__ v_pages,
                                           const int* __restrict__ bt,
@@ -175,24 +182,29 @@ __device__ __forceinline__ void load_tile(const TKV* __restrict__ k_pages,
                                           char* ks, char* vs, const Shape& s,
                                           int warp, int lane) {
   const int rows = warp < n_t ? (n_t - warp + kWarps - 1) / kWarps : 0;
+  // each lane's row: its K row's offset, or with kOwnV its row index
   long long mine = 0;
   if (lane < rows) {
     const int pos = base + warp + lane * kWarps;
-    mine = ((static_cast<long long>(bt[pos / s.page]) * s.page +
-             pos % s.page) * s.kv_heads + kh) * s.d;
+    mine = (static_cast<long long>(bt[pos / s.page]) * s.page +
+            pos % s.page) * s.kv_heads + kh;
+    if constexpr (!kOwnV) mine *= s.d;
   }
   for (int r = 0; r < rows; ++r) {
     const int t = warp + r * kWarps;
-    const long long row = __shfl_sync(0xffffffffu, mine, r);
+    const long long at = __shfl_sync(0xffffffffu, mine, r);
+    const long long row = kOwnV ? at * s.d : at;
+    const long long v_at = kOwnV ? at * s.v_row : at;
     char* kd = ks + t * s.row_bytes;
     char* vd = vs + t * s.row_bytes;
     if constexpr (kVec) {
       const char* kg = reinterpret_cast<const char*>(k_pages + row);
-      const char* vg = reinterpret_cast<const char*>(v_pages + row);
+      const char* vg = reinterpret_cast<const char*>(v_pages + v_at);
       const int chunks = s.d * static_cast<int>(sizeof(TKV)) / 16;
       if constexpr (kWide) {
-        const int v_chunks =
-            s.shared ? 0 : s.dv * static_cast<int>(sizeof(TKV)) / 16;
+        const int v_chunks = !kOwnV && s.shared
+                                 ? 0
+                                 : s.dv * static_cast<int>(sizeof(TKV)) / 16;
         for (int c = lane; c < chunks; c += 32) {
           cp_async16(kd + 16 * c, kg + 16 * c);
           if (c < v_chunks) cp_async16(vd + 16 * c, vg + 16 * c);
@@ -204,10 +216,10 @@ __device__ __forceinline__ void load_tile(const TKV* __restrict__ k_pages,
         }
       }
     } else if constexpr (kWide) {
-      const int v_elems = s.shared ? 0 : s.dv;
+      const int v_elems = !kOwnV && s.shared ? 0 : s.dv;
       for (int e = lane; e < s.d; e += 32) {
         reinterpret_cast<TKV*>(kd)[e] = k_pages[row + e];
-        if (e < v_elems) reinterpret_cast<TKV*>(vd)[e] = v_pages[row + e];
+        if (e < v_elems) reinterpret_cast<TKV*>(vd)[e] = v_pages[v_at + e];
       }
     } else {
       for (int e = lane; e < s.d; e += 32) {
@@ -269,14 +281,17 @@ __device__ __forceinline__ float chunk_dot(const float* q_g, const char* kr,
 
 // One partition of one (kv head, block of its query heads, sequence): grid
 // (K x hblocks) x B x parts.  With one partition `out` gets the normalised
-// result; with more, `ws` gets (m, l, acc) per query head.  kAcc
-// accumulator slots per thread hold the block's heads x dv values.
-template <typename TQ, typename TKV, bool kVec, int kAcc>
+// result (with kOwnV, the sinks where given); with more, `ws` gets (m, l,
+// acc) per query head.  kAcc accumulator slots per thread hold the block's
+// heads x dv values.  kOwnV (general launches whose V rows are not the K
+// rows): V rows of their own width and sinks; MLA's shared rows and the
+// GQA launch compile without either.
+template <typename TQ, typename TKV, bool kVec, int kAcc, bool kOwnV>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const int* __restrict__ block_table,
     const int* __restrict__ context_lens, TQ* __restrict__ out,
-    float* __restrict__ ws, Shape s) {
+    float* __restrict__ ws, const float* __restrict__ sinks, Shape s) {
   extern __shared__ __align__(16) char smem[];
   constexpr bool kWide = kAcc == kAccWide;
   const int kh = kWide ? blockIdx.x / s.hblocks : blockIdx.x;
@@ -301,7 +316,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   char* kv = smem + kv_offset(s);                         // [2][K|V][kTile]
   const int stage_bytes = (kWide ? stage_rows(s) : 2 * kTile) * s.row_bytes;
   // the V rows of a stage: after its K rows, or the K rows themselves
-  const int v_rows_at = kWide && s.shared ? 0 : kTile * s.row_bytes;
+  const int v_rows_at =
+      kWide && !kOwnV && s.shared ? 0 : kTile * s.row_bytes;
   float* part_s = reinterpret_cast<float*>(smem + part_offset(s));
   float* p_s = part_s + g_n * s.pieces * kTile;           // [G][kTile]
   float* m_s = p_s + g_n * kTile;                         // [G]
@@ -322,8 +338,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   const int* bt = block_table + static_cast<long long>(seq) * s.nblk;
   if (n_tiles > 0)
-    load_tile<TKV, kVec, kWide>(k_pages, v_pages, bt, lo, min(kTile, hi - lo),
-                                kh, kv, kv + v_rows_at, s, warp, lane);
+    load_tile<TKV, kVec, kWide, kOwnV>(k_pages, v_pages, bt, lo,
+                                       min(kTile, hi - lo), kh, kv,
+                                       kv + v_rows_at, s, warp, lane);
   cp_async_commit();
   __syncthreads();  // q, m and l, also where the partition is empty
 
@@ -341,9 +358,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const char* vs = ks + v_rows_at;
     if (it + 1 < n_tiles) {
       char* nk = kv + ((it + 1) & 1) * stage_bytes;
-      load_tile<TKV, kVec, kWide>(k_pages, v_pages, bt, base + kTile,
-                                  min(kTile, hi - base - kTile), kh, nk,
-                                  nk + v_rows_at, s, warp, lane);
+      load_tile<TKV, kVec, kWide, kOwnV>(k_pages, v_pages, bt, base + kTile,
+                                         min(kTile, hi - base - kTile), kh,
+                                         nk, nk + v_rows_at, s, warp, lane);
     }
     cp_async_commit();
     cp_async_wait_one();  // this tile's copies, by this thread
@@ -432,6 +449,28 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   // slot i * kPv + j of acc is element (tid + i * kThreads) * kPv + j of
   // the (G, Dv) block of heads
+  if (kOwnV && s.parts == 1 && s.sinks) {
+    // o = acc e^(m - m') / (l e^(m - m') + e^(sink - m')), m' = max(m, sink)
+    for (int g = tid; g < g_n; g += kThreads) {
+      const float sink = sinks[h0 + g];
+      const float m_all = fmaxf(m_s[g], sink);
+      const float keep = expf(m_s[g] - m_all);  // 0 on an empty context
+      alpha_s[g] = keep / (l_s[g] * keep + expf(sink - m_all));
+    }
+    __syncthreads();
+    TQ* ob = out + (static_cast<long long>(seq) * s.h + h0) * dv;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int el = (tid + i * kThreads) * kPv;
+      if (el < g_n * dv) {
+        const float f = alpha_s[el / dv];
+#pragma unroll
+        for (int j = 0; j < kPv; ++j)
+          ob[el + j] = from_f32<TQ>(acc[i * kPv + j] * f);
+      }
+    }
+    return;
+  }
   if (s.parts == 1) {
     TQ* ob = out + (static_cast<long long>(seq) * s.h + h0) * dv;
 #pragma unroll
@@ -469,19 +508,19 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 }
 
 // Combine the non-empty partitions of each (head, sequence) in partition
-// order: grid H x B.
+// order, with the head's sink where given: grid H x B.
 template <typename TQ>
 __global__ void __launch_bounds__(kCombineThreads) paged_combine_kernel(
     const float* __restrict__ ws, const int* __restrict__ context_lens,
-    TQ* __restrict__ out, Shape s) {
+    TQ* __restrict__ out, const float* __restrict__ sinks, Shape s) {
   const int hh = blockIdx.x, seq = blockIdx.y;
   const int d = s.dv, w = d + 2;
   const int ctx = min(max(context_lens[seq], 0), s.nblk * s.page);
   const int live = (ctx + s.part_len - 1) / s.part_len;
   const float* wb = ws + (static_cast<long long>(seq) * s.h + hh) * s.parts * w;
-  float mx = -INFINITY;
+  float mx = s.sinks ? sinks[hh] : -INFINITY;
   for (int p = 0; p < live; ++p) mx = fmaxf(mx, wb[p * w]);
-  float l = 0.0f;
+  float l = s.sinks ? expf(sinks[hh] - mx) : 0.0f;
   for (int p = 0; p < live; ++p) l += wb[p * w + 1] * expf(wb[p * w] - mx);
   TQ* ob = out + (static_cast<long long>(seq) * s.h + hh) * d;
   for (int e = threadIdx.x; e < d; e += kCombineThreads) {
@@ -497,15 +536,21 @@ struct Type {
   using type = T;
 };
 
-// f(Type<TQ>, Type<TKV>, std::bool_constant<kVec>, integral_constant<kAcc>)
-// for the dtype codes (0 = float32, 1 = bfloat16), the load path and the
-// accumulator slots.
+// f(Type<TQ>, Type<TKV>, std::bool_constant<kVec>, integral_constant<kAcc>,
+// std::bool_constant<kOwnV>) for the dtype codes (0 = float32, 1 =
+// bfloat16), the load path, the accumulator slots and (general launches
+// only) V rows of their own.
 template <class F>
-int dispatch(int q_dtype, int kv_dtype, bool vec, bool wide, F&& f) {
+int dispatch(int q_dtype, int kv_dtype, bool vec, bool wide, bool own_v,
+             F&& f) {
   auto by_kv = [&](auto tq) {
     auto by_acc = [&](auto tkv, auto vv) {
-      return wide ? f(tq, tkv, vv, std::integral_constant<int, kAccWide>{})
-                  : f(tq, tkv, vv, std::integral_constant<int, kAccNarrow>{});
+      using Wide = std::integral_constant<int, kAccWide>;
+      if (!wide)
+        return f(tq, tkv, vv, std::integral_constant<int, kAccNarrow>{},
+                 std::false_type{});
+      return own_v ? f(tq, tkv, vv, Wide{}, std::true_type{})
+                   : f(tq, tkv, vv, Wide{}, std::false_type{});
     };
     auto by_vec = [&](auto tkv) {
       return vec ? by_acc(tkv, std::true_type{})
@@ -525,7 +570,7 @@ bool vector_rows(int d, int kv_dtype, bool aligned) {
 
 // The partition kernel's layout for `s` (row stride, pieces of D) and its
 // shared memory, which the kernel is allowed to take.
-template <typename TQ, typename TKV, bool kVec, int kAcc>
+template <typename TQ, typename TKV, bool kVec, int kAcc, bool kOwnV>
 cudaError_t prepare(Shape* s, size_t* smem) {
   const int elem = static_cast<int>(sizeof(TKV));
   s->row_bytes = kVec ? 16 * (((s->d * elem + 15) / 16) | 1)
@@ -533,28 +578,29 @@ cudaError_t prepare(Shape* s, size_t* smem) {
   s->pieces = s->gblock <= kWarps ? kWarps / s->gblock : 1;
   *smem = smem_bytes(*s);
   if (*smem > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(paged_attention_kernel<TQ, TKV, kVec, kAcc>,
+  return cudaFuncSetAttribute(paged_attention_kernel<TQ, TKV, kVec, kAcc,
+                                                     kOwnV>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
 }
 
-template <typename TQ, typename TKV, bool kVec, int kAcc>
+template <typename TQ, typename TKV, bool kVec, int kAcc, bool kOwnV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* block_table, const int* context_lens, void* out,
-           float* ws, Shape s, cudaStream_t stream) {
+           float* ws, const float* sinks, Shape s, cudaStream_t stream) {
   size_t smem = 0;
-  cudaError_t err = prepare<TQ, TKV, kVec, kAcc>(&s, &smem);
+  cudaError_t err = prepare<TQ, TKV, kVec, kAcc, kOwnV>(&s, &smem);
   if (err != cudaSuccess) return err;
-  paged_attention_kernel<TQ, TKV, kVec, kAcc>
+  paged_attention_kernel<TQ, TKV, kVec, kAcc, kOwnV>
       <<<dim3(s.kv_heads * s.hblocks, s.b, s.parts), kThreads, smem,
          stream>>>(
           static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
           static_cast<const TKV*>(v_pages), block_table, context_lens,
-          static_cast<TQ*>(out), ws, s);
+          static_cast<TQ*>(out), ws, sinks, s);
   err = cudaGetLastError();
   if (err != cudaSuccess || s.parts == 1) return err;
   paged_combine_kernel<TQ><<<dim3(s.h, s.b), kCombineThreads, 0, stream>>>(
-      ws, context_lens, static_cast<TQ*>(out), s);
+      ws, context_lens, static_cast<TQ*>(out), sinks, s);
   return cudaGetLastError();
 }
 
@@ -565,23 +611,29 @@ bool takes(int h, int d, int kv_heads, int dv, int q_dtype, int kv_dtype) {
          q_dtype >= 0 && q_dtype <= 1 && kv_dtype >= 0 && kv_dtype <= 1;
 }
 
-// The shape's head blocks and value width; whether it takes the general
-// launch (the wide accumulator).
-Shape shaped(Shape s, int dv, int shared) {
+// The shape's head blocks, value width, V rows and sinks; whether it takes
+// the general launch (the wide accumulator), which alone reads V rows
+// narrower than the K rows and sinks.
+Shape shaped(Shape s, int dv, int shared, int v_row, int sinks) {
   s.dv = dv;
   s.shared = shared;
   s.gblock = std::min(s.groups, kHeadBlock);
   s.hblocks = (s.groups + s.gblock - 1) / s.gblock;
+  s.v_row = shared ? s.d : v_row;
+  s.sinks = sinks;
   return s;
 }
 bool wide(const Shape& s) {
-  return s.shared || s.dv != s.d || s.hblocks > 1 ||
-         s.gblock * s.dv > kAccNarrow * kThreads;
+  return s.shared || s.dv != s.d || s.v_row != s.d || s.sinks ||
+         s.hblocks > 1 || s.gblock * s.dv > kAccNarrow * kThreads;
 }
+// A general launch whose V rows are not its K rows.
+bool own_v(const Shape& s) { return wide(s) && !s.shared; }
 
-// The 16-byte path for both the K rows and the V columns read.
+// The 16-byte path for the K rows, the V rows and the V columns read.
 bool vector_path(const Shape& s, int kv_dtype, bool aligned) {
   return vector_rows(s.d, kv_dtype, aligned) &&
+         vector_rows(s.v_row, kv_dtype, aligned) &&
          vector_rows(s.dv, kv_dtype, aligned);
 }
 
@@ -593,25 +645,29 @@ bool vector_path(const Shape& s, int kv_dtype, bool aligned) {
 extern "C" int paged_attention_resident(int* blocks, int h, int d,
                                         int kv_heads, int aligned,
                                         int q_dtype, int kv_dtype, int dv,
-                                        int shared, int device) {
+                                        int shared, int v_row, int sinks,
+                                        int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (!takes(h, d, kv_heads, dv, q_dtype, kv_dtype))
+  if (!takes(h, d, kv_heads, dv, q_dtype, kv_dtype) || v_row < dv ||
+      v_row > d)
     return cudaErrorInvalidValue;
   Shape s = shaped(Shape{1, h, d, 1, kv_heads, 1, h / kv_heads, kTile, 1, 0,
                          0, 1.0f},
-                   dv, shared);
+                   dv, shared, v_row, sinks);
   return dispatch(q_dtype, kv_dtype, vector_path(s, kv_dtype, aligned != 0),
-                  wide(s), [&](auto tq, auto tkv, auto vec, auto acc) -> int {
+                  wide(s), own_v(s),
+                  [&](auto tq, auto tkv, auto vec, auto acc, auto ov) -> int {
                     using TQ = typename decltype(tq)::type;
                     using TKV = typename decltype(tkv)::type;
                     constexpr bool kV = decltype(vec)::value;
                     constexpr int kA = decltype(acc)::value;
+                    constexpr bool kO = decltype(ov)::value;
                     size_t smem = 0;
-                    cudaError_t e = prepare<TQ, TKV, kV, kA>(&s, &smem);
+                    cudaError_t e = prepare<TQ, TKV, kV, kA, kO>(&s, &smem);
                     if (e != cudaSuccess) return e;
                     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        blocks, paged_attention_kernel<TQ, TKV, kV, kA>,
+                        blocks, paged_attention_kernel<TQ, TKV, kV, kA, kO>,
                         kThreads, smem);
                   });
 }
@@ -620,15 +676,17 @@ extern "C" int paged_attention_resident(int* blocks, int h, int d,
 // `part_len` positions per context (parts * part_len >= nblk * page,
 // part_len a multiple of 32); with parts > 1, `ws` is (b, h, parts, dv + 2)
 // f32 scratch; `out` is (b, h, dv), the values being the leading dv columns
-// of the V rows, and with `shared` the V rows are the K rows (v_pages is
-// k_pages).  Returns a cudaError_t (0 = ok); cudaErrorInvalidValue for a
-// shape the kernel does not take.
+// of the V pool's v_row-wide rows, and with `shared` the V rows are the K
+// rows (v_pages is k_pages); `sinks` is (h,) f32 or null.  Returns a
+// cudaError_t (0 = ok); cudaErrorInvalidValue for a shape the kernel does
+// not take.
 extern "C" int paged_attention(const void* q, const void* k_pages,
                                const void* v_pages, const int* block_table,
                                const int* context_lens, void* out, void* ws,
-                               int b, int h, int d, int page, int kv_heads,
-                               int nblk, int part_len, int parts, float scale,
-                               int q_dtype, int kv_dtype, int dv, int shared,
+                               const float* sinks, int b, int h, int d,
+                               int page, int kv_heads, int nblk, int part_len,
+                               int parts, float scale, int q_dtype,
+                               int kv_dtype, int dv, int v_row, int shared,
                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -637,22 +695,25 @@ extern "C" int paged_attention(const void* q, const void* k_pages,
       part_len % kTile != 0 ||
       static_cast<long long>(part_len) * parts <
           static_cast<long long>(nblk) * page ||
-      (parts > 1 && ws == nullptr) || (shared && v_pages != k_pages))
+      (parts > 1 && ws == nullptr) ||
+      (shared && (v_pages != k_pages || sinks != nullptr)) ||
+      (!shared && (v_row < dv || v_row > d)))
     return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
   const Shape s = shaped(Shape{b, h, d, page, kv_heads, nblk, h / kv_heads,
                                part_len, parts, 0, 0, scale},
-                         dv, shared);
+                         dv, shared, v_row, sinks != nullptr);
   const bool aligned = reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
   return dispatch(q_dtype, kv_dtype, vector_path(s, kv_dtype, aligned),
-                  wide(s), [&](auto tq, auto tkv, auto vec, auto acc) -> int {
+                  wide(s), own_v(s),
+                  [&](auto tq, auto tkv, auto vec, auto acc, auto ov) -> int {
                     using TQ = typename decltype(tq)::type;
                     using TKV = typename decltype(tkv)::type;
                     return launch<TQ, TKV, decltype(vec)::value,
-                                  decltype(acc)::value>(
+                                  decltype(acc)::value, decltype(ov)::value>(
                         q, k_pages, v_pages, block_table, context_lens, out,
-                        static_cast<float*>(ws), s,
+                        static_cast<float*>(ws), sinks, s,
                         static_cast<cudaStream_t>(stream));
                   });
 }

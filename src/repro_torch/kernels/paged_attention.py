@@ -7,14 +7,19 @@ in fixed-size pages of a global pool, addressed through a per-sequence
 block table — the layout of the tier-aware paged KV cache
 (:mod:`repro_torch.memory.kvcache`).
 
-Shapes: ``q`` (B, H, D); ``k_pages``/``v_pages`` (P, page, K, D);
-``block_table`` (B, nblk) int32; ``context_lens`` (B,) int32 -> (B, H, Dv)
-in ``q.dtype``, the values being the first ``Dv = v_dim`` (default D)
-columns of the V rows.  GQA: ``H % K == 0``, query head h reads kv head
-``h // (H / K)``.  Positions ``>= context_lens[b]`` are masked; an empty
-context gives 0.  Logits are ``(q . k) * scale`` (default ``D**-0.5``),
-scaled after the product as the JAX oracle ``repro.kernels.ref.
-paged_attention`` does (the Pallas body scales ``q`` first).
+Shapes: ``q`` (B, H, D); ``k_pages`` (P, page, K, D); ``v_pages`` (P,
+page, K, W), rows of their own width W <= D (W = D for the JAX package's
+pools); ``block_table`` (B, nblk) int32; ``context_lens`` (B,) int32 ->
+(B, H, Dv) in ``q.dtype``, the values being the first ``Dv = v_dim``
+(default W) columns of the V rows.  GQA: ``H % K == 0``, query head h
+reads kv head ``h // (H / K)``.  Positions ``>= context_lens[b]`` are
+masked; an empty context gives 0.  Logits are ``(q . k) * scale``
+(default ``D**-0.5``), scaled after the product as the JAX oracle
+``repro.kernels.ref.paged_attention`` does (the Pallas body scales ``q``
+first).  Optional ``sinks`` (H,) f32, a logit per query head, take softmax
+mass and add no value (MiMo-V2-Flash's window layers): ``out = sum_p
+e^(s_p) v_p / (sum_p e^(s_p) + e^(sink))``, added once where the
+partitions are combined.
 
 MLA's absorbed decode over the latent pool is the case K = 1, H = 128,
 D = 576 (the latent and the rope key), Dv = 512 (the latent), with
@@ -157,19 +162,25 @@ def head_blocks(h: int, kv_heads: int) -> int:
     return -(-(h // kv_heads) // HEAD_BLOCK)
 
 
-def _check(q, k_pages, v_pages, block_table, context_lens, v_dim) -> None:
-    if q.ndim != 3 or k_pages.ndim != 4:
+def _check(q, k_pages, v_pages, block_table, context_lens, v_dim,
+           sinks=None) -> None:
+    if q.ndim != 3 or k_pages.ndim != 4 or v_pages.ndim != 4:
         raise ValueError(f"q must be (B, H, D) and the pools (P, page, K, D);"
                          f" got {tuple(q.shape)} and {tuple(k_pages.shape)}")
     b, h, d = q.shape
     p_, page, kh, dk = k_pages.shape
-    if v_pages.shape != k_pages.shape:
+    if v_pages.shape[:3] != k_pages.shape[:3] or v_pages.shape[3] > dk:
         raise ValueError(f"k_pages {tuple(k_pages.shape)} and v_pages "
                          f"{tuple(v_pages.shape)} differ")
     if dk != d:
         raise ValueError(f"head_dim of q ({d}) and the pools ({dk}) differ")
-    if not 0 < v_dim <= d:
-        raise ValueError(f"v_dim must lie in [1, {d}], got {v_dim}")
+    if not 0 < v_dim <= v_pages.shape[3]:
+        raise ValueError(f"v_dim must lie in [1, {v_pages.shape[3]}], got "
+                         f"{v_dim}")
+    if sinks is not None and (tuple(sinks.shape) != (h,)
+                              or sinks.dtype != torch.float32):
+        raise ValueError(f"sinks must be float32 (H={h},), got "
+                         f"{sinks.dtype} {tuple(sinks.shape)}")
     if h % kh != 0:
         raise ValueError(f"q heads {h} must be a multiple of kv heads {kh}")
     if block_table.ndim != 2 or block_table.shape[0] != b:
@@ -190,22 +201,27 @@ def _check(q, k_pages, v_pages, block_table, context_lens, v_dim) -> None:
 # ---------------------------------------------------------------------------
 def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens,
                         *, scale: Optional[float] = None,
-                        v_dim: Optional[int] = None) -> torch.Tensor:
+                        v_dim: Optional[int] = None,
+                        sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_attention` (same contract;
-    `scale` defaults to ``D ** -0.5`` and `v_dim` to D, as the kernel's).
+    `scale` defaults to ``D ** -0.5`` and `v_dim` to the V rows' width, as
+    the kernel's).
 
     The JAX oracle's arithmetic: gather every page of the block table
     (padded entries masked to page 0 first), f32 logits scaled after the
-    product, a masked softmax with empty rows set to 0, f32 value sum.
+    product, a masked softmax with empty rows set to 0, f32 value sum;
+    with `sinks`, the softmax over the logits and the head's sink.
     """
     LAUNCHES["paged_attention_ref"] += 1
+    if sinks is not None:
+        LAUNCHES["attention_sinks_ref"] += 1
     b, h, d = q.shape
     _, page, kh, _ = k_pages.shape
     nblk = block_table.shape[1]
     groups = h // kh
     bt = torch.where(live_mask(block_table, context_lens, page),
                      block_table.to(torch.int64), 0)
-    dv = d if v_dim is None else v_dim
+    dv = v_pages.shape[-1] if v_dim is None else v_dim
     k = k_pages[bt].reshape(b, nblk * page, kh, d)     # (B, S, K, D)
     v = v_pages[bt][..., :dv].reshape(b, nblk * page, kh, dv)
     qf = q.reshape(b, kh, groups, d).to(torch.float32)
@@ -214,7 +230,12 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens,
     pos = torch.arange(nblk * page, device=q.device)[None, None, None, :]
     mask = pos < context_lens.to(q.device)[:, None, None, None]
     logits = torch.where(mask, logits, -math.inf)
-    probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    if sinks is not None:
+        sink = sinks.to(torch.float32).reshape(1, kh, groups, 1)
+        logits = torch.cat([logits, sink.expand(b, kh, groups, 1)], dim=-1)
+        probs = torch.softmax(logits, dim=-1)[..., :nblk * page]
+    else:
+        probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.to(torch.float32))
     return out.reshape(b, h, dv).to(q.dtype)
 
@@ -229,10 +250,10 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
-    lib.paged_attention.argtypes = ([_P] * 7 + [_I] * 8 + [ctypes.c_float]
-                                    + [_I] * 5 + [_P])
+    lib.paged_attention.argtypes = ([_P] * 8 + [_I] * 8 + [ctypes.c_float]
+                                    + [_I] * 6 + [_P])
     lib.paged_attention.restype = _I
-    lib.paged_attention_resident.argtypes = [_P] + [_I] * 9
+    lib.paged_attention_resident.argtypes = [_P] + [_I] * 11
     lib.paged_attention_resident.restype = _I
     lib.paged_attention_error_string.argtypes = [_I]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -240,16 +261,16 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(q, k_pages, v_pages, block_table, context_lens, scale=None,
-            v_dim=None) -> torch.Tensor:
+            v_dim=None, sinks=None) -> torch.Tensor:
     """The kernel itself, without :func:`_check`'s validation and without
     counting the launch."""
     b, h, d = q.shape
-    dv = d if v_dim is None else v_dim
+    dv = v_pages.shape[-1] if v_dim is None else v_dim
     _, page, kh, _ = k_pages.shape
     device = q.device
-    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_table", block_table),
-                    ("context_lens", context_lens)):
+    inputs = [("k_pages", k_pages), ("v_pages", v_pages),
+              ("block_table", block_table), ("context_lens", context_lens)]
+    for name, x in inputs + ([] if sinks is None else [("sinks", sinks)]):
         if x.device != device:
             raise ValueError(f"{name} must lie on {device}, got {x.device}")
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
@@ -268,8 +289,9 @@ def _launch(q, k_pages, v_pages, block_table, context_lens, scale=None,
     v_c = k_c if shared else v_pages.contiguous()
     bt = block_table.to(torch.int32).contiguous()
     cl = context_lens.to(torch.int32).contiguous()
+    sk = None if sinks is None else sinks.to(torch.float32).contiguous()
     out = torch.empty((b, h, dv), dtype=q.dtype, device=device)
-    plan = launch_plan(q_c, k_c, v_c, bt, v_dim)
+    plan = launch_plan(q_c, k_c, v_c, bt, v_dim, sk)
     # (m, l, acc) of every partition of every (sequence, head), in f32
     ws = torch.empty((b, h, plan["parts"], dv + 2), dtype=torch.float32,
                      device=device) if plan["parts"] > 1 else None
@@ -277,10 +299,11 @@ def _launch(q, k_pages, v_pages, block_table, context_lens, scale=None,
     rc = lib.paged_attention(
         q_c.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), bt.data_ptr(),
         cl.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if sk is None else sk.data_ptr(),
         b, h, d, page, kh, bt.shape[1], plan["part_len"], plan["parts"],
         d ** -0.5 if scale is None else scale, _DTYPES[q.dtype],
-        _DTYPES[k_pages.dtype], dv, int(shared), _device_index(device),
-        torch.cuda.current_stream(device).cuda_stream)
+        _DTYPES[k_pages.dtype], dv, v_c.shape[-1], int(shared),
+        _device_index(device), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel failed: CUDA error {rc} "
                            f"({lib.paged_attention_error_string(rc).decode()})")
@@ -293,14 +316,15 @@ def _device_index(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(h, d, kh, q_dtype, kv_dtype, aligned, index, dv, shared
-              ) -> int:
+def _resident(h, d, kh, q_dtype, kv_dtype, aligned, index, dv, shared,
+              v_row, sinks) -> int:
     """Partition blocks an SM of card `index` holds at once (the CUDA
     occupancy of the kernel variant these shapes and dtypes launch)."""
     lib = _library()
     out = ctypes.c_int(0)
     rc = lib.paged_attention_resident(ctypes.byref(out), h, d, kh, aligned,
-                                      q_dtype, kv_dtype, dv, shared, index)
+                                      q_dtype, kv_dtype, dv, shared, v_row,
+                                      sinks, index)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention_resident failed: CUDA error {rc} "
@@ -310,16 +334,17 @@ def _resident(h, d, kh, q_dtype, kv_dtype, aligned, index, dv, shared
 
 @functools.lru_cache(maxsize=1024)
 def _plan(b, h, d, kh, page, nblk, q_dtype, kv_dtype, aligned, index, dv,
-          shared):
+          shared, v_row, sinks):
     """(parts, part_len, resident) of a call, cached by its shapes."""
     resident = _resident(h, d, kh, q_dtype, kv_dtype, aligned, index, dv,
-                         shared)
+                         shared, v_row, sinks)
     parts, part_len = split_plan(b, kh * head_blocks(h, kh), nblk * page,
                                  page, _sm_count(index), resident)
     return parts, part_len, resident
 
 
-def launch_plan(q, k_pages, v_pages, block_table, v_dim=None) -> dict:
+def launch_plan(q, k_pages, v_pages, block_table, v_dim=None,
+                sinks=None) -> dict:
     """How the kernel splits a CUDA call: ``{"parts", "part_len",
     "blocks", "resident"}`` (blocks of the partition pass, and how many an
     SM holds at once).  With `v_dim` given and ``v_pages`` the same tensor
@@ -332,7 +357,8 @@ def launch_plan(q, k_pages, v_pages, block_table, v_dim=None) -> dict:
     parts, part_len, resident = _plan(
         b, h, d, kh, page, block_table.shape[1], _DTYPES[q.dtype],
         _DTYPES[k_pages.dtype], aligned, _device_index(q.device),
-        d if v_dim is None else v_dim, int(shared))
+        v_pages.shape[-1] if v_dim is None else v_dim, int(shared),
+        v_pages.shape[-1], int(sinks is not None))
     return dict(parts=parts, part_len=part_len,
                 blocks=kh * head_blocks(h, kh) * b * parts,
                 resident=resident)
@@ -340,28 +366,31 @@ def launch_plan(q, k_pages, v_pages, block_table, v_dim=None) -> dict:
 
 def paged_attention(q, k_pages, v_pages, block_table, context_lens, *,
                     scale: Optional[float] = None,
-                    v_dim: Optional[int] = None) -> torch.Tensor:
+                    v_dim: Optional[int] = None,
+                    sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention over a paged KV pool.
 
-    Shapes: q (B,H,D); k_pages/v_pages (P, page, K, D); block_table
-    (B, nblk) int32; context_lens (B,) int32 -> out (B,H,Dv) in q.dtype,
-    ``Dv = v_dim`` (default D) the leading columns of the V rows; the
-    logits scaled by `scale` (default ``D ** -0.5``).  A CUDA ``q``
-    launches the kernel (or raises); a CPU ``q`` runs
-    :func:`paged_attention_ref`.
+    Shapes: q (B,H,D); k_pages (P, page, K, D), v_pages (P, page, K, W);
+    block_table (B, nblk) int32; context_lens (B,) int32; sinks (H,) f32
+    or None -> out (B,H,Dv) in q.dtype, ``Dv = v_dim`` (default W) the
+    leading columns of the V rows; the logits scaled by `scale` (default
+    ``D ** -0.5``).  A CUDA ``q`` launches the kernel (or raises); a CPU
+    ``q`` runs :func:`paged_attention_ref`.
     """
     _check(q, k_pages, v_pages, block_table, context_lens,
-           q.shape[-1] if v_dim is None else v_dim)
+           v_pages.shape[-1] if v_dim is None else v_dim, sinks)
     if q.device.type == "cuda":
         out = _launch(q, k_pages, v_pages, block_table, context_lens, scale,
-                      v_dim)
+                      v_dim, sinks)
         LAUNCHES["paged_attention"] += 1
+        LAUNCHES["attention_sinks"] += sinks is not None
         return out
     if q.device.type != "cpu":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     return paged_attention_ref(q, k_pages, v_pages, block_table,
-                               context_lens, scale=scale, v_dim=v_dim)
+                               context_lens, scale=scale, v_dim=v_dim,
+                               sinks=sinks)
 
 
 def dense_layout(b: int, s: int, device) -> tuple:
@@ -407,11 +436,12 @@ def dense_pages(k_cache, v_cache, context_lens) -> tuple:
             table, lens.to(torch.int32).reshape(-1).expand(b))
 
 
-def decode_attention(q, k_cache, v_cache, context_lens) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, context_lens, sinks=None
+                     ) -> torch.Tensor:
     """Decode attention on the card over dense caches: q (B, H, D) CUDA;
-    k_cache, v_cache (B, S, K, D) and `context_lens` as
-    :func:`dense_pages` takes them -> (B, H, D) in q.dtype, logits scaled
-    by ``D ** -0.5`` after the product.
+    k_cache (B, S, K, D), v_cache (B, S, K, W) and `context_lens` as
+    :func:`dense_pages` takes them; `sinks` (H,) f32 or None -> (B, H, W)
+    in q.dtype, logits scaled by ``D ** -0.5`` after the product.
 
     The kernel reads the caches' rows where they lie, in their own dtype,
     with neither :func:`_check` nor any host read: the table is whole by
@@ -419,17 +449,21 @@ def decode_attention(q, k_cache, v_cache, context_lens) -> torch.Tensor:
     allocator, so the call can be captured into a CUDA graph and replayed
     at other lengths.  Widths must be what :func:`takes` admits.
     """
-    out = _launch(q, *dense_pages(k_cache, v_cache, context_lens))
+    out = _launch(q, *dense_pages(k_cache, v_cache, context_lens),
+                  sinks=sinks)
     LAUNCHES["decode_attention"] += 1
+    LAUNCHES["attention_sinks"] += sinks is not None
     return out
 
 
 def bound_bytes(q, k_pages, block_table, context_lens, *,
-                v_dim: Optional[int] = None, shared_kv: bool = False) -> int:
+                v_dim: Optional[int] = None, shared_kv: bool = False,
+                sinks: bool = False) -> int:
     """Bytes one call must move at least: q read, each live position's K and
     V rows of every kv head read (one row where the values are the keys'
     leading columns, `shared_kv`), the live table entries and the lengths
-    read, the output written — each once."""
+    read, the sinks read (f32, one a query head), the output written —
+    each once."""
     b, h, d = q.shape
     _, page, kh, _ = k_pages.shape
     dv = d if v_dim is None else v_dim
@@ -438,4 +472,5 @@ def bound_bytes(q, k_pages, block_table, context_lens, *,
     kv_elems = int(ctx.sum()) * kh * (d if shared_kv else d + dv)
     live = int(n_live_blocks(context_lens, page, nblk).sum())
     return (b * h * (d + dv) * q.element_size()
-            + kv_elems * k_pages.element_size() + 4 * (live + b))
+            + kv_elems * k_pages.element_size() + 4 * (live + b)
+            + 4 * h * sinks)

@@ -27,10 +27,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS, get_smoke
+from repro_torch.configs import PORT_ARCHS, get_smoke
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.memory.kvcache import PagedKVCache
+from repro_torch.memory.kvcache import PagedKVCache, pool_kinds
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.runtime.trace import span
@@ -46,17 +46,22 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
         params: Optional[Dict] = None) -> Dict:
     """Prefill `requests` prompts, then decode `decode` tokens for each.
 
-    Per decode step: ``gather_args`` (charges CXL fetches, promotes hot
-    pages), one K4 launch over the f32-cast layer-0 pool, then one
-    ``decode_step`` per sequence.  Where the step can be captured
+    Per decode step: for each kind of the pool
+    (:func:`~repro_torch.memory.kvcache.pool_kinds`), ``gather_args``
+    (charges CXL fetches, promotes hot pages) and one K4 launch over its
+    f32-cast pool; then one ``decode_step`` per sequence.  A hybrid model's
+    pool holds its first full layer's pages and its first window layer's
+    rings: the window kind's K4 launch takes that layer's sinks and at most
+    a window of positions, inside a ``serve.window_pool`` span, and its
+    query is drawn after the full kind's.  Where the step can be captured
     (:func:`~repro_torch.models.transformer.graphable`: the CUDA card,
     attention blocks, RoPE or M-RoPE), each sequence's caches are a
     :class:`~repro_torch.models.transformer.StepGraph`: its first step
     runs eagerly, the second captures the step as a CUDA graph
     (``serve.capture#<sid>``) and every step from then on replays it;
     elsewhere every step runs eagerly.  The prefill stashes the rows that
-    :func:`~repro_torch.models.attention.pool_rows` takes from layer 0's
-    cache, and K4 runs with
+    :func:`~repro_torch.models.attention.pool_rows` takes from each kind's
+    layer's cache, and K4 runs with
     :func:`~repro_torch.models.attention.pool_kernel_kwargs`: the pool's
     row format is the attention's; a model whose first block keeps no K/V
     stashes nothing, and only the decode steps' zero rows fill its pool.
@@ -66,9 +71,12 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     inside (:mod:`repro_torch.runtime.trace`).
 
     Returns a dict: ``tokens`` ({seq: [token, ...]}), ``kv_stats`` (:class:`KVStats` as a
-    dict), ``tier_histogram``, ``attn_out`` (every step's K4 output),
-    ``last_attn_inputs`` (q, k_pool, v_pool, block_table, context_lens of
-    the last step), ``logits_finite``, ``n_params``, ``prefill_s`` and
+    dict, summed over the kinds), ``kv_kinds`` (per kind: its live
+    ``pages`` and its counters), ``tier_histogram``, ``attn_out`` (every
+    step's K4 output over the first kind), ``kind_attn_out`` (per kind, the
+    same), ``last_attn_inputs`` (q, k_pool, v_pool, block_table,
+    context_lens of the first kind's last launch), ``logits_finite``,
+    ``n_params``, ``prefill_s`` and
     ``decode_s`` (host wall time, synchronized), ``kv`` (the cache) and
     ``decode_graph`` (the steps ``captured``, ``replayed`` and run
     ``eager``, summed over the sequences).
@@ -79,13 +87,15 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     rng = np.random.default_rng(0)
 
     max_blocks = (prefill + decode) // page_size + 2
-    kv = PagedKVCache(cfg, n_pages=requests * max_blocks + 8,
+    kinds = pool_kinds(cfg, page_size)
+    kv = PagedKVCache(cfg, n_pages=[requests * (k.ring or max_blocks) + 8
+                                    for k in kinds],
                       page_size=page_size, max_blocks=max_blocks,
                       hbm_page_budget=hbm_pages, n_layers=1, device=dev)
 
-    # ---- prefill: run the model once per request, stash layer-0 KV pages
-    # (one layer's pool feeds the kernel; every layer's cache rides in the
-    # dense per-request cache that the decode steps use)
+    # ---- prefill: run the model once per request, stash each kind's layer's
+    # KV pages (one layer a kind feeds the kernel; every layer's cache rides
+    # in the dense per-request cache that the decode steps use)
     seqs: List[int] = []
     dense_caches, ctxs, next_tok = {}, {}, {}
     finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -99,9 +109,13 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
             logits, cache = tf.forward_prefill(params, cfg, toks)
             cache = tf.pad_cache(cache, cfg, prefill + decode)
             kv.allocate(sid)
-            rows = attn_mod.pool_rows(cache[0][0]["b0"], prefill)
-            if rows is not None:
-                kv.append_tokens(sid, 0, *rows)
+            for j, kind in enumerate(kinds):
+                rows = attn_mod.pool_rows(
+                    tf.layer_entry(cache, cfg, kind.layer), prefill,
+                    None if kind.ring is None else kind.ring * page_size)
+                if rows is not None:       # a ring holds the last rows
+                    kv.append_tokens(sid, j, *rows, n_tokens=(
+                        None if kind.ring is None else prefill))
             seqs.append(sid)
             dense_caches[sid] = (tf.StepGraph(cache, params, cfg)
                                  if tf.graphable(cfg, dev) else cache)
@@ -114,21 +128,30 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     # ---- decode loop: batched paged-attention lookups + per-seq decode
     t0 = time.perf_counter()
     tokens_out = {sid: [] for sid in seqs}
-    attn_out = []
+    kind_attn_out = [[] for _ in kinds]
     captured = 0
-    heads, width = kv.row()
-    zeros = np.zeros((1, heads, width), np.float32)
-    k4_kwargs = attn_mod.pool_kernel_kwargs(cfg)
+    zeros = [(np.zeros((1, k.heads, k.width), np.float32),
+              np.zeros((1, k.heads, k.v_width), np.float32)) for k in kinds]
+    k4_kwargs = [attn_mod.pool_kernel_kwargs(cfg, tf.layer_entry(
+        params["segments"], cfg, k.layer).get("attn")) for k in kinds]
+
+    def pool_attention(j: int):
+        bt, cl = kv.gather_args(seqs, j)      # charges CXL fetches
+        q = torch.from_numpy(rng.standard_normal(
+            (len(seqs), cfg.n_heads, kinds[j].width)).astype(np.float32)
+        ).to(dev)
+        with span("serve.pool_cast"):
+            kp, vp = kv.f32_pools(j)
+        kind_attn_out[j].append(ops.paged_attention(q, kp, vp, bt, cl,
+                                                    **k4_kwargs[j]))
+        return q, kp, vp, bt, cl
+
     for _ in range(decode):
         with span("serve.step"):
-            bt, cl = kv.gather_args(seqs)      # charges CXL fetches
-            q = torch.from_numpy(rng.standard_normal(
-                (len(seqs), cfg.n_heads, width)).astype(np.float32)
-            ).to(dev)
-            with span("serve.pool_cast"):
-                kp, vp = kv.f32_pools(0)
-            attn_out.append(ops.paged_attention(q, kp, vp, bt, cl,
-                                                **k4_kwargs))
+            last = pool_attention(0)
+            for j in range(1, len(kinds)):
+                with span("serve.window_pool"):
+                    pool_attention(j)
             for sid in seqs:
                 tok = torch.tensor([next_tok[sid]], dtype=torch.int32,
                                    device=dev)
@@ -147,27 +170,30 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
                 next_tok[sid] = nxt
                 tokens_out[sid].append(nxt)
                 ctxs[sid] += 1
-                kv.append_tokens(sid, 0, zeros, zeros)
+                for j in range(len(kinds)):
+                    kv.append_tokens(sid, j, *zeros[j])
     _sync(dev)
     decode_s = time.perf_counter() - t0
     replayed = sum(c.replayed for c in dense_caches.values()
                    if isinstance(c, tf.StepGraph))
 
     out = {"tokens": tokens_out, "kv_stats": dataclasses.asdict(kv.stats),
-           "tier_histogram": kv.tier_histogram(), "attn_out": attn_out,
+           "kv_kinds": kv.kind_report(),
+           "tier_histogram": kv.tier_histogram(),
+           "attn_out": kind_attn_out[0], "kind_attn_out": kind_attn_out,
            "logits_finite": bool(finite),
            "n_params": tf.n_param_elements(params),
            "prefill_s": prefill_s, "decode_s": decode_s, "kv": kv,
            "decode_graph": {"captured": captured, "replayed": replayed,
                             "eager": len(seqs) * decode - replayed}}
     if decode:
-        out["last_attn_inputs"] = (q, kp, vp, bt, cl)
+        out["last_attn_inputs"] = last
     return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCHS, default="h2o-danube-3-4b")
+    ap.add_argument("--arch", choices=PORT_ARCHS, default="h2o-danube-3-4b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prefill", type=int, default=48)
     ap.add_argument("--decode", type=int, default=16)

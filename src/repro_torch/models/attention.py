@@ -45,15 +45,19 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
-                        kv_chunk: int = 1024, scale: Optional[float] = None
+                        kv_chunk: int = 1024, scale: Optional[float] = None,
+                        sinks: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """Online-softmax attention. q (B,Sq,N,hd); k,v (B,Skv,K,hd) -> like q.
+    """Online-softmax attention. q (B,Sq,N,hd); k (B,Skv,K,hd), v
+    (B,Skv,K,hd_v) -> (B,Sq,N,hd_v).
 
     Positions are end-aligned (query i sits at ``i + Skv - Sq``); a ragged
     last chunk is zero-padded and masked.  Logits and the value sum
     accumulate in f32 from products of the working type, as the
     reference's ``preferred_element_type=f32`` einsums.  The logits are
-    scaled by `scale` (default ``hd ** -0.5``).
+    scaled by `scale` (default ``hd ** -0.5``).  `sinks` (N,), a logit per
+    query head, takes softmax mass and adds no value: ``o = sum_j e^(s_j)
+    v_j / (sum_j e^(s_j) + e^(sink))``, in f32.
     """
     b, sq, n, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
@@ -95,6 +99,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            vc[:, j].to(F32))
         acc = acc * alpha[..., None] + upd
         m = m_new
+    if sinks is not None:
+        sink = sinks.to(F32).reshape(1, kh, g, 1)
+        m_new = torch.maximum(m, sink)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.exp(sink - m_new)
+        acc = acc * alpha[..., None]
     safe_l = torch.where(l == 0.0, 1.0, l)
     out = (acc / safe_l[..., None]).to(q.dtype)             # (B,K,G,Sq,hd_v)
     return torch.movedim(out, 3, 1).reshape(b, sq, n, hd_v)
@@ -134,35 +144,40 @@ def _on_card(*xs: torch.Tensor) -> bool:
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, window: Optional[int] = None,
-                      kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal prefill attention, q (B,S,N,hd); k,v (B,S,K,hd) -> like q.
+                      kv_chunk: int = 1024,
+                      sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal prefill attention, q (B,S,N,hd); k (B,S,K,hd), v (B,S,K,hd_v)
+    -> (B,S,N,hd_v).
 
     :func:`gqa_flash_attention` on K5 where its tensor-core kernel takes
     the inputs: real CUDA tensors needing no gradient (K5 has no
-    backward), bf16 with hd % 8 == 0, hd <= 128 and v as wide as q and k;
-    else :func:`blockwise_attention` with `kv_chunk`."""
+    backward), bf16 with hd % 8 == 0, hd <= 128, v as wide as q and k and
+    no `sinks`; else :func:`blockwise_attention` with `kv_chunk`."""
     hd = q.shape[-1]
-    if (_on_card(q, k, v)
+    if (sinks is None and _on_card(q, k, v)
             and not (q.requires_grad or k.requires_grad or v.requires_grad)
             and q.dtype == k.dtype == v.dtype
             and fa.variant(q.dtype, hd) == "tensor_cores"
             and hd <= fa.MAX_HEAD_DIM and v.shape[-1] == hd):
         return gqa_flash_attention(q, k, v, window=window)
     return blockwise_attention(q, k, v, causal=True, window=window,
-                               kv_chunk=kv_chunk)
+                               kv_chunk=kv_chunk, sinks=sinks)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, ctx_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, ctx_len,
+                     sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token attention against a dense cache.
 
-    q (B,N,hd); k/v_cache (B,S,K,hd); ctx_len a 0-d or a (B,) tensor of
-    valid slots, at least 1 (or an int) -> (B,N,hd).  On K4
+    q (B,N,hd); k_cache (B,S,K,hd), v_cache (B,S,K,hd_v); ctx_len a 0-d or
+    a (B,) tensor of valid slots, at least 1 (or an int); `sinks` (N,) f32
+    or None, as :func:`blockwise_attention`'s -> (B,N,hd_v).  On K4
     (:func:`pa.decode_attention`: the cache read in its own dtype, f32
-    logits scaled after the product, an f32 online softmax and sum) where
-    the kernel takes the inputs: real CUDA tensors needing no gradient (K4
-    has no backward), q and the caches f32 or bf16, the caches alike in
-    shape and dtype, widths that :func:`pa.takes` admits; else
+    logits scaled after the product, an f32 online softmax and sum, the
+    sink added in the combine) where the kernel takes the inputs: real
+    CUDA tensors needing no gradient (K4 has no backward), q and the
+    caches f32 or bf16, the caches alike in dtype and in all but their
+    widths, widths that :func:`pa.takes` admits; else
     :func:`decode_attention_ref`.
     """
     h, d = q.shape[1:]
@@ -171,19 +186,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      or v_cache.requires_grad)
             and {q.dtype, k_cache.dtype} <= {torch.float32, torch.bfloat16}
             and k_cache.dtype == v_cache.dtype
-            and k_cache.shape == v_cache.shape and k_cache.shape[-1] == d
-            and pa.takes(h, k_cache.shape[2], d, d)):
-        return pa.decode_attention(q, k_cache, v_cache, ctx_len)
-    return decode_attention_ref(q, k_cache, v_cache, ctx_len)
+            and k_cache.shape[:-1] == v_cache.shape[:-1]
+            and k_cache.shape[-1] == d
+            and pa.takes(h, k_cache.shape[2], d, v_cache.shape[-1])):
+        return pa.decode_attention(q, k_cache, v_cache, ctx_len, sinks=sinks)
+    return decode_attention_ref(q, k_cache, v_cache, ctx_len, sinks)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, ctx_len) -> torch.Tensor:
+                         v_cache: torch.Tensor, ctx_len,
+                         sinks: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """:func:`decode_attention` as the reference computes it: f32 einsums
     over an f32 copy of the cache, q scaled before the product, a masked
-    softmax over every slot.  Counts ``LAUNCHES["decode_attention_ref"]``.
+    softmax over every slot and the sink.  Counts
+    ``LAUNCHES["decode_attention_ref"]`` (and, with sinks,
+    ``"attention_sinks_ref"``).
     """
     LAUNCHES["decode_attention_ref"] += 1
+    LAUNCHES["attention_sinks_ref"] += sinks is not None
     b, n, hd = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = n // kh
@@ -194,25 +215,37 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     valid = pos[None, :] < torch.as_tensor(ctx_len,
                                            device=q.device).reshape(-1, 1)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    if sinks is None:
+        probs = torch.softmax(logits, dim=-1)
+    else:
+        sink = sinks.to(F32).reshape(1, kh, g, 1).expand(b, kh, g, 1)
+        probs = torch.softmax(torch.cat([logits, sink], dim=-1),
+                              dim=-1)[..., :s]
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.to(F32))
-    return out.reshape(b, n, hd).to(q.dtype)
+    return out.reshape(b, n, v_cache.shape[-1]).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
 def attn_init(gen: torch.Generator, cfg) -> Dict:
+    """A GQA layer of `cfg` (a layer's own, :meth:`ModelConfig.layer`):
+    the fused q | k | v projection, v ``cfg.v_dim`` wide, the output
+    projection from the heads' values, and with ``attn_sinks`` a sink
+    logit per query head (f32, 0 at init)."""
     d, n, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = pdtype(cfg)
     p = {
         # fused QKV, as the reference
-        "wqkv": dense_init(gen, (d, (n + 2 * kh) * hd), dtype=dt),
-        "wo": dense_init(gen, (n * hd, d), dtype=dt),
+        "wqkv": dense_init(gen, (d, (n + kh) * hd + kh * cfg.v_dim),
+                           dtype=dt),
+        "wo": dense_init(gen, (n * cfg.v_dim, d), dtype=dt),
     }
     if cfg.qk_norm:
         p["qnorm"] = rmsnorm_init(hd, gen.device)
         p["knorm"] = rmsnorm_init(hd, gen.device)
+    if cfg.attn_sinks:
+        p["sinks"] = torch.zeros((n,), dtype=F32, device=gen.device)
     return p
 
 
@@ -222,11 +255,20 @@ def _qkv(params: Dict, x: torch.Tensor, cfg):
     qkv = matmul(x, params["wqkv"])
     q = qkv[..., :n * hd].reshape(b, s, n, hd)
     k = qkv[..., n * hd:(n + kh) * hd].reshape(b, s, kh, hd)
-    v = qkv[..., (n + kh) * hd:].reshape(b, s, kh, hd)
+    v = qkv[..., (n + kh) * hd:].reshape(b, s, kh, cfg.v_dim)
+    if cfg.value_scale != 1.0:
+        v = v * cfg.value_scale
     return q, k, v
 
 
 def _apply_positional(x: torch.Tensor, positions, cfg) -> torch.Tensor:
+    """RoPE or M-RoPE at `positions` on the leading ``cfg.rot_dim`` dims
+    of each head (rotated as halves of those dims), the rest as they
+    are."""
+    r = cfg.rot_dim
+    if r < x.shape[-1] and cfg.rope != "none":
+        return torch.cat([_apply_positional(x[..., :r], positions, cfg),
+                          x[..., r:]], dim=-1)
     if cfg.rope == "rope":
         return rope_mod.apply_rope(x, positions, cfg.rope_theta,
                                    cfg.rope_scaling)
@@ -262,8 +304,9 @@ def attention(params: Dict, x: torch.Tensor, cfg, positions,
     b, s, _ = x.shape
     q, k, v = projected_qkv(params, x, cfg, positions, seq_shard)
     win = window if window is not None else cfg.window
-    o = blockwise_attention(q, k, v, causal=True, window=win)
-    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    o = blockwise_attention(q, k, v, causal=True, window=win,
+                            sinks=params.get("sinks"))
+    o = o.reshape(b, s, cfg.n_heads * cfg.v_dim)
     return shard(matmul(o, params["wo"], reduce_dtype=_reduce(x, cfg)),
                  BATCH, None, None)
 
@@ -282,8 +325,9 @@ def attention_prefill(params: Dict, x: torch.Tensor, cfg, positions,
     b, s, _ = x.shape
     q, k, v = projected_qkv(params, x, cfg, positions, seq_shard)
     win = window if window is not None else cfg.window
-    o = prefill_attention(q, k, v, window=win, kv_chunk=cfg.kv_chunk)
-    y = shard(matmul(o.reshape(b, s, cfg.n_heads * cfg.head_dim),
+    o = prefill_attention(q, k, v, window=win, kv_chunk=cfg.kv_chunk,
+                          sinks=params.get("sinks"))
+    y = shard(matmul(o.reshape(b, s, cfg.n_heads * cfg.v_dim),
                      params["wo"], reduce_dtype=_reduce(x, cfg)),
               BATCH, None, None)
     if win is not None and s >= win:
@@ -313,7 +357,6 @@ def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
     Nothing is read back to the host, so the step can be captured into a
     CUDA graph and replayed for another length."""
     b, _, d = x.shape
-    n, hd = cfg.n_heads, cfg.head_dim
     s_cache = cache["k"].shape[1]
     ctx_len = context_length(ctx_len, x.device)
     q, k, v = _qkv(params, x, cfg)
@@ -322,13 +365,9 @@ def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
         k = rmsnorm(params["knorm"], k, cfg.norm_eps)
     pos = ctx_len.to(torch.int32).expand(b, 1)
     if cfg.rope == "mrope":
-        q = rope_mod.apply_mrope(q, torch.stack([pos] * 3), cfg.rope_theta,
-                                 cfg.mrope_sections)
-        k = rope_mod.apply_mrope(k, torch.stack([pos] * 3), cfg.rope_theta,
-                                 cfg.mrope_sections)
-    elif cfg.rope == "rope":
-        q = rope_mod.apply_rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
-        k = rope_mod.apply_rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
+        pos = torch.stack([pos] * 3)
+    q = _apply_positional(q, pos, cfg)
+    k = _apply_positional(k, pos, cfg)
     win = window if window is not None else cfg.window
     slot = ctx_len.long() % s_cache if win is not None else ctx_len.long()
     # dynamic_update_slice clamps the start so the slice fits
@@ -336,8 +375,9 @@ def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
     valid = torch.clamp(ctx_len + 1, max=s_cache)
-    o = decode_attention(q[:, 0], cache["k"], cache["v"], valid)
-    y = matmul(o.reshape(b, n * hd), params["wo"],
+    o = decode_attention(q[:, 0], cache["k"], cache["v"], valid,
+                         params.get("sinks"))
+    y = matmul(o.reshape(b, cfg.n_heads * cfg.v_dim), params["wo"],
                reduce_dtype=_reduce(x, cfg)).reshape(b, 1, d)
     return shard(y, BATCH, None, None), cache
 
@@ -372,28 +412,44 @@ def mla_softmax_scale(cfg) -> float:
             * rope_mod.yarn_softmax_factor(cfg.rope_scaling))
 
 
-def pool_rows(entry: Dict, n: int
+def pool_rows(entry: Dict, n: int, ring: Optional[int] = None
               ) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
     """The paged KV pool's (keys, values) from the first `n` slots of a
     block's prefill cache `entry` (batch 1): GQA's ``k`` rows as both, as
-    the reference does; MLA's latent ``[ckv | krope]``, one row a token,
-    as keys only (values are its first columns, :func:`pool_kernel_kwargs`);
-    None for a block with no K/V cache (rwkv, rec)."""
+    the reference does, or, where the values are narrower than the keys,
+    its ``k`` and ``v`` rows; MLA's latent ``[ckv | krope]``, one row a
+    token, as keys only (values are its first columns,
+    :func:`pool_kernel_kwargs`); None for a block with no K/V cache (rwkv,
+    rec).  With `ring` (a window layer's pool, `n` tokens prefilled into a
+    cache rolled modulo its length) the rows of the last ``min(n, ring)``
+    tokens, in token order."""
     if "k" in entry:
-        k = entry["k"][0, :n]
-        return k, k
+        if ring is None:
+            idx = slice(0, n)
+        else:
+            last = torch.arange(max(n - ring, 0), n,
+                                device=entry["k"].device)
+            idx = last % entry["k"].shape[1]
+        k = entry["k"][0, idx]
+        v = entry["v"][0, idx]
+        return k, (k if v.shape[-1] == k.shape[-1] else v)
     if "ckv" in entry:
         return torch.cat([entry["ckv"][0, :n], entry["krope"][0, :n]],
                          dim=-1)[:, None], None
     return None
 
 
-def pool_kernel_kwargs(cfg) -> Dict:
-    """K4's keywords over `cfg`'s KV pool: none for GQA; MLA's softmax
-    scale and its latent rows' value columns, ``kv_lora_rank``."""
-    if cfg.attn_kind != "mla":
-        return {}
-    return {"scale": mla_softmax_scale(cfg), "v_dim": cfg.mla.kv_lora_rank}
+def pool_kernel_kwargs(cfg, attn: Optional[Dict] = None) -> Dict:
+    """K4's keywords over `cfg`'s KV pool of a layer whose attention
+    parameters are `attn`: MLA's softmax scale and its latent rows' value
+    columns, ``kv_lora_rank``; a GQA layer's sinks where it has them;
+    else none."""
+    if cfg.attn_kind == "mla":
+        return {"scale": mla_softmax_scale(cfg),
+                "v_dim": cfg.mla.kv_lora_rank}
+    if attn is not None and "sinks" in attn:
+        return {"sinks": attn["sinks"]}
+    return {}
 
 
 def _mla_qkv(params: Dict, x: torch.Tensor, cfg, positions):

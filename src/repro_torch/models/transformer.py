@@ -82,6 +82,28 @@ def segments(cfg) -> List[Segment]:
     return segs
 
 
+def layer_ids(cfg) -> List[List[List[int]]]:
+    """Each block's layer index, laid out as the segments are:
+    ``[seg][period][b]``; a layer's configuration is ``cfg.layer(i)``."""
+    out, i = [], 0
+    for seg in segments(cfg):
+        n = len(seg.pattern)
+        out.append([list(range(i + p * n, i + (p + 1) * n))
+                    for p in range(seg.n_periods)])
+        i += seg.n_periods * n
+    return out
+
+
+def layer_entry(tree: List, cfg, i: int) -> Dict:
+    """Layer `i`'s entry of a tree laid out as the segments (the params'
+    ``"segments"`` or the caches): its block's parameters or cache."""
+    for seg, seg_ids in zip(tree, layer_ids(cfg)):
+        for period, ids in zip(seg, seg_ids):
+            if i in ids:
+                return period[f"b{ids.index(i)}"]
+    raise IndexError(f"{cfg.arch} has no layer {i}")
+
+
 # ---------------------------------------------------------------------------
 # Block init / apply
 # ---------------------------------------------------------------------------
@@ -239,11 +261,11 @@ def _param_tree(cfg, gen, dev) -> Dict:
     if cfg.vision_tokens:
         params["vision_proj"] = dense_init(gen, (cfg.vision_dim, cfg.d_model),
                                            dtype=dt)
-    for seg in segs:
+    for seg, seg_ids in zip(segs, layer_ids(cfg)):
         params["segments"].append([
-            {f"b{i}": block_init(gen, kind, cfg)
-             for i, kind in enumerate(seg.pattern)}
-            for _ in range(seg.n_periods)])
+            {f"b{j}": block_init(gen, kind, cfg.layer(i))
+             for j, (kind, i) in enumerate(zip(seg.pattern, ids))}
+            for ids in seg_ids])
     return params
 
 
@@ -303,7 +325,7 @@ def prefill_layer0_qkv(params: Dict, cfg, tokens: torch.Tensor
     x, pos = _prefill_inputs(params, cfg, tokens, None, None)
     p = params["segments"][0][0]["b0"]
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    return attn_mod.projected_qkv(p["attn"], h, cfg, pos,
+    return attn_mod.projected_qkv(p["attn"], h, cfg.layer(0), pos,
                                   cfg.attn_seq_shard)
 
 
@@ -345,20 +367,22 @@ def forward_train(params: Dict, cfg, tokens: torch.Tensor,
     and only the rest is recomputed.  Values are the same either way."""
     x, pos = _prefill_inputs(params, cfg, tokens, positions, vision)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
-    for seg, seg_params in zip(segments(cfg), params["segments"]):
-        def body(x, aux, pp, seg=seg):
-            for i, kind in enumerate(seg.pattern):
-                x, a, _ = _block_seq(kind, pp[f"b{i}"], x, cfg, pos, False)
+    for seg, seg_params, seg_ids in zip(segments(cfg), params["segments"],
+                                        layer_ids(cfg)):
+        def body(x, aux, pp, ids, seg=seg):
+            for j, kind in enumerate(seg.pattern):
+                x, a, _ = _block_seq(kind, pp[f"b{j}"], x, cfg.layer(ids[j]),
+                                     pos, False)
                 aux = aux + a
             return x, aux
-        for pp in seg_params:
+        for pp, ids in zip(seg_params, seg_ids):
             if remat and torch.is_grad_enabled():
                 kw = ({"context_fn": _remat_context}
                       if cfg.remat_policy == "dots" else {})
                 x, aux_total = ckpt_mod.checkpoint(
-                    body, x, aux_total, pp, use_reentrant=False, **kw)
+                    body, x, aux_total, pp, ids, use_reentrant=False, **kw)
             else:
-                x, aux_total = body(x, aux_total, pp)
+                x, aux_total = body(x, aux_total, pp, ids)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, cfg, x), aux_total
 
@@ -366,23 +390,26 @@ def forward_train(params: Dict, cfg, tokens: torch.Tensor,
 def pad_cache(caches: List, cfg, target_len: int) -> List:
     """Right-pad attention caches (k/v/ckv/krope, sequence dim 1) to
     `target_len` capacity for the decode that follows; rolling SWA k/v
-    caches stay window-sized, the MLA latent is never windowed.  The
-    recurrent states pass through.  Returns new caches."""
-    def pad(name, leaf):
+    caches (each layer's own window) stay window-sized, the MLA latent is
+    never windowed.  The recurrent states pass through.  Returns new
+    caches."""
+    def pad(name, leaf, lcfg):
         if name not in ("k", "v", "ckv", "krope"):
             return leaf
         tgt = target_len
-        if name in ("k", "v") and cfg.window:
-            tgt = min(tgt, cfg.window)
+        if name in ("k", "v") and lcfg.window:
+            tgt = min(tgt, lcfg.window)
         s = leaf.shape[1]
         if s >= tgt:
             return leaf
         width = [0, 0] * (leaf.ndim - 2) + [0, tgt - s]
         return torch.nn.functional.pad(leaf, width)
 
-    return [[{b: {name: pad(name, leaf) for name, leaf in entry.items()}
+    return [[{b: {name: pad(name, leaf, cfg.layer(ids[int(b[1:])]))
+                  for name, leaf in entry.items()}
               for b, entry in period.items()}
-             for period in seg] for seg in caches]
+             for period, ids in zip(seg, seg_ids)]
+            for seg, seg_ids in zip(caches, layer_ids(cfg))]
 
 
 def forward_prefill(params: Dict, cfg, tokens: torch.Tensor,
@@ -392,13 +419,15 @@ def forward_prefill(params: Dict, cfg, tokens: torch.Tensor,
     """Returns (last-token logits (B, 1, V), caches[seg][period])."""
     x, pos = _prefill_inputs(params, cfg, tokens, positions, vision)
     caches: List = []
-    for seg, seg_params in zip(segments(cfg), params["segments"]):
+    for seg, seg_params, seg_ids in zip(segments(cfg), params["segments"],
+                                        layer_ids(cfg)):
         seg_cache = []
-        for pp in seg_params:
+        for pp, ids in zip(seg_params, seg_ids):
             entry = {}
-            for i, kind in enumerate(seg.pattern):
-                x, _, entry[f"b{i}"] = _block_seq(kind, pp[f"b{i}"], x,
-                                                  cfg, pos, True)
+            for j, kind in enumerate(seg.pattern):
+                x, _, entry[f"b{j}"] = _block_seq(kind, pp[f"b{j}"], x,
+                                                  cfg.layer(ids[j]), pos,
+                                                  True)
             seg_cache.append(entry)
         caches.append(seg_cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -427,12 +456,13 @@ def _decode(params: Dict, cfg, token: torch.Tensor, caches: List,
             ctx_len: torch.Tensor) -> Tuple[torch.Tensor, List]:
     tok = token[:, None] if token.ndim == 1 else token[..., None]
     x = _embed_inputs(params, cfg, tok, None, offset=ctx_len)
-    for seg, seg_params, seg_cache in zip(segments(cfg), params["segments"],
-                                          caches):
-        for pp, entry in zip(seg_params, seg_cache):
-            for i, kind in enumerate(seg.pattern):
-                x, entry[f"b{i}"] = _block_decode(
-                    kind, pp[f"b{i}"], x, cfg, entry[f"b{i}"], ctx_len)
+    for seg, seg_params, seg_cache, seg_ids in zip(
+            segments(cfg), params["segments"], caches, layer_ids(cfg)):
+        for pp, entry, ids in zip(seg_params, seg_cache, seg_ids):
+            for j, kind in enumerate(seg.pattern):
+                x, entry[f"b{j}"] = _block_decode(
+                    kind, pp[f"b{j}"], x, cfg.layer(ids[j]), entry[f"b{j}"],
+                    ctx_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, cfg, x), caches
 
@@ -581,21 +611,22 @@ def init_cache(cfg, batch: int, s_cache: int, device=None) -> List:
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    def entry(kind: str) -> Dict:
+    def entry(kind: str, lc) -> Dict:
         if kind in ("attn", "moe"):
-            if cfg.attn_kind == "mla":
-                m = cfg.mla
+            if lc.attn_kind == "mla":
+                m = lc.mla
                 return {"ckv": zeros(batch, s_cache, m.kv_lora_rank),
                         "krope": zeros(batch, s_cache, m.qk_rope_head_dim)}
-            s = min(cfg.window, s_cache) if cfg.window else s_cache
-            return {name: zeros(batch, s, cfg.n_kv_heads, cfg.head_dim)
-                    for name in ("k", "v")}
+            s = min(lc.window, s_cache) if lc.window else s_cache
+            return {"k": zeros(batch, s, lc.n_kv_heads, lc.head_dim),
+                    "v": zeros(batch, s, lc.n_kv_heads, lc.v_dim)}
         if kind == "rwkv":
-            return rwkv_mod.rwkv_state_init(cfg, batch, dev)
+            return rwkv_mod.rwkv_state_init(lc, batch, dev)
         if kind == "rec":
-            return rglru_mod.rglru_state_init(cfg, batch, dev)
+            return rglru_mod.rglru_state_init(lc, batch, dev)
         raise ValueError(kind)
 
-    return [[{f"b{i}": entry(kind) for i, kind in enumerate(seg.pattern)}
-             for _ in range(seg.n_periods)]
-            for seg in segments(cfg)]
+    return [[{f"b{j}": entry(kind, cfg.layer(i))
+              for j, (kind, i) in enumerate(zip(seg.pattern, ids))}
+             for ids in seg_ids]
+            for seg, seg_ids in zip(segments(cfg), layer_ids(cfg))]

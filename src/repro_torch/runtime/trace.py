@@ -38,7 +38,8 @@ SPANS = (
     "serve.prefill",       # one request's prefill (#<sid>)
     "serve.step",          # one decode step of the batch, the root
     "kv.gather_args",      # block tables walked, CXL charged, uploaded
-    "serve.pool_cast",     # the layer-0 pools cast to f32 for K4
+    "serve.pool_cast",     # a kind's pools cast to f32 for K4
+    "serve.window_pool",   # the window kind's gather, cast and K4 launch
     "serve.capture",       # a sequence's step captured as a CUDA graph
     "serve.model",         # a sequence's decode_step run or replayed (#<sid>)
     "serve.sample",        # the wait for its logits and the argmax (#<sid>)

@@ -1360,3 +1360,114 @@ def test_stat_layout_catches_a_drifted_kernel(card, monkeypatch):
     findings = contracts.check_stat_layout(card)
     assert {f.code for f in findings} == {"RA404"}
     assert any("run_traces[cuda] disagrees" in f.message for f in findings)
+
+
+#: MiMo-V2-Flash's pool kinds at its serving cell's shapes: (kv heads,
+#: pages a sequence, contexts, sinks); 64 query heads, keys 192 wide,
+#: values 128 in their own pool
+HYBRID_KINDS = {
+    "full": (4, 262, [0, 1, 255, 4096, 4100, 4159, 4160, 4192], False),
+    "window": (8, 8, [0, 1, 17, 100, 127, 128, 128, 128], True),
+}
+
+
+def hybrid_case(kind, dtype, device):
+    """K4's inputs at a pool kind's shape, with a V pool of its own 128
+    columns and, for the window kind, a sink logit per query head drawn
+    near ln(128)."""
+    kh, nblk, ctxs, with_sinks = HYBRID_KINDS[kind]
+    q, kp, vp, bt, cl = long_paged_case(31, ctxs, 64, kh, 192, nblk, dtype,
+                                        device)
+    vp = vp[..., :128].contiguous()
+    gen = torch.Generator().manual_seed(5)
+    sinks = (4.85 + torch.randn((64,), generator=gen)).to(device) \
+        if with_sinks else None
+    return q, kp, vp, bt, cl, sinks
+
+
+@pytest.mark.parametrize("kind", list(HYBRID_KINDS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_hybrid_pool_matches_plain_version(card, kind,
+                                                           dtype):
+    """K4's pool entry at the MiMo-V2-Flash cell's two kinds: the full
+    kind's 4 KV heads over up to 4,160 positions (several partitions), the
+    window kind's 8 KV heads over a ring of 8 pages with a sink per query
+    head; values 128 wide in their own pool, keys 192; an empty context
+    gives 0; two calls give the same bits."""
+    q, kp, vp, bt, cl, sinks = hybrid_case(kind, dtype, card)
+    tops.reset_launches()
+    kern = tops.paged_attention(q, kp, vp, bt, cl, sinks=sinks)
+    again = tops.paged_attention(q, kp, vp, bt, cl, sinks=sinks)
+    assert tops.LAUNCHES["paged_attention"] == 2
+    assert tops.LAUNCHES["attention_sinks"] == 2 * (sinks is not None)
+    plan = tpa.launch_plan(q, kp, vp, bt, sinks=sinks)
+    assert (plan["parts"] > 1) == (kind == "full")
+    plain = tpa.paged_attention_ref(q, kp, vp, bt, cl, sinks=sinks)
+    torch.cuda.synchronize()
+    assert kern.shape == (8, 64, 128) and kern.dtype == q.dtype
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(kern.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(kern, again)
+    assert torch.all(kern[0] == 0)                  # empty context
+    if sinks is not None:
+        # the sink takes mass: without it the output is another one
+        free = tpa.paged_attention_ref(q, kp, vp, bt, cl)
+        assert float((free - plain)[1:].abs().max()) > 100 * tol
+
+
+@pytest.mark.parametrize("kind", list(HYBRID_KINDS))
+def test_decode_attention_hybrid_on_k4_matches_the_einsums(card, kind):
+    """``attention.decode_attention`` at the cell's decode shapes: one
+    sequence's bf16 dense cache of 4,160 slots over 4 KV heads (a full
+    layer) or a ring of 128 over 8 with the layer's sinks (a window
+    layer), values 128 wide; K4's dense entry against the einsums within
+    one bf16 rounding (rtol 8e-3, atol 1e-4)."""
+    kh, _, _, with_sinks = HYBRID_KINDS[kind]
+    s, lens = (4160, [4100, 4160]) if kind == "full" else (128, [77, 128])
+    gen = torch.Generator().manual_seed(9)
+    q = torch.randn((1, 64, 192), generator=gen)
+    k = torch.randn((1, s, kh, 192), generator=gen)
+    v = torch.randn((1, s, kh, 128), generator=gen)
+    q, k, v = (x.to(card, torch.bfloat16) for x in (q, k, v))
+    sinks = (4.85 + torch.randn((64,), generator=gen)).to(card) \
+        if with_sinks else None
+    for n in lens:
+        tops.reset_launches()
+        got = tattn.decode_attention(q, k, v, torch.tensor(n, device=card),
+                                     sinks)
+        assert tops.LAUNCHES["decode_attention"] == 1
+        assert tops.LAUNCHES["attention_sinks"] == int(with_sinks)
+        want = tattn.decode_attention_ref(q, k, v, n, sinks)
+        assert got.shape == (1, 64, 128)
+        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                                   atol=1e-4)
+
+
+def test_hybrid_serve_runs_on_the_card(card):
+    """mimo-v2-flash-309b's smoke serve on the card (a full layer, then
+    window layers with sinks over held-share MoE FFNs), graphed: two K4
+    launches a step (the pool's full and window kinds, the window one with
+    its sinks), every decode attention on K4's dense entry, none on the
+    einsums; both kinds' outputs as the plain version's on the step's
+    inputs; the pool's counters, summed and per kind, as on the CPU."""
+    cfg = get_smoke("mimo-v2-flash-309b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           held=(2, 4)))
+    tops.reset_launches()
+    r = tserve.run(cfg, requests=3, prefill=20, decode=4, page_size=4,
+                   hbm_pages=5)
+    assert tops.LAUNCHES["paged_attention"] == 2 * 4
+    assert tops.LAUNCHES["decode_attention_ref"] == 0
+    assert tops.LAUNCHES["decode_attention"] > 0
+    assert r["decode_graph"] == {"captured": 3, "replayed": 3 * 3,
+                                 "eager": 3}
+    assert [len(x) for x in r["kind_attn_out"]] == [4, 4]
+    on_cpu = tserve.run(cfg, requests=3, prefill=20, decode=4, page_size=4,
+                        hbm_pages=5, device="cpu")
+    assert r["kv_stats"] == on_cpu["kv_stats"]
+    assert r["kv_kinds"] == on_cpu["kv_kinds"]
+    q, kp, vp, bt, cl = r["last_attn_inputs"]
+    assert kp.shape[2:] == (1, 24) and vp.shape[2:] == (1, 16)
+    torch.testing.assert_close(r["attn_out"][-1], tpa.paged_attention_ref(
+        q, kp, vp, bt, cl), rtol=3e-5, atol=3e-5)

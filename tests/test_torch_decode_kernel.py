@@ -87,9 +87,10 @@ def count_paths(monkeypatch):
     cannot launch it) and counts its calls."""
     n = {"kernel": 0}
 
-    def kernel(q, k, v, lens):
+    def kernel(q, k, v, lens, sinks=None):
         n["kernel"] += 1
-        return tpa.paged_attention_ref(q, *tpa.dense_pages(k, v, lens))
+        return tpa.paged_attention_ref(q, *tpa.dense_pages(k, v, lens),
+                                       sinks=sinks)
     monkeypatch.setattr(tattn.pa, "decode_attention", kernel)
     return n
 
@@ -145,7 +146,7 @@ def test_decode_attention_keeps_the_einsums_off_the_card(monkeypatch):
     assert tops.LAUNCHES["decode_attention_ref"] == 1
     calls = []
     monkeypatch.setattr(tattn, "decode_attention_ref",
-                        lambda q, k, v, n: calls.append(n) or q)
+                        lambda q, k, v, n, sinks=None: calls.append(n) or q)
     with FakeTensorMode():
         fake = [torch.empty(x.shape, dtype=x.dtype, device="cuda")
                 for x in (q, k, v)]

@@ -42,6 +42,8 @@ if str(BENCH) not in sys.path:       # the benchmark's harness, as it runs
 from harness.core import Cell, load_module  # noqa: E402
 
 REF = load_module(BENCH / "reference" / "mla_moe_lm.py", "test_mla_ref_")
+HYBRID_REF = load_module(BENCH / "reference" / "hybrid_moe_lm.py",
+                         "test_mla_hybrid_ref_")
 GEN = load_module(BENCH / "generators" / "serve_mla_moe.py", "test_mla_gen_")
 CELLS = load_module(BENCH / "tests" / "bench_mla_cells.py", "test_mla_cells_")
 CPU = torch.device("cpu")
@@ -130,23 +132,39 @@ def _moe_params(cfg, gen):
                        "wo": torch.randn((f, d), generator=gen) * f ** -.5}}
 
 
-def test_held_shares_sum_to_the_uncut_layer():
-    """8 experts (4 groups of 2, the best 2 kept, top 3) as 4 shares of 2:
-    each share routes over all 8 and computes its own experts' part; the
-    parts, with the shared expert (which every share computes) counted
-    once, sum to the layer that holds all 8, which matches the reference's
-    uncut layer."""
+#: the gates of the held-share test: DeepSeek-V3's (groups, a shared
+#: expert, a routed scale) and MiMo-V2-Flash's (one group, no shared
+#: expert, scale 1)
+SHARE_GATES = {
+    "deepseek": dict(n_group=4, topk_group=2, routed_scale=2.5, shared=True),
+    "mimo": dict(n_group=1, topk_group=1, routed_scale=1.0, shared=False),
+}
+
+
+@pytest.mark.parametrize("gate", list(SHARE_GATES))
+def test_held_shares_sum_to_the_uncut_layer(gate):
+    """8 experts (DeepSeek's gate: 4 groups of 2, the best 2 kept; MiMo's:
+    one group), top 3, as 4 shares of 2: each share routes over all 8 and
+    computes its own experts' part; the parts, with the shared expert
+    (which every share computes) counted once, sum to the layer that holds
+    all 8, which matches the model's reference's uncut layer."""
+    g = SHARE_GATES[gate]
     base = dataclasses.replace(get_smoke("deepseek-v3-671b"),
                                dtype="float32")
     cfg = dataclasses.replace(base, moe=dataclasses.replace(
-        base.moe, n_experts=8, top_k=3, scoring="sigmoid", n_group=4,
-        topk_group=2, routed_scale=2.5, score_bias=True, held=(0, 8)))
+        base.moe, n_experts=8, top_k=3, scoring="sigmoid",
+        n_group=g["n_group"], topk_group=g["topk_group"],
+        routed_scale=g["routed_scale"], score_bias=True, held=(0, 8),
+        n_shared=int(g["shared"])))
     params = _moe_params(cfg, torch.Generator().manual_seed(5))
+    if not g["shared"]:
+        del params["shared"]
     x = torch.randn((2, 7, cfg.d_model), generator=torch.Generator()
                     .manual_seed(6))
     whole, aux = tmoe.moe_ffn(params, x, cfg)
     assert float(aux) == 0.0
-    shared = tmoe.mlp(params["shared"], x, cfg.act)
+    shared = (tmoe.mlp(params["shared"], x, cfg.act) if g["shared"]
+              else torch.zeros_like(x))
     parts = []
     for first in range(0, 8, 2):
         share = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -157,14 +175,18 @@ def test_held_shares_sum_to_the_uncut_layer():
         parts.append(y - shared)
     torch.testing.assert_close(sum(parts) + shared, whole, rtol=1e-5,
                                atol=1e-6)
-    m = {"n_group": 4, "topk_group": 2, "num_experts_per_tok": 3,
-         "routed_scaling_factor": 2.5, "n_routed_experts": 8,
-         "expert_parallel": {"first_held_expert": 0}}
+    m = {"n_group": g["n_group"], "topk_group": g["topk_group"],
+         "num_experts_per_tok": 3, "n_routed_experts": 8,
+         "routed_scaling_factor": (g["routed_scale"] if g["shared"]
+                                   else None),
+         "norm_topk_prob": True, "expert_parallel": {"first_held_expert": 0}}
     w = {"l0.router": params["router"], "l0.bias": params["bias"],
-         "l0.experts_wiu": params["wiu"], "l0.experts_wo": params["wo"],
-         "l0.shared_wiu": params["shared"]["wiu"],
-         "l0.shared_wo": params["shared"]["wo"]}
-    want = REF._moe(m, w, 0, x.reshape(-1, cfg.d_model), "f32", None)
+         "l0.experts_wiu": params["wiu"], "l0.experts_wo": params["wo"]}
+    if g["shared"]:
+        w.update({"l0.shared_wiu": params["shared"]["wiu"],
+                  "l0.shared_wo": params["shared"]["wo"]})
+    ref = REF if g["shared"] else HYBRID_REF
+    want = ref._moe(m, w, 0, x.reshape(-1, cfg.d_model), "f32", None)
     torch.testing.assert_close(whole.reshape(-1, cfg.d_model), want,
                                rtol=1e-5, atol=1e-6)
 

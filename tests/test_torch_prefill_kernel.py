@@ -112,7 +112,8 @@ def test_prefill_attention_keeps_the_loop_off_the_card(monkeypatch):
                 for x in (q, k, v)]
         assert fake[0].is_cuda and not tattn._on_card(*fake)
         tattn.prefill_attention(*fake, window=8, kv_chunk=16)
-    assert calls == [{"causal": True, "window": 8, "kv_chunk": 16}]
+    assert calls == [{"causal": True, "window": 8, "kv_chunk": 16,
+                      "sinks": None}]
     assert counted == {"kernel": 0, "blockwise": 2}
 
 

@@ -114,8 +114,21 @@ def _serve_moe():
             "attn_out": out["attn_out"]}
 
 
+def _serve_hybrid():
+    """mimo-v2-flash-309b's smoke config: a full layer, then window layers
+    (window 8, two 4-token pages a ring) with sinks, over held-share MoE
+    FFNs; the pool holds both kinds."""
+    cfg = get_smoke("mimo-v2-flash-309b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           held=(2, 4)))
+    out = tserve.run(cfg, device="cpu", **SERVE)
+    return {"tokens": out["tokens"], "kv_stats": out["kv_stats"],
+            "attn_out": out["kind_attn_out"], "kv_kinds": out["kv_kinds"]}
+
+
 RUNS = {"static": _static, "tiering": _tiering, "serve": _serve,
-        "serve_graphed": _serve_graphed, "serve_moe": _serve_moe}
+        "serve_graphed": _serve_graphed, "serve_moe": _serve_moe,
+        "serve_hybrid": _serve_hybrid}
 STAGES = {
     "static": {"sweep", "engine.build", "engine.traces", "engine.simulate",
                "machine.time_batch", "engine.rows"},
@@ -126,6 +139,7 @@ STAGES = {
 STAGES["tiering"] = STAGES["static"]
 STAGES["serve_graphed"] = STAGES["serve"] | {"serve.capture"}
 STAGES["serve_moe"] = STAGES["serve"] | {"moe.route", "moe.experts"}
+STAGES["serve_hybrid"] = STAGES["serve_moe"] | {"serve.window_pool"}
 
 
 def _spans(events):
@@ -233,14 +247,20 @@ def test_spans_nest_as_the_stages_call_each_other(runs, kind):
         count[name, sid] += 1
     if kind.startswith("serve"):
         n, d = SERVE["requests"], SERVE["decode"]
+        # the hybrid pool's two kinds: the window kind's in its own span
+        kinds = 2 if kind == "serve_hybrid" else 1
         assert parents["serve.prefill"] == {None}
         assert parents["serve.step"] == {None}
         assert count["serve.step", None] == d
-        for name in ("kv.gather_args", "serve.pool_cast", "serve.model",
-                     "serve.sample"):
+        for name in ("serve.model", "serve.sample"):
             assert parents[name] == {"serve.step"}, name
-        assert count["kv.gather_args", None] == d
-        assert count["serve.pool_cast", None] == d
+        for name in ("kv.gather_args", "serve.pool_cast"):
+            assert parents[name] == ({"serve.step", "serve.window_pool"}
+                                     if kinds == 2 else {"serve.step"}), name
+            assert count[name, None] == kinds * d
+        if kinds == 2:
+            assert parents["serve.window_pool"] == {"serve.step"}
+            assert count["serve.window_pool", None] == d
         for sid in range(n):
             assert count["serve.prefill", sid] == 1
             assert count["serve.model", sid] == d
@@ -248,17 +268,19 @@ def test_spans_nest_as_the_stages_call_each_other(runs, kind):
         # the prefill's layer-0 stash, then one row per sequence and step
         assert parents["kv.append_tokens"] == {"serve.prefill",
                                                "serve.step"}
-        assert count["kv.append_tokens", None] == n + n * d
+        assert count["kv.append_tokens", None] == kinds * (n + n * d)
         if kind == "serve_graphed":
             # captured in each sequence's second step, before its model
             assert parents["serve.capture"] == {"serve.step"}
             for sid in range(n):
                 assert count["serve.capture", sid] == 1
-        if kind == "serve_moe":
-            # each of the 2 MoE layers in every prefill and decode_step
+        if kind in ("serve_moe", "serve_hybrid"):
+            # each of the 2 (hybrid: 3) MoE layers in every prefill and
+            # decode_step
+            layers = 3 if kind == "serve_hybrid" else 2
             for name in ("moe.route", "moe.experts"):
                 assert parents[name] == {"serve.prefill", "serve.model"}
-                assert count[name, None] == 2 * (n + n * d)
+                assert count[name, None] == layers * (n + n * d)
         return
     assert parents["sweep"] == {None} and count["sweep", None] == 1
     assert parents["engine.traces"] == {"engine.build"}
