@@ -53,7 +53,8 @@ makes the script exit non-zero:
    16-token pages, 24 HBM pages): one paged-attention (K4) launch per
    decode step, finite logits, and the same loop at smoke size in float32
    equal on the card and on the CPU; mimo-v2-flash-309b's smoke serve
-   (``hybrid_serve_path``: two K4 pool launches a step, every decode
+   (``hybrid_serve_path``: every prefill attention on K5's second form,
+   none on the loop, two K4 pool launches a step, every decode
    attention on K4's dense entry, the sinks' launches, no einsum, the
    pool's counters as on the CPU); the goldens also include
    ``tests/golden/{distribute,resilience}.json``, run as
@@ -122,7 +123,11 @@ makes the script exit non-zero:
    slice 4's shapes beside their plain versions and
    SDPA / ``torch.add`` (K5's tensor-core kernel also beside its CUDA-core
    kernel on the same bf16 inputs; K7 in three rounds between
-   ``torch.add`` calls), compute
+   ``torch.add`` calls), K5's second tensor-core form at
+   MiMo-V2-Flash's full and window prefill shapes (64 query heads over 4
+   and 8 KV heads, 4,096 tokens, q and k 192 wide, v 128, the window
+   layer's sinks) through ``gqa_flash_attention`` beside the loop
+   (``blockwise_attention``), within one bf16 rounding of it, compute
    the bounds, and profile the main paths (slice 8's (a) and (b) among
    them) once to split their wall time into device kernels and the rest;
    3d. slice 9, the training path (no kernel on it: the launch counts,
@@ -1066,8 +1071,10 @@ def hybrid_serve_path(dev, card):
     before: two K4 pool launches a step (the full and the window kind,
     the window one with its sinks), every layer's decode attention on K4's
     dense entry in each sequence's eager step and its capture, the window
-    layers' with their sinks, none on the einsums; the pool's counters,
-    summed and per kind, as on the CPU."""
+    layers' with their sinks, none on the einsums; every layer's prefill
+    attention on K5's second form (q 24, v 16), the window layers' with
+    their sinks, none on the loop; the pool's counters, summed and per
+    kind, as on the CPU."""
     import dataclasses
     from repro_torch.configs import get_smoke
     from repro_torch.kernels import ops
@@ -1079,9 +1086,20 @@ def hybrid_serve_path(dev, card):
     kw = dict(requests=n_req, prefill=20, decode=n_dec, page_size=4,
               hbm_pages=5)
     window = sum(cfg.is_window_layer(i) for i in range(cfg.n_layers))
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+    loops = []
+    real_loop = attn.blockwise_attention
+    attn.blockwise_attention = lambda *a, **k: (loops.append(1)
+                                               or real_loop(*a, **k))
     ops.reset_launches()
-    r = serve.run(cfg, device=dev, **kw)
+    fa.reset_variant_launches()
+    try:
+        r = serve.run(cfg, device=dev, **kw)
+    finally:
+        attn.blockwise_attention = real_loop
     launches = dict(ops.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
     on_cpu = serve.run(cfg, device="cpu", **kw)
     print(f"[serve] {cfg.arch} smoke: {cfg.n_layers} layers ({window} "
           f"window), {n_req} requests, prefill 20, decode {n_dec}, page 4, "
@@ -1099,6 +1117,12 @@ def hybrid_serve_path(dev, card):
             and launches["attention_sinks_ref"] == 0,
         "no decode attention on the einsums":
             launches["decode_attention_ref"] == 0,
+        "every layer's prefill attention on K5's second form, the window "
+        "layers' with sinks, none on the loop":
+            launches["flash_attention"] == cfg.n_layers * n_req
+            and variants["tensor_cores_own_v"] == cfg.n_layers * n_req
+            and launches["flash_attention_sinks"] == window * n_req
+            and launches["flash_attention_ref"] == 0 and not loops,
         "graphed after each sequence's first two steps":
             r["decode_graph"] == {"captured": n_req,
                                   "replayed": n_req * (n_dec - 1),
@@ -1442,7 +1466,8 @@ def read_k5_launches():
     bf16 with D = 120)."""
     from repro_torch.kernels import flash_attention as fa
     launches = read_launches("flash_attention")
-    if fa.VARIANT_LAUNCHES != {"tensor_cores": 1, "cuda_cores": 0}:
+    if fa.VARIANT_LAUNCHES != {"tensor_cores": 1, "tensor_cores_own_v": 0,
+                               "cuda_cores": 0}:
         raise AssertionError(f"K5 on the main path ran the variants "
                              f"{fa.VARIANT_LAUNCHES}, not the tensor cores")
     return dict(launches, variants=dict(fa.VARIANT_LAUNCHES))
@@ -1594,6 +1619,90 @@ def slice4_main_path(dev, cfg, params, a8, seq: int = 4096,
             for k in launches["variants"]},
         "cache_sim": sum(launches6.values()),
         "stream_triad": sum(launches7.values())}
+    return out
+
+
+#: MiMo-V2-Flash's prefill attention on a 4,096-token prompt: (query heads,
+#: KV heads, window, sinks) of its full and window layers (q and k 192
+#: wide, v 128)
+MIMO_PREFILL = {"full": (64, 4, None, False), "window": (64, 8, 128, True)}
+#: K5 against the loop: one bf16 ulp of each element (over 1 + |loop|) and
+#: one bf16 rounding of the output in RMS (the card tests' limits)
+K5_LOOP_RTOL = 2 ** -7
+K5_LOOP_RMS = 2 ** -8
+
+
+def k5_mimo_times(dev, card, seq: int = 4096):
+    """K5's second tensor-core form at MiMo-V2-Flash's two prefill shapes
+    (seeded bf16 q, k and v, the window layer's sinks drawn as the cell
+    draws them, ln(128) + N(0, 1)), as the prefill calls it
+    (``gqa_flash_attention``: one launch, KV heads read in place), against
+    the loop (``blockwise_attention``) at the same shapes: agreement within
+    one bf16 rounding, the launch counts, and CUDA-event times of the
+    wrapper, of K5 alone on heads-first inputs and of the loop, beside
+    ``flash_attention.bound_ms`` (2 x (192 + 128) flops a live pair)."""
+    import math
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import (blockwise_attention,
+                                              gqa_flash_attention)
+    out = {}
+    for name, (n, kh, window, with_sinks) in MIMO_PREFILL.items():
+        gen = torch.Generator(device=dev).manual_seed(kh)
+        q, k, v = (torch.randn((1, seq, h, d), generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for h, d in ((n, 192), (kh, 192), (kh, 128)))
+        sinks = (math.log(128) + torch.randn(
+            n, generator=gen, device=dev)) if with_sinks else None
+        reset_k5_launches()
+        got = gqa_flash_attention(q, k, v, window=window, sinks=sinks)
+        torch.cuda.synchronize()
+        launches = {k_: c for k_, c in ops.LAUNCHES.items() if c}
+        variants = dict(fa.VARIANT_LAUNCHES)
+        loop = blockwise_attention(q, k, v, window=window, sinks=sinks)
+        diff = (got.float() - loop.float()).abs()
+        rms = float(diff.square().mean().sqrt()
+                    / loop.float().square().mean().sqrt())
+        max_err = float(diff.max())
+        ok = (bool((diff <= K5_LOOP_RTOL * (1 + loop.float().abs())).all())
+              and rms <= K5_LOOP_RMS and bool(torch.isfinite(got).all()))
+        want = {"flash_attention": 1}
+        if with_sinks:
+            want["flash_attention_sinks"] = 1
+        ok = ok and launches == want and variants == {
+            "tensor_cores": 0, "tensor_cores_own_v": 1, "cuda_cores": 0}
+        del diff, loop
+        heads = [x.movedim(2, 1).contiguous() for x in (q, k, v)]
+        kw = dict(causal=True, window=window, sinks=sinks)
+        ms = cuda_ms(lambda: ops.flash_attention(*heads, **kw), warmup=2,
+                     reps=10)
+        wrapper_ms = cuda_ms(lambda: gqa_flash_attention(
+            q, k, v, window=window, sinks=sinks), warmup=1, reps=10)
+        loop_ms = cuda_ms(lambda: blockwise_attention(
+            q, k, v, window=window, sinks=sinks), warmup=1, reps=2)
+        bound, by, n_bytes, flops = fa.bound_ms(
+            heads[0], heads[1], causal=True, window=window, v=heads[2])
+        out[name] = dict(ms=ms, gqa_flash_attention_ms=wrapper_ms,
+                         loop_ms=loop_ms, bound_ms=bound, bound_by=by,
+                         bound_share=bound / ms, tflops=flops / ms / 1e9,
+                         flops=flops, bytes=n_bytes, loop_max_err=max_err,
+                         loop_rel_rms=rms, launches=launches,
+                         shape=[1, n, kh, seq, 192, 128], window=window)
+        print(f"[time K5] MiMo {name} prefill (1, {n} over {kh} KV heads, "
+              f"{seq}, 192 / 128) bf16 window {window} sinks "
+              f"{with_sinks}: K5 {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {100 * bound / ms:.1f}% of the bound {bound:.4f} "
+              f"ms, {by}), through gqa_flash_attention {wrapper_ms:.4f} ms, "
+              f"the loop {loop_ms:.3f} ms; launches {launches}, variants "
+              f"{variants}; against the loop max|err| {max_err:.3g}, "
+              f"RMS(err) / RMS(loop) {rms:.3g} (limit {K5_LOOP_RMS:g}) "
+              f"({card})")
+        if not ok:
+            raise AssertionError(f"K5 at MiMo's {name} prefill shape "
+                                 f"disagrees with the loop or ran "
+                                 f"{launches} / {variants}")
+        del got, q, k, v, heads
     return out
 
 
@@ -3506,6 +3615,7 @@ def main() -> int:
     print(f"[slice 4] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     s4_t = slice4_times(s4, serve["cfg"], card)
+    k5_mimo = k5_mimo_times(dev, card)
     s4_launches = s4["launches"]
     s4_errs = (s4["k5"]["err"], s4["k6"]["err"], s4["k5w"]["err"],
                s4["k5p"]["err"])
@@ -3674,7 +3784,8 @@ def main() -> int:
         "library_ms": s4_t["causal"]["library_ms"],
         "library": s4_t["causal"]["library"],
         "library_backend": s4_t["causal"]["library_backend"],
-        "windowed": s4_t["windowed"], "prefill": s4_t["prefill"]}, {
+        "windowed": s4_t["windowed"], "prefill": s4_t["prefill"],
+        "mimo_prefill": k5_mimo}, {
         "name": "cache_sim", "route": "cuda",
         "launches_by_path": by_path("cache_sim"),
         "source": "src/repro_torch/kernels/csrc/cache_sim.cu",

@@ -23,7 +23,8 @@ caches apart from the serve loop's ``"paged_attention"``, and
 ``"decode_attention_ref"`` the decode steps that keep the model's einsums.
 ``"attention_sinks"`` counts K4's launches with a sink per head, through
 either entry, and ``"attention_sinks_ref"`` the plain versions' calls with
-sinks (K4's and the decode einsums').
+sinks (K4's and the decode einsums'); ``"flash_attention_sinks"`` and
+``"flash_attention_sinks_ref"`` the same for K5.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ LIBRARIES = ("mesi", "mesi_dyn", "paged_attention", "cache_sim",
              "stream_triad", "flash_attention")
 KERNELS = ("mesi_segment", "mesi_dyn_segment", "paged_attention",
            "cache_sim", "stream_triad", "flash_attention",
-           "decode_attention", "attention_sinks")
+           "decode_attention", "attention_sinks", "flash_attention_sinks")
 LAUNCHES: Dict[str, int] = {k + s: 0 for k in KERNELS for s in ("", "_ref")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -15,17 +15,21 @@
 // qpos = r + Sk - Sq.  Causal: j <= qpos; with a window W also j > qpos - W.
 // A row with no live key gives 0.  The logits are scaled after the product
 // (as the oracle, not the Pallas body, does it); heads are pre-broadcast by
-// the caller (GQA), so q, k and v have the same B * H heads.  Key tiles that
+// the caller (GQA), so q, k and v have the same B * H heads, except in the
+// tensor-core variant's second form (below).  Key tiles that
 // lie wholly outside a query tile's causal / window band are skipped by the
 // loop bounds, so the work is O(S * W), not O(S^2); inside a tile -inf masks
 // a pair, and a row whose running max is still -inf contributes nothing, so
 // no exp(-inf - -inf) arises.
 //
 // What bounds it: at long sequences, operations.  Each live (row, key) pair
-// costs 4 * D flops (the logit and the value sum); each input is read once
-// and the output written once.  At h2o-danube-3-4b's prefill width (1, 32,
-// 4096, 120) bf16, causal, 1.29e11 flops take 0.130 ms at the card's 989
-// TFLOP/s (bf16 tensor cores), while its 126 MB take 0.038 ms at 3.35 TB/s.
+// costs 2 * (D + Dv) flops (the logit and the value sum); each input is
+// read once and the output written once.  At h2o-danube-3-4b's prefill
+// width (1, 32, 4096, 120) bf16, causal, 1.29e11 flops take 0.130 ms at the
+// card's 989 TFLOP/s (bf16 tensor cores), while its 126 MB take 0.038 ms
+// at 3.35 TB/s; at MiMo-V2-Flash's full layer (64 heads, 4096, 192 / 128)
+// 3.44e11 flops take 0.348 ms.  A window of 128 leaves 2 key tiles a query
+// tile: its layer (0.0563 ms for its 189 MB) is bound by bytes.
 //
 // The tensor-core variant (bf16, D % 8 == 0, D <= 128), in the shape of
 // FlashAttention-3:
@@ -61,6 +65,19 @@
 // (softmax, the split of p, the rescale), with two consumer warps on each
 // SM quarter to hide its latency.  Later work: the output through a TMA
 // store, a persistent scheduler.
+//
+// The tensor-core variant's second form (template kOwnV = true, entry
+// flash_attention_tc_own_v), for MiMo-V2-Flash's prefill: q and k rows up
+// to 192 wide (three boxes of Q and K, up to 12 steps of Q K^T), v rows up
+// to 128 in a map of their own (the output is Dv wide), query head h of a
+// sequence reading KV plane h / group through the maps (no broadcast copy),
+// and an optional f32 sink logit per query head, which takes softmax mass
+// in the final normalisation and adds no value:
+//   out[bh, r] = sum_j e^(x_j) v_j / (sum_j e^(x_j) + e^(sink)).
+// The sink is kept in the running sum's units (log2, relative to the
+// running max times scale * log2(e)).  Q 48 KB + 2 x (K 48 KB + V 32 KB) =
+// 208 KB of shared memory; the same accumulators, pipeline and window
+// bounds as the first form, which compiles as before (kOwnV = false).
 
 // The CUDA-core variant (f32; bf16 with D % 8 != 0; D <= 128), the first
 // port, unchanged:
@@ -299,27 +316,53 @@ constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer's
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr uint32_t kHalf = kBK * kBox * 2;          // one box: 16 KB
-constexpr uint32_t kTile = 2 * kHalf;               // 128 rows x 128 cols
-constexpr uint32_t kQ = 0;
-constexpr uint32_t kK = kQ + kTile;
-constexpr uint32_t kV = kK + kStages * kTile;
-constexpr uint32_t kBars = kV + kStages * kTile;    // 160 KB
+constexpr float kLog2e = 1.4426950408889634f;
 // barriers: q_full, then k_full, v_full, k_empty, v_empty for each stage
 constexpr int kBarriers = 1 + 4 * kStages;
-// + 1 KB to align the tiles
-constexpr uint32_t kSmemBytes = kBars + 8 * kBarriers + 1024;
 static_assert(kBQ == kBK, "Q and K / V tiles share one box shape");
+
+// The two compiled forms.  kOwnV = false: D <= 128, V as wide as Q and K,
+// heads pre-broadcast, no sinks (Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160
+// KB).  kOwnV = true: Q and K rows up to 192 wide (three boxes, 12 steps
+// of Q K^T), V rows up to 128 in a map of their own, query head h reading
+// KV head h / group through the maps, an optional f32 sink per query head
+// (Q 48 KB + 2 x (K 48 KB + V 32 KB) = 208 KB).  The S and O accumulators
+// are m64n128 in both, so the registers are the same.
+template <bool kOwnV>
+struct Form {
+  static constexpr int kQKBoxes = kOwnV ? 3 : 2;
+  static constexpr int kVBoxes = 2;
+  static constexpr uint32_t kQKTile = kQKBoxes * kHalf;
+  static constexpr uint32_t kVTile = kVBoxes * kHalf;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kQKTile;
+  static constexpr uint32_t kV = kK + kStages * kQKTile;
+  static constexpr uint32_t kBars = kV + kStages * kVTile;
+  // + 1 KB to align the tiles
+  static constexpr uint32_t kSmemBytes = kBars + 8 * kBarriers + 1024;
+  static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
+};
 
 struct Shape {
   int sq, sk, d, causal, has_window, window, n_qtiles;
   float scale_log2;  // scale * log2(e)
 };
 
+// read by the kOwnV form alone (a parameter of its own, so that the first
+// form's Shape and code carry none of it): V's width, query heads per KV
+// head, query heads per sequence, the sinks ((heads,) f32, or null)
+struct OwnV {
+  int dv, group, heads;
+  const float* sinks;
+};
+
 // the ring (shared addresses): tile j of K and V sits in stage j % kStages;
 // k_full / v_full complete when its bytes have landed, k_empty / v_empty
 // when all 8 consumer warps are done with its K (after Q K^T) or its V
 // (after P V)
+template <bool kOwnV>
 struct Ring {
+  using F = Form<kOwnV>;
   uint32_t base;
   __device__ uint32_t q_full() const { return bar(0); }
   __device__ uint32_t k_full(int st) const { return bar(1 + st); }
@@ -330,9 +373,13 @@ struct Ring {
   __device__ uint32_t v_empty(int st) const {
     return bar(1 + 3 * kStages + st);
   }
-  __device__ uint32_t k_tile(int st) const { return base + kK + st * kTile; }
-  __device__ uint32_t v_tile(int st) const { return base + kV + st * kTile; }
-  __device__ uint32_t bar(int i) const { return base + kBars + 8u * i; }
+  __device__ uint32_t k_tile(int st) const {
+    return base + F::kK + st * F::kQKTile;
+  }
+  __device__ uint32_t v_tile(int st) const {
+    return base + F::kV + st * F::kVTile;
+  }
+  __device__ uint32_t bar(int i) const { return base + F::kBars + 8u * i; }
 };
 
 // one arrival of this warp on `bar` (after its lanes are done)
@@ -467,12 +514,15 @@ __device__ __forceinline__ void rescale(float (&o)[64],
 
 // ---- consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63 --------
 // Tile j's Q K^T is issued together with tile j - 1's P V, so the softmax
-// of tile j runs while the tensor cores work on P V.
+// of tile j runs while the tensor cores work on P V.  `sink_l2` (kOwnV
+// only) is the head's sink logit times log2(e), or -inf for none.
+template <bool kOwnV>
 __device__ __forceinline__ void consume(uint32_t base, const Shape& s, int q0,
                                         int nq, int t_first, int n_tiles,
+                                        int dv, float sink_l2,
                                         __nv_bfloat16* __restrict__ oh) {
   using namespace hopper;
-  const Ring ring{base};
+  const Ring<kOwnV> ring{base};
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
@@ -483,7 +533,7 @@ __device__ __forceinline__ void consume(uint32_t base, const Shape& s, int q0,
   rows.wg_lo = q0 + 64 * wg + s.sk - s.sq;
   rows.wg_hi = rows.wg_lo + 63;
   const int ksteps = (s.d + 15) / 16;
-  const uint32_t q_s = base + kQ + 64u * wg * 128u;
+  const uint32_t q_s = base + Form<kOwnV>::kQ + 64u * wg * 128u;
 
   float o[64];
 #pragma unroll
@@ -533,7 +583,8 @@ __device__ __forceinline__ void consume(uint32_t base, const Shape& s, int q0,
     warp_arrive(ring.v_empty(sl));
   }
 
-  // out = O / l; rows past the sequence and columns past D are not stored
+  // out = O / l; rows past the sequence and columns past D (Dv) are not
+  // stored
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -543,30 +594,43 @@ __device__ __forceinline__ void consume(uint32_t base, const Shape& s, int q0,
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + 8 * h;
     if (r >= nq) continue;
-    const float inv = l[h] == 0.0f ? 0.0f : 1.0f / l[h];
-    __nv_bfloat16* orow = oh + static_cast<long long>(q0 + r) * s.d;
+    float inv = l[h] == 0.0f ? 0.0f : 1.0f / l[h];
+    if (kOwnV && sink_l2 != -INFINITY) {
+      // the sink takes softmax mass and adds no value: l += e^(sink - m),
+      // in l's units (log2, m * scale_log2), both terms first taken down
+      // to the larger exponent; a row with no live key (m = -inf) gives 0
+      const float mb = m[h] * s.scale_log2;
+      const float top = fmaxf(mb, sink_l2);
+      const float a = exp2_approx(mb - top);
+      inv = a / fmaf(l[h], a, exp2_approx(sink_l2 - top));
+    }
+    __nv_bfloat16* orow = oh + static_cast<long long>(q0 + r) * dv;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int col = 8 * i + rows.cq;
-      if (col < s.d)
+      if (col < dv)
         *reinterpret_cast<uint32_t*>(orow + col) =
             pack_bf16(o[4 * i + 2 * h] * inv, o[4 * i + 2 * h + 1] * inv);
     }
   }
 }
 
+template <bool kOwnV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
-                    __nv_bfloat16* __restrict__ out, Shape s) {
+                    __nv_bfloat16* __restrict__ out, Shape s,
+                    OwnV ov) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1 KB: tiles start on 1 KB bounds
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const Ring ring{base};
+  const Ring<kOwnV> ring{base};
 
   const int head = blockIdx.x;
+  // the KV plane this head reads: (b, h) -> b * K + h / group = head / group
+  const int kv_head = kOwnV ? head / ov.group : head;
   const int q0 = (s.n_qtiles - 1 - static_cast<int>(blockIdx.y)) * kBQ;
   const int off = s.sk - s.sq;
   const int nq = min(kBQ, s.sq - q0);
@@ -596,12 +660,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 32 * kConsumerWarps) {
       // D <= 64 fits one box; the second is then never loaded nor read by
       // Q K^T, and the output columns it feeds in P V are never stored
-      const int n_box = s.d > kBox ? 2 : 1;
+      // (kOwnV: ceil(D / 64) boxes of Q and K, ceil(Dv / 64) of V)
+      const int n_box = kOwnV ? (s.d + kBox - 1) / kBox : s.d > kBox ? 2 : 1;
+      const int n_vbox = kOwnV ? (ov.dv + kBox - 1) / kBox : n_box;
       const uint32_t bytes = n_box * kHalf;
+      const uint32_t v_bytes = n_vbox * kHalf;
       mbar_expect_tx(ring.q_full(), bytes);
       for (int b = 0; b < n_box; ++b)
-        tma_load_3d(base + kQ + b * kHalf, &q_map, ring.q_full(), b * kBox,
-                    q0, head);
+        tma_load_3d(base + Form<kOwnV>::kQ + b * kHalf, &q_map, ring.q_full(),
+                    b * kBox, q0, head);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         const uint32_t free = ((j / kStages) & 1) ^ 1;  // round 0: at once
@@ -610,41 +677,52 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(ring.k_full(st), bytes);
         for (int b = 0; b < n_box; ++b)
           tma_load_3d(ring.k_tile(st) + b * kHalf, &k_map, ring.k_full(st),
-                      b * kBox, kt, head);
+                      b * kBox, kt, kv_head);
         mbar_wait(ring.v_empty(st), free);
-        mbar_expect_tx(ring.v_full(st), bytes);
-        for (int b = 0; b < n_box; ++b)
+        mbar_expect_tx(ring.v_full(st), v_bytes);
+        for (int b = 0; b < n_vbox; ++b)
           tma_load_3d(ring.v_tile(st) + b * kHalf, &v_map, ring.v_full(st),
-                      b * kBox, kt, head);
+                      b * kBox, kt, kv_head);
       }
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    consume(base, s, q0, nq, t_first, n_tiles,
-            out + static_cast<long long>(head) * s.sq * s.d);
+    const int dv = kOwnV ? ov.dv : s.d;
+    const float sink_l2 = kOwnV && ov.sinks != nullptr
+                              ? ov.sinks[head % ov.heads] * kLog2e
+                              : -INFINITY;
+    consume<kOwnV>(base, s, q0, nq, t_first, n_tiles, dv, sink_l2,
+                   out + static_cast<long long>(head) * s.sq * dv);
   }
 }
 
+// q (bh, sq, d); k (bh / group, sk, d); v (bh / group, sk, dv)
+template <bool kOwnV>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int sk, int d, int causal, int has_window, int window,
-           float scale, cudaStream_t stream) {
+           float scale, int dv, int group, int heads, const float* sinks,
+           cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
+  const int planes[3] = {bh, bh / group, bh / group};
   const int rows[3] = {sq, sk, sk};
+  const int cols[3] = {d, d, dv};
   for (int i = 0; i < 3; ++i) {
-    cudaError_t err =
-        hopper::bf16_map_3d(&maps[i], ptrs[i], bh, rows[i], d, kBQ);
+    cudaError_t err = hopper::bf16_map_3d(&maps[i], ptrs[i], planes[i],
+                                          rows[i], cols[i], kBQ);
     if (err != cudaSuccess) return err;
   }
+  constexpr uint32_t smem = Form<kOwnV>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      flash_tc_kernel<kOwnV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const Shape s{sq, sk, d, causal, has_window, window, (sq + kBQ - 1) / kBQ,
-                scale * 1.4426950408889634f};
+                scale * kLog2e};
+  const OwnV ov{dv, group, heads, sinks};
   const dim3 grid(bh, s.n_qtiles);
-  flash_tc_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), s);
+  flash_tc_kernel<kOwnV><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), s, ov);
   return cudaGetLastError();
 }
 
@@ -684,9 +762,34 @@ extern "C" int flash_attention_tc(const void* q, const void* k,
       bh > 65535)
     return cudaErrorInvalidValue;
   if (bh == 0 || sq == 0) return cudaSuccess;
-  return tc::launch(q, k, v, out, bh, sq, sk, d, causal ? 1 : 0,
-                    has_window ? 1 : 0, window, scale,
-                    static_cast<cudaStream_t>(stream));
+  return tc::launch<false>(q, k, v, out, bh, sq, sk, d, causal ? 1 : 0,
+                           has_window ? 1 : 0, window, scale, d, 1, bh,
+                           nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core variant's second form: bf16 q (bh, sq, d), k (bh / group,
+// sk, d), v (bh / group, sk, dv) and out (bh, sq, dv), 8 <= d <= 192 and
+// 8 <= dv <= 128, both multiples of 8, each pointer 16-byte aligned; row
+// `head` of q, for head = b * heads + h, reads the KV plane head / group
+// (heads a multiple of group, bh of heads); `sinks` (heads,) f32 on the
+// device, or null.  Same return value as flash_attention.
+extern "C" int flash_attention_tc_own_v(const void* q, const void* k,
+                                        const void* v, void* out, int bh,
+                                        int sq, int sk, int d, int dv,
+                                        int group, int heads, int causal,
+                                        int has_window, int window,
+                                        float scale, const float* sinks,
+                                        int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (bh < 0 || sq < 0 || sk <= 0 || d < 8 || d > 192 || d % 8 != 0 ||
+      dv < 8 || dv > 128 || dv % 8 != 0 || bh > 65535 || group < 1 ||
+      heads < 1 || heads % group != 0 || bh % heads != 0)
+    return cudaErrorInvalidValue;
+  if (bh == 0 || sq == 0) return cudaSuccess;
+  return tc::launch<true>(q, k, v, out, bh, sq, sk, d, causal ? 1 : 0,
+                          has_window ? 1 : 0, window, scale, dv, group,
+                          heads, sinks, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -6,8 +6,9 @@ in plain PyTorch (the reference computes it outside any Pallas kernel), and
 :func:`decode_attention_ref` the one-token softmax against a dense cache.  A
 GQA prefill on the card runs its attention on K5 instead
 (:func:`prefill_attention`, :func:`gqa_flash_attention`) where the inputs
-are what K5's tensor-core kernel takes; training, the dry run's fake
-tensors and every other type or width keep the loop.  A GQA decode step on
+are what one of K5's tensor-core forms takes (MiMo-V2-Flash's hd 192 /
+v 128 layers and sinks among them); training, the dry run's fake tensors,
+MLA and every other type or width keep the loop.  A GQA decode step on
 the card runs its attention on K4 over the dense cache as it lies
 (:func:`decode_attention`); elsewhere it keeps the einsums.  Multi-head latent
 attention (DeepSeek-V3's MLA) expands its latent to per-head K/V for
@@ -111,28 +112,27 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: Optional[int] = None) -> torch.Tensor:
+                        *, window: Optional[int] = None,
+                        sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal self-attention through K5 (:func:`fa.flash_attention`).
 
-    q (B,S,N,hd); k,v (B,S,K,hd) -> (B,S,N,hd).  K5 takes heads
-    pre-broadcast, (B, N, S, hd): query head n reads KV head n // (N // K),
-    :func:`blockwise_attention`'s grouping.  K5 wants S to be a multiple of
-    min(128, S), so a longer S that is not is padded at the tail with zeros
-    and the output cut back: row r < S sees keys j <= r only, so no padded
-    key is ever live, under the causal mask and a window alike.
+    q (B,S,N,hd); k (B,S,K,hd), v (B,S,K,hd_v); `sinks` (N,) or None ->
+    (B,S,N,hd_v).  K5 takes heads first, (B, N, S, hd) and (B, K, S, hd):
+    query head n reads KV head n // (N // K), :func:`blockwise_attention`'s
+    grouping.  K5 wants S to be a multiple of min(128, S), so a longer S
+    that is not is padded at the tail with zeros and the output cut back:
+    row r < S sees keys j <= r only, so no padded key is ever live, under
+    the causal mask and a window alike.
     """
-    s, n = q.shape[1], q.shape[2]
-    g = n // k.shape[2]
+    s = q.shape[1]
     pad = -s % fa.TILE if s > fa.TILE else 0
 
-    def heads(x: torch.Tensor, rep: int) -> torch.Tensor:
+    def heads(x: torch.Tensor) -> torch.Tensor:
         x = torch.movedim(x, 2, 1)
-        if rep > 1:
-            x = x.repeat_interleave(rep, dim=1)
         return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
 
-    out = fa.flash_attention(heads(q, 1), heads(k, g), heads(v, g),
-                             causal=True, window=window)
+    out = fa.flash_attention(heads(q), heads(k), heads(v), causal=True,
+                             window=window, sinks=sinks)
     return torch.movedim(out[:, :, :s], 1, 2)
 
 
@@ -142,24 +142,33 @@ def _on_card(*xs: torch.Tensor) -> bool:
     return all(x.is_cuda and not is_fake(x) for x in xs)
 
 
+def prefill_on_k5(dtype: Optional[torch.dtype], hd: int, hd_v: int, *,
+                  sinks: bool, on_card: bool, needs_grad: bool) -> bool:
+    """Whether :func:`prefill_attention` runs K5: inputs on the card
+    needing no gradient (K5 has no backward) of one `dtype` (None: mixed)
+    whose widths and sinks one of K5's tensor-core forms takes
+    (:func:`fa.variant`: bf16, hd and hd_v multiples of 8; hd <= 128 with
+    hd_v = hd and no sinks, or hd <= 192 with hd_v <= 128)."""
+    return (on_card and not needs_grad and dtype is not None
+            and fa.variant(dtype, hd, hd_v, sinks) != "cuda_cores")
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, window: Optional[int] = None,
                       kv_chunk: int = 1024,
                       sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal prefill attention, q (B,S,N,hd); k (B,S,K,hd), v (B,S,K,hd_v)
-    -> (B,S,N,hd_v).
+    """Causal prefill attention, q (B,S,N,hd); k (B,S,K,hd), v (B,S,K,hd_v);
+    `sinks` (N,) or None -> (B,S,N,hd_v).
 
-    :func:`gqa_flash_attention` on K5 where its tensor-core kernel takes
-    the inputs: real CUDA tensors needing no gradient (K5 has no
-    backward), bf16 with hd % 8 == 0, hd <= 128, v as wide as q and k and
-    no `sinks`; else :func:`blockwise_attention` with `kv_chunk`."""
-    hd = q.shape[-1]
-    if (sinks is None and _on_card(q, k, v)
-            and not (q.requires_grad or k.requires_grad or v.requires_grad)
-            and q.dtype == k.dtype == v.dtype
-            and fa.variant(q.dtype, hd) == "tensor_cores"
-            and hd <= fa.MAX_HEAD_DIM and v.shape[-1] == hd):
-        return gqa_flash_attention(q, k, v, window=window)
+    :func:`gqa_flash_attention` on K5 where :func:`prefill_on_k5` says its
+    tensor-core kernel takes the inputs; else :func:`blockwise_attention`
+    with `kv_chunk`."""
+    xs = (q, k, v) if sinks is None else (q, k, v, sinks)
+    if prefill_on_k5(q.dtype if q.dtype == k.dtype == v.dtype else None,
+                     q.shape[-1], v.shape[-1], sinks=sinks is not None,
+                     on_card=_on_card(*xs),
+                     needs_grad=any(x.requires_grad for x in xs)):
+        return gqa_flash_attention(q, k, v, window=window, sinks=sinks)
     return blockwise_attention(q, k, v, causal=True, window=window,
                                kv_chunk=kv_chunk, sinks=sinks)
 

@@ -6,7 +6,12 @@ ulp at |x| < 2 is 7.8e-3 or less), and the serving loop on the card; the
 single-level LRU cache (K6) and the STREAM triad (K7)
 bitwise, and the blockwise attention (K5, both kernel variants) within the
 JAX test's 3e-5 (f32) or 3e-2 (bf16), and on a (1, 4, 1024, 120) bf16 case
-within the main path's 5e-3 and an error RMS of 1e-3 of the output's.
+within the main path's 5e-3 and an error RMS of 1e-3 of the output's;
+its second tensor-core form at MiMo-V2-Flash's prefill shapes (q and k
+192, v 128, KV heads read in place, sinks) within the same limits of its
+plain version and within one bf16 rounding of the loop
+(``blockwise_attention``), a limit that dropped sinks or an ignored window
+break.
 The training loop and the MoE block (no kernel on their path) run on the
 card as on the CPU in float32: losses within rtol 1e-4, MoE outputs
 within 1e-5; so do the rwkv, rec and MLA kinds (logits within 1e-4,
@@ -568,7 +573,8 @@ def test_flash_attention_tensor_core_kernel_matches_plain_version(
     kern = tops.flash_attention(q, k, v, causal=causal, window=win)
     plain = tfa.flash_attention_ref(q, k, v, causal=causal, window=win)
     torch.cuda.synchronize()
-    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1, "cuda_cores": 0}
+    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1,
+                                    "tensor_cores_own_v": 0, "cuda_cores": 0}
     assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
                                  flash_attention=1, flash_attention_ref=1)
     assert kern.dtype == q.dtype and kern.shape == q.shape
@@ -603,7 +609,8 @@ def test_flash_attention_tensor_core_kernel_meets_the_main_path_limits(
         got = tops.flash_attention(qh, kh_, vh, causal=True, window=window)
     else:
         got = tattn.gqa_flash_attention(q, k, v, window=window).movedim(1, 2)
-    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1, "cuda_cores": 0}
+    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1,
+                                    "tensor_cores_own_v": 0, "cuda_cores": 0}
     assert got.shape == qh.shape and got.dtype == torch.bfloat16
     ref = torch.cat([tfa.flash_attention_ref(
         qh[:, i:i + 8], kh_[:, i:i + 8], vh[:, i:i + 8], causal=True,
@@ -637,7 +644,8 @@ def test_attention_prefill_runs_on_k5(card, monkeypatch, s, window):
     tfa.reset_variant_launches()
     y, cache = tattn.attention_prefill(params, x, cfg, pos)
     torch.cuda.synchronize()
-    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1, "cuda_cores": 0}
+    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 1,
+                                    "tensor_cores_own_v": 0, "cuda_cores": 0}
     assert tops.LAUNCHES["flash_attention"] == 1
     monkeypatch.setattr(tattn, "_on_card", lambda *xs: False)
     y_loop, cache_loop = tattn.attention_prefill(params, x, cfg, pos)
@@ -652,6 +660,141 @@ def test_attention_prefill_runs_on_k5(card, monkeypatch, s, window):
         tattn.blockwise_attention(q, k, v, window=window,
                                   kv_chunk=cfg.kv_chunk).float(),
         rtol=3e-2, atol=3e-2)
+
+
+MIMO_PREFILL = {
+    # name: (query heads, KV heads, S, window, sinks): MiMo-V2-Flash's full
+    # and window layers on a 4,096-token prompt, and a ragged S
+    "full": (64, 4, 4096, None, False),
+    "window": (64, 8, 4096, 128, True),
+    "ragged": (64, 8, 1000, 128, True),
+}
+#: the loop's agreement: one bf16 ulp of each output element (over
+#: 1 + |loop|) and one bf16 rounding of the output in RMS
+LOOP_RTOL = 2 ** -7
+LOOP_RMS = 2 ** -8
+
+
+def mimo_sinks(n: int, device) -> torch.Tensor:
+    """Sink logits as the MiMo cell draws them (``weights.sink_mean``,
+    ``sink_std`` of its configuration file)."""
+    w = json.loads((pathlib.Path(__file__).resolve().parents[1] / "bench"
+                    / "configs" / "mimo-v2-flash-309b.json").read_text())
+    g = torch.Generator().manual_seed(n)
+    return (w["weights"]["sink_mean"] + w["weights"]["sink_std"]
+            * torch.randn(n, generator=g)).to(device)
+
+
+def mimo_prefill_inputs(card, case):
+    n, kh, s, window, with_sinks = MIMO_PREFILL[case]
+    gen = torch.Generator(device=card).manual_seed(s + kh)
+    q, k, v = (torch.randn((1, s, h, d), generator=gen, device=card)
+               .to(torch.bfloat16)
+               for h, d in ((n, 192), (kh, 192), (kh, 128)))
+    return q, k, v, window, mimo_sinks(n, card) if with_sinks else None
+
+
+def within_one_rounding(got, loop):
+    """`got` within one bf16 rounding of the loop's output: each element
+    within ``LOOP_RTOL * (1 + |loop|)``, the error's RMS within
+    ``LOOP_RMS`` of the loop's; returns (ok, max error, RMS ratio)."""
+    got, loop = got.float(), loop.float()
+    diff = (got - loop).abs()
+    rms = float(diff.square().mean().sqrt() / loop.square().mean().sqrt())
+    ok = bool((diff <= LOOP_RTOL * (1 + loop.abs())).all()) and \
+        rms <= LOOP_RMS
+    return ok, float(diff.max()), rms
+
+
+@pytest.mark.parametrize("case", list(MIMO_PREFILL))
+def test_flash_attention_own_v_form_meets_the_main_path_limits(card, case):
+    """K5's second tensor-core form at MiMo-V2-Flash's prefill widths
+    through gqa_flash_attention: one launch (with sinks where the layer
+    has them), within the first form's main-path limits of the plain
+    version on the broadcast heads (rtol = atol = 5e-3, RMS(err) <= 1e-3
+    RMS(ref)) and
+    within one bf16 rounding of the loop, which rounds q and p to bf16."""
+    q, k, v, window, sinks = mimo_prefill_inputs(card, case)
+    n, kh = q.shape[2], k.shape[2]
+    tops.reset_launches()
+    tfa.reset_variant_launches()
+    got = tattn.gqa_flash_attention(q, k, v, window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES == {"tensor_cores": 0,
+                                    "tensor_cores_own_v": 1, "cuda_cores": 0}
+    assert tops.LAUNCHES == dict(dict.fromkeys(tops.LAUNCHES, 0),
+                                 flash_attention=1,
+                                 flash_attention_sinks=int(sinks is not None))
+    assert got.shape == (*q.shape[:3], 128) and got.dtype == torch.bfloat16
+    qh, kh_, vh = (x.movedim(2, 1).repeat_interleave(n // x.shape[2], dim=1)
+                   for x in (q, k, v))
+    ref = torch.cat([tfa.flash_attention_ref(
+        qh[:, i:i + 8], kh_[:, i:i + 8], vh[:, i:i + 8], causal=True,
+        window=window, sinks=None if sinks is None else sinks[i:i + 8]
+    ).float() for i in range(0, n, 8)], dim=1).movedim(1, 2)
+    diff = (got.float() - ref).abs()
+    assert bool((diff <= 5e-3 * (1 + ref.abs())).all()), float(diff.max())
+    assert float(diff.square().mean().sqrt()) <= 1e-3 * float(
+        ref.square().mean().sqrt())
+    del ref, diff, qh, kh_, vh
+    loop = tattn.blockwise_attention(q, k, v, window=window, sinks=sinks)
+    ok, err, rms = within_one_rounding(got, loop)
+    assert ok, (case, kh, err, rms)
+
+
+@pytest.mark.parametrize("fault", ["sinks_dropped", "window_ignored"])
+def test_flash_attention_own_v_form_faults_miss_the_loop_limit(card, fault):
+    """At MiMo's window-layer shape, K5 without the sinks, or without the
+    window, is not within one bf16 rounding of the loop with both."""
+    q, k, v, window, sinks = mimo_prefill_inputs(card, "window")
+    loop = tattn.blockwise_attention(q, k, v, window=window, sinks=sinks)
+    if fault == "sinks_dropped":
+        got = tattn.gqa_flash_attention(q, k, v, window=window)
+    else:
+        got = tattn.gqa_flash_attention(q, k, v, sinks=sinks)
+    ok, err, rms = within_one_rounding(got, loop)
+    assert not ok and rms > 10 * LOOP_RMS, (fault, err, rms)
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_attention_prefill_runs_on_k5_at_mimo_widths(card, monkeypatch,
+                                                     layer):
+    """MiMo-V2-Flash's attention layer at its widths on a 4,096-token
+    prompt, a full layer (0: 64 query heads over 4 KV heads) and a window
+    layer (1: over 8, a window of 128, sinks drawn as the cell draws
+    them): the prefill's attention is one K5 launch (with sinks on the
+    window layer) and no loop, the layer's output within 2% of its largest
+    entry of the loop's on the same layer, and the caches bitwise."""
+    cfg = get_config("mimo-v2-flash-309b").layer(layer)
+    gen = torch.Generator(device=card).manual_seed(layer)
+    params = tattn.attn_init(gen, cfg)
+    if "sinks" in params:
+        params["sinks"] = mimo_sinks(cfg.n_heads, card)
+    s = 4096
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=card,
+                    dtype=torch.bfloat16)
+    pos = torch.arange(s, device=card, dtype=torch.int32)[None]
+    loops = []
+    real = tattn.blockwise_attention
+    monkeypatch.setattr(tattn, "blockwise_attention",
+                        lambda *a, **kw: loops.append(1) or real(*a, **kw))
+    tops.reset_launches()
+    tfa.reset_variant_launches()
+    y, cache = tattn.attention_prefill(params, x, cfg, pos)
+    torch.cuda.synchronize()
+    assert not loops
+    assert tfa.VARIANT_LAUNCHES["tensor_cores_own_v"] == 1
+    assert tops.LAUNCHES["flash_attention"] == 1
+    assert tops.LAUNCHES["flash_attention_sinks"] == int(layer == 1)
+    monkeypatch.setattr(tattn, "_on_card", lambda *xs: False)
+    y_loop, cache_loop = tattn.attention_prefill(params, x, cfg, pos)
+    assert loops == [1] and tops.LAUNCHES["flash_attention"] == 1
+    assert all(torch.equal(cache[n], cache_loop[n]) for n in ("k", "v"))
+    assert cache["k"].shape[1:] == ((s if layer == 0 else 128),
+                                    cfg.n_kv_heads, 192)
+    assert cache["v"].shape[-1] == 128
+    err = float((y.float() - y_loop.float()).abs().max())
+    assert err <= 2e-2 * float(y_loop.float().abs().max()), err
 
 
 def test_dryrun_prefill_on_fake_cuda_keeps_the_loop(card, monkeypatch):
@@ -1446,11 +1589,12 @@ def test_decode_attention_hybrid_on_k4_matches_the_einsums(card, kind):
 
 def test_hybrid_serve_runs_on_the_card(card):
     """mimo-v2-flash-309b's smoke serve on the card (a full layer, then
-    window layers with sinks over held-share MoE FFNs), graphed: two K4
-    launches a step (the pool's full and window kinds, the window one with
-    its sinks), every decode attention on K4's dense entry, none on the
-    einsums; both kinds' outputs as the plain version's on the step's
-    inputs; the pool's counters, summed and per kind, as on the CPU."""
+    window layers with sinks over held-share MoE FFNs), graphed: every
+    layer's prefill attention on K5's second form; two K4 launches a step
+    (the pool's full and window kinds, the window one with its sinks),
+    every decode attention on K4's dense entry, none on the einsums; both
+    kinds' outputs as the plain version's on the step's inputs; the
+    pool's counters, summed and per kind, as on the CPU."""
     cfg = get_smoke("mimo-v2-flash-309b")
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                            held=(2, 4)))
@@ -1459,6 +1603,12 @@ def test_hybrid_serve_runs_on_the_card(card):
                    hbm_pages=5)
     assert tops.LAUNCHES["paged_attention"] == 2 * 4
     assert tops.LAUNCHES["decode_attention_ref"] == 0
+    # every layer's prefill attention on K5 (q 24, v 16), the window
+    # layers' with their sinks; none on the loop's plain path
+    assert tops.LAUNCHES["flash_attention"] == cfg.n_layers * 3
+    assert tops.LAUNCHES["flash_attention_sinks"] == sum(
+        cfg.is_window_layer(i) for i in range(cfg.n_layers)) * 3
+    assert tops.LAUNCHES["flash_attention_ref"] == 0
     assert tops.LAUNCHES["decode_attention"] > 0
     assert r["decode_graph"] == {"captured": 3, "replayed": 3 * 3,
                                  "eager": 3}

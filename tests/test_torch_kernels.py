@@ -251,6 +251,30 @@ def test_flash_attention_variant_follows_dtype_and_head_dim(dtype, d, want):
     assert fa.variant(getattr(torch, dtype), d) == want
 
 
+@pytest.mark.parametrize("dtype,d,dv,sinks,want", [
+    ("bfloat16", 192, 128, False, "tensor_cores_own_v"),   # MiMo full
+    ("bfloat16", 192, 128, True, "tensor_cores_own_v"),    # MiMo window
+    ("bfloat16", 24, 16, True, "tensor_cores_own_v"),      # MiMo smoke
+    ("bfloat16", 120, 120, True, "tensor_cores_own_v"),    # sinks alone
+    ("bfloat16", 64, 128, False, "tensor_cores_own_v"),    # v wider
+    ("bfloat16", 120, 120, False, "tensor_cores"),         # danube
+    ("bfloat16", 200, 128, False, "cuda_cores"),           # q past 192
+    ("bfloat16", 192, 136, False, "cuda_cores"),           # v past 128
+    ("bfloat16", 192, 132, False, "cuda_cores"),           # v % 8 != 0
+    ("bfloat16", 256, 256, False, "cuda_cores"),           # D = 256
+    ("float32", 192, 128, True, "cuda_cores"),
+])
+def test_flash_attention_variant_follows_the_widths_and_sinks(dtype, d, dv,
+                                                              sinks, want):
+    """The tensor-core kernel's second form takes bf16 q / k up to 192 and
+    v up to 128 wide (multiples of 8) where v's width differs from q's or
+    there are sinks; the first form keeps v as wide as q, D <= 128 and no
+    sinks; the rest goes to the CUDA cores (which refuse what they do not
+    take)."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.variant(getattr(torch, dtype), d, dv, sinks) == want
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_on_cpu_tensors_launches_no_variant(dtype):
     """A CPU q runs the plain version and counts neither kernel variant."""
@@ -262,7 +286,8 @@ def test_flash_attention_on_cpu_tensors_launches_no_variant(dtype):
     assert got.dtype == q.dtype and got.shape == q.shape
     assert tops.LAUNCHES["flash_attention_ref"] == 1
     assert tops.LAUNCHES["flash_attention"] == 0
-    assert fa.VARIANT_LAUNCHES == {"tensor_cores": 0, "cuda_cores": 0}
+    assert fa.VARIANT_LAUNCHES == {"tensor_cores": 0,
+                                   "tensor_cores_own_v": 0, "cuda_cores": 0}
 
 
 def test_flash_attention_keeps_the_jax_contract():
@@ -273,7 +298,16 @@ def test_flash_attention_keeps_the_jax_contract():
     with pytest.raises(ValueError, match="block multiples"):
         tops.flash_attention(torch.zeros((1, 2, 130, 16)), q, q)
     with pytest.raises(ValueError, match="differ"):
-        tops.flash_attention(q, q, torch.zeros((1, 2, 128, 8)))
+        tops.flash_attention(q, q, torch.zeros((1, 2, 64, 16)))
+    with pytest.raises(ValueError, match="multiple of K"):
+        tops.flash_attention(q, torch.zeros((1, 3, 128, 16)),
+                             torch.zeros((1, 3, 128, 16)))
+    with pytest.raises(ValueError, match="sinks"):
+        tops.flash_attention(q, q, q, sinks=torch.zeros(3))
+    # v may be narrower than q and k, and KV heads fewer than query heads
+    kv = torch.zeros((1, 1, 128, 16))
+    assert tops.flash_attention(q, kv, torch.zeros((1, 1, 128, 8)),
+                                sinks=torch.zeros(2)).shape == (1, 2, 128, 8)
     # a sequence shorter than the tile is its own tile
     short = torch.ones((1, 1, 24, 8))
     assert tops.flash_attention(short, short, short).shape == (1, 1, 24, 8)
@@ -293,3 +327,11 @@ def test_flash_attention_live_pairs_and_bound():
     # in f32 the CUDA cores' 67 TFLOP/s set the bound
     ms32, by32, _, _ = fa.bound_ms(q.float(), q.float(), window=4096)
     assert by32 == "operations" and abs(ms32 - flops / 67e12 * 1e3) < 1e-12
+    # MiMo's full layer: 2 x (192 + 128) flops a live pair, v's own bytes
+    q = torch.empty((1, 64, 4096, 192), dtype=torch.bfloat16)
+    k = torch.empty((1, 4, 4096, 192), dtype=torch.bfloat16)
+    v = torch.empty((1, 4, 4096, 128), dtype=torch.bfloat16)
+    ms, by, n_bytes, flops = fa.bound_ms(q, k, v=v)
+    assert flops == 2 * (192 + 128) * 64 * 8_390_656 and by == "operations"
+    assert n_bytes == 2 * (q.numel() + k.numel() + v.numel()
+                           + 64 * 4096 * 128)

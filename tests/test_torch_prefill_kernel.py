@@ -4,9 +4,11 @@
 a ragged S padded at the tail) against :func:`blockwise_attention`,
 through K5's plain version, which ``flash_attention`` runs on CPU tensors:
 within 2e-5 in float32 and 3e-2 in bf16 (the JAX test's K5 tolerances
-widened to the loop's own rounding of q and p).  Then the dispatch of
-:func:`prefill_attention`: every input that K5's tensor-core kernel does
-not take keeps the loop bitwise; and the paths ``serve.run``'s prefills
+widened to the loop's own rounding of q and p), at danube's widths and at
+MiMo-V2-Flash's (q and k 192, v 128, window layers with sinks).  Then the
+dispatch of :func:`prefill_attention`, as a predicate on shapes and flags
+and through the function: every input that no tensor-core form of K5
+takes keeps the loop bitwise; and the paths ``serve.run``'s prefills
 take.  The card's side is in ``tests/test_torch_card.py``.
 """
 import dataclasses
@@ -43,6 +45,81 @@ def test_gqa_flash_attention_matches_blockwise(s, window, dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+MIMO_SHAPES = {
+    # name: (S, query heads, KV heads, window, sinks)
+    "full": (256, 8, 2, None, False),
+    "window_sinks": (256, 8, 4, 16, True),
+    "ragged": (200, 8, 4, 16, True),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("shape", list(MIMO_SHAPES))
+def test_gqa_flash_attention_matches_blockwise_at_mimo_widths(shape, dtype,
+                                                              tol):
+    """MiMo-V2-Flash's widths (q and k 192, v 128) at a smoke head count:
+    K5's plain version (KV heads read in place, sinks as one more logit
+    with no value) against the loop, over a full layer, a window layer with
+    sinks and a ragged S padded to K5's tile."""
+    s, n, kh, window, with_sinks = MIMO_SHAPES[shape]
+    q, k, v = qkv(s, n, kh, 192, dtype, seed=s + kh, dv=128)
+    sinks = (torch.log(torch.tensor(128.0)) + torch.randn(
+        n, generator=torch.Generator().manual_seed(1))) if with_sinks \
+        else None
+    tops.reset_launches()
+    got = tattn.gqa_flash_attention(q, k, v, window=window, sinks=sinks)
+    assert tops.LAUNCHES["flash_attention_ref"] == 1
+    assert tops.LAUNCHES["flash_attention_sinks_ref"] == int(with_sinks)
+    want = tattn.blockwise_attention(q, k, v, causal=True, window=window,
+                                     sinks=sinks)
+    assert got.shape == want.shape == (1, s, n, 128)
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_ref_with_sinks_gives_0_to_rows_with_no_key():
+    """Sq > Sk: the first rows see no key; with sinks they still give 0, as
+    the loop and K5 give them."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 4, 256, 24), generator=g)
+    k = torch.randn((1, 2, 128, 24), generator=g)
+    v = torch.randn((1, 2, 128, 16), generator=g)
+    got = fa.flash_attention_ref(q, k, v, sinks=torch.ones(4))
+    assert not got[:, :, :128].any() and got[:, :, 128:].abs().sum() > 0
+
+
+PREFILL_ROUTES = {
+    # name: (dtype, hd, hd_v, sinks, taken by K5 with no gradient)
+    "mimo_full": ("bfloat16", 192, 128, False, True),
+    "mimo_window": ("bfloat16", 192, 128, True, True),
+    "mimo_smoke": ("bfloat16", 24, 16, True, True),
+    "danube": ("bfloat16", 120, 120, False, True),
+    "mla": ("bfloat16", 192, 128, False, True),
+    "mimo_f32": ("float32", 192, 128, True, False),
+    "mixed": (None, 192, 128, False, False),
+    "d256": ("bfloat16", 256, 256, False, False),
+}
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("case", list(PREFILL_ROUTES))
+def test_prefill_on_k5_decides_from_shapes_and_flags(case, grad):
+    """The routing of :func:`prefill_attention` as a predicate on the
+    inputs' type, widths, sinks and flags: MiMo's layers (hd 192 / v 128,
+    with and without sinks), danube's and MLA's widths go to K5 on the
+    card with no gradient; f32, mixed types, D = 256, an input needing a
+    gradient or one off the card keep the loop.  (MLA's prefill calls the
+    loop itself, with YaRN's scale.)"""
+    dtype, hd, hd_v, sinks, taken = PREFILL_ROUTES[case]
+    dtype = dtype and getattr(torch, dtype)
+    for on_card in (False, True):
+        assert tattn.prefill_on_k5(
+            dtype, hd, hd_v, sinks=sinks, on_card=on_card,
+            needs_grad=grad) == (taken and on_card and not grad)
+
+
 def count_paths(monkeypatch):
     """Counts :func:`prefill_attention`'s calls by path from here on: on K5
     (``kernel``, through :func:`gqa_flash_attention`) or the loop."""
@@ -64,32 +141,39 @@ def count_paths(monkeypatch):
 
 
 CASES = {
-    # name: (q/k width, v width, dtype, requires grad, taken by K5)
-    "kernel": (120, 120, "bfloat16", False, True),
-    "grad": (120, 120, "bfloat16", True, False),
-    "f32": (120, 120, "float32", False, False),
-    "mla_192_128": (192, 128, "bfloat16", False, False),
-    "d256": (256, 256, "bfloat16", False, False),
-    "d12": (12, 12, "bfloat16", False, False),
+    # name: (q/k width, v width, dtype, requires grad, taken by K5, sinks)
+    "kernel": (120, 120, "bfloat16", False, True, False),
+    "grad": (120, 120, "bfloat16", True, False, False),
+    "f32": (120, 120, "float32", False, False, False),
+    "mla_192_128": (192, 128, "bfloat16", False, True, False),
+    "mimo_sinks": (192, 128, "bfloat16", False, True, True),
+    "mimo_sinks_grad": (192, 128, "bfloat16", True, False, True),
+    "mimo_sinks_f32": (192, 128, "float32", False, False, True),
+    "d256": (256, 256, "bfloat16", False, False, False),
+    "d12": (12, 12, "bfloat16", False, False, False),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_prefill_attention_takes_k5_only_where_it_can(monkeypatch, case):
     """With the card's condition met (a stand-in here), the dispatch runs
-    K5 for bf16 with D % 8 == 0, D <= 128 and v as wide as q; anything
-    else, or an input needing a gradient, keeps the loop bitwise."""
-    d, dv, dtype, grad, kernel = CASES[case]
+    K5 for bf16 with D % 8 == 0 and either D <= 128, v as wide as q and no
+    sinks, or D <= 192 and v <= 128 (sinks or not); anything else, or an
+    input needing a gradient, keeps the loop bitwise."""
+    d, dv, dtype, grad, kernel, with_sinks = CASES[case]
     q, k, v = qkv(40, 4, 2, d, dtype, dv=dv)
+    sinks = torch.linspace(-1.0, 2.0, 4) if with_sinks else None
     for x in (q, k, v):
         x.requires_grad_(grad)
     monkeypatch.setattr(tattn, "_on_card", lambda *xs: True)
     if kernel:
-        want = tattn.gqa_flash_attention(q, k, v, window=16)
+        want = tattn.gqa_flash_attention(q, k, v, window=16, sinks=sinks)
     else:
-        want = tattn.blockwise_attention(q, k, v, window=16, kv_chunk=16)
+        want = tattn.blockwise_attention(q, k, v, window=16, kv_chunk=16,
+                                         sinks=sinks)
     counted = count_paths(monkeypatch)
-    got = tattn.prefill_attention(q, k, v, window=16, kv_chunk=16)
+    got = tattn.prefill_attention(q, k, v, window=16, kv_chunk=16,
+                                  sinks=sinks)
     assert counted == {"kernel": int(kernel), "blockwise": int(not kernel)}
     assert torch.equal(got, want)
 
@@ -120,10 +204,12 @@ def test_prefill_attention_keeps_the_loop_off_the_card(monkeypatch):
 @pytest.mark.parametrize("arch,want", [
     ("h2o-danube-3-4b", {"kernel": 0, "blockwise": 2 * 3}),
     ("h2o-danube-3-4b:f32", {"kernel": 0, "blockwise": 2 * 3}),
-    ("deepseek-v3-671b", {"kernel": 0, "blockwise": 0})])
+    ("deepseek-v3-671b", {"kernel": 0, "blockwise": 0}),
+    ("mimo-v2-flash-309b", {"kernel": 0, "blockwise": 4 * 3})])
 def test_serve_run_counts_its_prefill_attentions(monkeypatch, arch, want):
     """On the CPU every GQA prefill keeps the loop (2 layers x 3 requests
-    at danube's smoke size); MLA's prefill is not a GQA one."""
+    at danube's smoke size, 4 at MiMo's); MLA's prefill is not a GQA
+    one."""
     name, _, f32 = arch.partition(":")
     cfg = get_smoke(name)
     if f32:
