@@ -56,7 +56,14 @@ makes the script exit non-zero:
    (``hybrid_serve_path``: every prefill attention on K5's second form,
    none on the loop, two K4 pool launches a step, every decode
    attention on K4's dense entry, the sinks' launches, no einsum, the
-   pool's counters as on the CPU); the goldens also include
+   pool's counters as on the CPU); kimi-linear-48b-a3b's serve at its
+   published widths and all 27 layers on 8 held experts
+   (``kda_serve_path``: every MLA prefill on K5's second form, none on
+   the loop, every KDA layer's chunks and decode steps counted, one K4
+   pool launch a step, graphed, the state kind's counters; K5's second
+   form and K4's latent pool at the Kimi cell's shapes against their
+   plain versions, ``k5_kimi_times``, ``k4_kimi_cell``); the goldens
+   also include
    ``tests/golden/{distribute,resilience}.json``, run as
    ``tests/test_golden_stats.py`` runs them (2 shards x 8 streamed
    segments; a crash at segment 2, then the resumed run's 6 launches);
@@ -1139,6 +1146,95 @@ def hybrid_serve_path(dev, card):
                 kv_kinds=r["kv_kinds"])
 
 
+def kda_serve_path(dev, card, requests: int = 8, prefill: int = 96,
+                   decode: int = 6):
+    """kimi-linear-48b-a3b's serve at its published widths and all 27
+    layers on the card, each MoE layer holding 8 of its 256 experts (the
+    benchmark cell's EP32 share; weights from seed 0), graphed, from
+    launch counts reset just before: one K4 pool launch a step (the latent
+    kind; the state kind launches nothing), every MLA layer's prefill
+    attention on K5's second form (q / k 192, v 128, no sinks) and none on
+    the loop, every KDA layer's prefill chunk loop over ceil(prefill / 64)
+    chunks, its decode step in each sequence's eager step and capture
+    (the replays count none); the state kind's counters exact."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import kda
+    from repro_torch.models import transformer as tf
+    base = get_config("kimi-linear-48b-a3b")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe,
+                                                            held=(0, 8)))
+    kda_layers, mla_layers = len(cfg.kda.layers), cfg.n_layers - len(
+        cfg.kda.layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    loops = []
+    real_loop = attn.blockwise_attention
+    attn.blockwise_attention = lambda *a, **k: (loops.append(1)
+                                               or real_loop(*a, **k))
+    ops.reset_launches()
+    fa.reset_variant_launches()
+    try:
+        r = serve.run(cfg, device=dev, params=params, requests=requests,
+                      prefill=prefill, decode=decode, page_size=16,
+                      hbm_pages=requests * (prefill + decode) // 64)
+    finally:
+        attn.blockwise_attention = real_loop
+    launches = dict(ops.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    slot = kda.state_bytes(cfg)
+    print(f"[serve] {cfg.arch}: {cfg.n_layers} layers ({kda_layers} KDA, "
+          f"{mla_layers} MLA), {r['n_params']:,} parameters, {requests} "
+          f"requests, prefill {prefill}, decode {decode}: prefill "
+          f"{r['prefill_s']:.3f} s, decode {r['decode_s']:.3f} s; launch "
+          f"counts {launches}; graphs {r['decode_graph']}; kv kinds "
+          f"{r['kv_kinds']}; peak {peak / 1e9:.2f} GB ({card})")
+    checks = {
+        "one K4 pool launch a step (the latent kind)":
+            launches["paged_attention"] == decode
+            and launches["paged_attention_ref"] == 0,
+        "every MLA layer's prefill attention on K5's second form, none on "
+        "the loop":
+            launches["flash_attention"] == mla_layers * requests
+            and variants["tensor_cores_own_v"] == mla_layers * requests
+            and launches["flash_attention_sinks"] == 0
+            and launches["flash_attention_ref"] == 0 and not loops,
+        "every KDA layer's prefill chunks scanned":
+            launches["kda_chunks"] == kda_layers * requests
+            * math.ceil(prefill / cfg.kda.chunk),
+        "every KDA layer's decode step in the eager steps and captures":
+            launches["kda_steps"] == kda_layers * 2 * requests,
+        "graphed after each sequence's first two steps":
+            r["decode_graph"] == {"captured": requests,
+                                  "replayed": requests * (decode - 1),
+                                  "eager": requests},
+        "the state kind's slots, reads and writes":
+            r["kv_kinds"]["state"] == dict(
+                slots=requests, slot_bytes=slot,
+                held_bytes=requests * slot, reads=requests * decode,
+                writes=requests * (1 + decode),
+                read_bytes=requests * decode * slot,
+                written_bytes=requests * (1 + decode) * slot)
+            and slot == 2_170_880,
+        "finite logits": r["logits_finite"],
+    }
+    del params, r
+    torch.cuda.empty_cache()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"the KDA serve path failed {bad}")
+    return dict(launches=launches, variants=variants, peak_bytes=peak)
+
+
 def paged_case(gen, b, h, kh, d, page, nblk, dtype, dev):
     """K4 inputs: sequence 0 empty, 1 ending one token into its second
     page, the rest random; entries past the live blocks out of range."""
@@ -1634,75 +1730,89 @@ K5_LOOP_RMS = 2 ** -8
 
 def k5_mimo_times(dev, card, seq: int = 4096):
     """K5's second tensor-core form at MiMo-V2-Flash's two prefill shapes
-    (seeded bf16 q, k and v, the window layer's sinks drawn as the cell
-    draws them, ln(128) + N(0, 1)), as the prefill calls it
-    (``gqa_flash_attention``: one launch, KV heads read in place), against
-    the loop (``blockwise_attention``) at the same shapes: agreement within
-    one bf16 rounding, the launch counts, and CUDA-event times of the
-    wrapper, of K5 alone on heads-first inputs and of the loop, beside
-    ``flash_attention.bound_ms`` (2 x (192 + 128) flops a live pair)."""
+    (the window layer's sinks drawn as the cell draws them, ln(128) + N(0,
+    1)); see `k5_second_form`."""
+    return {name: k5_second_form(dev, card, f"MiMo {name}", seq, n, kh,
+                                 window, with_sinks)
+            for name, (n, kh, window, with_sinks) in MIMO_PREFILL.items()}
+
+
+def k5_kimi_times(dev, card, seq: int = 16384):
+    """K5's second tensor-core form at the Kimi-Linear cell's MLA prefill
+    shape: 32 query heads over 32 KV heads read in place, a 16,384-token
+    prompt, q / k 192 and v 128, no sinks, the plain softmax scale; see
+    `k5_second_form`."""
+    return {"mla": k5_second_form(dev, card, "Kimi-Linear MLA", seq, 32, 32,
+                                  None, False)}
+
+
+def k5_second_form(dev, card, label, seq, n, kh, window, with_sinks):
+    """K5's second form at one prefill shape (seeded bf16 q, k and v, n
+    query heads over kh KV heads, q / k 192 and v 128 wide), as the
+    prefill calls it (``gqa_flash_attention``: one launch, KV heads read
+    in place), against the loop (``blockwise_attention``) at the same
+    shape: agreement within one bf16 rounding, the launch counts, and
+    CUDA-event times of the wrapper, of K5 alone on heads-first inputs and
+    of the loop, beside ``flash_attention.bound_ms`` (2 x (192 + 128)
+    flops a live pair)."""
     import math
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.attention import (blockwise_attention,
                                               gqa_flash_attention)
-    out = {}
-    for name, (n, kh, window, with_sinks) in MIMO_PREFILL.items():
-        gen = torch.Generator(device=dev).manual_seed(kh)
-        q, k, v = (torch.randn((1, seq, h, d), generator=gen, device=dev)
-                   .to(torch.bfloat16)
-                   for h, d in ((n, 192), (kh, 192), (kh, 128)))
-        sinks = (math.log(128) + torch.randn(
-            n, generator=gen, device=dev)) if with_sinks else None
-        reset_k5_launches()
-        got = gqa_flash_attention(q, k, v, window=window, sinks=sinks)
-        torch.cuda.synchronize()
-        launches = {k_: c for k_, c in ops.LAUNCHES.items() if c}
-        variants = dict(fa.VARIANT_LAUNCHES)
-        loop = blockwise_attention(q, k, v, window=window, sinks=sinks)
-        diff = (got.float() - loop.float()).abs()
-        rms = float(diff.square().mean().sqrt()
-                    / loop.float().square().mean().sqrt())
-        max_err = float(diff.max())
-        ok = (bool((diff <= K5_LOOP_RTOL * (1 + loop.float().abs())).all())
-              and rms <= K5_LOOP_RMS and bool(torch.isfinite(got).all()))
-        want = {"flash_attention": 1}
-        if with_sinks:
-            want["flash_attention_sinks"] = 1
-        ok = ok and launches == want and variants == {
-            "tensor_cores": 0, "tensor_cores_own_v": 1, "cuda_cores": 0}
-        del diff, loop
-        heads = [x.movedim(2, 1).contiguous() for x in (q, k, v)]
-        kw = dict(causal=True, window=window, sinks=sinks)
-        ms = cuda_ms(lambda: ops.flash_attention(*heads, **kw), warmup=2,
-                     reps=10)
-        wrapper_ms = cuda_ms(lambda: gqa_flash_attention(
-            q, k, v, window=window, sinks=sinks), warmup=1, reps=10)
-        loop_ms = cuda_ms(lambda: blockwise_attention(
-            q, k, v, window=window, sinks=sinks), warmup=1, reps=2)
-        bound, by, n_bytes, flops = fa.bound_ms(
-            heads[0], heads[1], causal=True, window=window, v=heads[2])
-        out[name] = dict(ms=ms, gqa_flash_attention_ms=wrapper_ms,
-                         loop_ms=loop_ms, bound_ms=bound, bound_by=by,
-                         bound_share=bound / ms, tflops=flops / ms / 1e9,
-                         flops=flops, bytes=n_bytes, loop_max_err=max_err,
-                         loop_rel_rms=rms, launches=launches,
-                         shape=[1, n, kh, seq, 192, 128], window=window)
-        print(f"[time K5] MiMo {name} prefill (1, {n} over {kh} KV heads, "
-              f"{seq}, 192 / 128) bf16 window {window} sinks "
-              f"{with_sinks}: K5 {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-              f"TFLOP/s, {100 * bound / ms:.1f}% of the bound {bound:.4f} "
-              f"ms, {by}), through gqa_flash_attention {wrapper_ms:.4f} ms, "
-              f"the loop {loop_ms:.3f} ms; launches {launches}, variants "
-              f"{variants}; against the loop max|err| {max_err:.3g}, "
-              f"RMS(err) / RMS(loop) {rms:.3g} (limit {K5_LOOP_RMS:g}) "
-              f"({card})")
-        if not ok:
-            raise AssertionError(f"K5 at MiMo's {name} prefill shape "
-                                 f"disagrees with the loop or ran "
-                                 f"{launches} / {variants}")
-        del got, q, k, v, heads
+    gen = torch.Generator(device=dev).manual_seed(kh)
+    q, k, v = (torch.randn((1, seq, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16)
+               for h, d in ((n, 192), (kh, 192), (kh, 128)))
+    sinks = (math.log(128) + torch.randn(
+        n, generator=gen, device=dev)) if with_sinks else None
+    reset_k5_launches()
+    got = gqa_flash_attention(q, k, v, window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    launches = {k_: c for k_, c in ops.LAUNCHES.items() if c}
+    variants = dict(fa.VARIANT_LAUNCHES)
+    loop = blockwise_attention(q, k, v, window=window, sinks=sinks)
+    diff = (got.float() - loop.float()).abs()
+    rms = float(diff.square().mean().sqrt()
+                / loop.float().square().mean().sqrt())
+    max_err = float(diff.max())
+    ok = (bool((diff <= K5_LOOP_RTOL * (1 + loop.float().abs())).all())
+          and rms <= K5_LOOP_RMS and bool(torch.isfinite(got).all()))
+    want = {"flash_attention": 1}
+    if with_sinks:
+        want["flash_attention_sinks"] = 1
+    ok = ok and launches == want and variants == {
+        "tensor_cores": 0, "tensor_cores_own_v": 1, "cuda_cores": 0}
+    del diff, loop
+    heads = [x.movedim(2, 1).contiguous() for x in (q, k, v)]
+    kw = dict(causal=True, window=window, sinks=sinks)
+    ms = cuda_ms(lambda: ops.flash_attention(*heads, **kw), warmup=2,
+                 reps=10)
+    wrapper_ms = cuda_ms(lambda: gqa_flash_attention(
+        q, k, v, window=window, sinks=sinks), warmup=1, reps=10)
+    loop_ms = cuda_ms(lambda: blockwise_attention(
+        q, k, v, window=window, sinks=sinks), warmup=1, reps=2)
+    bound, by, n_bytes, flops = fa.bound_ms(
+        heads[0], heads[1], causal=True, window=window, v=heads[2])
+    out = dict(ms=ms, gqa_flash_attention_ms=wrapper_ms,
+               loop_ms=loop_ms, bound_ms=bound, bound_by=by,
+               bound_share=bound / ms, tflops=flops / ms / 1e9,
+               flops=flops, bytes=n_bytes, loop_max_err=max_err,
+               loop_rel_rms=rms, launches=launches,
+               shape=[1, n, kh, seq, 192, 128], window=window)
+    print(f"[time K5] {label} prefill (1, {n} over {kh} KV heads, {seq}, "
+          f"192 / 128) bf16 window {window} sinks {with_sinks}: K5 "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * bound / ms:.1f}% of the bound {bound:.4f} ms, {by}), "
+          f"through gqa_flash_attention {wrapper_ms:.4f} ms, the loop "
+          f"{loop_ms:.3f} ms; launches {launches}, variants {variants}; "
+          f"against the loop max|err| {max_err:.3g}, RMS(err) / RMS(loop) "
+          f"{rms:.3g} (limit {K5_LOOP_RMS:g}) ({card})")
+    if not ok:
+        raise AssertionError(f"K5 at the {label} prefill shape disagrees "
+                             f"with the loop or ran {launches} / "
+                             f"{variants}")
     return out
 
 
@@ -2363,6 +2473,7 @@ def k4_times(dev, gen, serve_inputs, card):
            for name, args in (("serve", serve_inputs),
                               ("ctx4096", long_ctx))}
     out["mla_cell"] = k4_mla_cell(dev, gen, card)
+    out["kimi_cell"] = k4_kimi_cell(dev, gen, card)
     out.update(k4_hybrid_cell(dev, gen, card))
     return out
 
@@ -2497,23 +2608,42 @@ def decode_attention_times(dev, card):
 def k4_mla_cell(dev, gen, card):
     """K4's absorbed-MLA instantiation at the DeepSeek-V3 serving cell's
     shape (8 sequences of 1,024-1,087 positions in 68 pages of 16, 128
-    query heads over one latent head of 576, values its first 512 columns,
-    one f32 pool read as keys and values, DeepSeek-V3's YaRN softmax scale),
-    where the split plan cuts each context into several partitions and the
-    combine pass runs: against its plain version (3e-5, rtol = atol), then
-    timed beside its bound and SDPA (see `k4_time_case`)."""
+    query heads over one latent head, DeepSeek-V3's YaRN softmax scale);
+    see `k4_latent_case`."""
     import dataclasses
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import YarnConfig
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import attention as attn
     cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
                               rope_scaling=YarnConfig())
+    return k4_latent_case(dev, gen, card, "MLA cell", cfg,
+                          [1024 + 9 * i for i in range(8)], 68)
+
+
+def k4_kimi_cell(dev, gen, card):
+    """K4's absorbed-MLA instantiation at the Kimi-Linear serving cell's
+    latent pool (8 sequences of 16,385-16,416 positions in the cell's
+    1,028 pages of 16 a sequence, 32 query heads over one latent head, the
+    plain softmax scale); see `k4_latent_case`."""
+    from repro_torch.configs import get_config
+    return k4_latent_case(dev, gen, card, "Kimi-Linear cell",
+                          get_config("kimi-linear-48b-a3b"),
+                          [16385 + 31 * i // 7 for i in range(8)], 1028)
+
+
+def k4_latent_case(dev, gen, card, name, cfg, ctxs, nblk):
+    """K4 over `cfg`'s latent pool, one sequence a context of `ctxs` in
+    `nblk` pages of 16 (rows of 576, values their first 512 columns, one
+    f32 pool read as keys and values), where the split plan cuts each
+    context into several partitions and the combine pass runs: against
+    its plain version (3e-5, rtol = atol), then timed beside its bound and
+    SDPA (see `k4_time_case`)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import attention as attn
     m = cfg.mla
     d, dv = m.kv_lora_rank + m.qk_rope_head_dim, m.kv_lora_rank
-    args = contexts_case(gen, [1024 + 9 * i for i in range(8)],
-                         cfg.n_heads, 1, d, 16, 68, torch.float32, dev)
+    args = contexts_case(gen, ctxs, cfg.n_heads, 1, d, 16, nblk,
+                         torch.float32, dev)
     args[2] = args[1]                       # the values are the rows'
     kw = dict(scale=attn.mla_softmax_scale(cfg), v_dim=dv)
     plan = pa.launch_plan(*args[:4], dv)
@@ -2521,13 +2651,13 @@ def k4_mla_cell(dev, gen, card):
     diff = (pa.paged_attention(*args, **kw) - plain).abs()
     err = float(diff.max())
     if plan["parts"] < 2 or bool((diff > 3e-5 * (1 + plain.abs())).any()):
-        raise AssertionError(f"[time K4] K4 at the MLA cell's shape: "
+        raise AssertionError(f"[time K4] K4 at the {name}'s shape: "
                              f"{plan['parts']} partition(s), max|kernel - "
                              f"plain| {err:.3g} (tolerance 3e-5)")
-    print(f"[time K4] MLA cell: {plan['parts']} partitions, max|kernel - "
+    print(f"[time K4] {name}: {plan['parts']} partitions, max|kernel - "
           f"plain| {err:.3g} (tolerance 3e-5, rtol = atol)")
-    return dict(k4_time_case("MLA cell", args, dev, card, **kw),
-                max_abs_err=err)
+    del plain, diff
+    return dict(k4_time_case(name, args, dev, card, **kw), max_abs_err=err)
 
 
 def k4_hybrid_cell(dev, gen, card):
@@ -3587,6 +3717,7 @@ def main() -> int:
     t0 = time.perf_counter()
     serve = serve_main_path(dev, card)
     hybrid_serve = hybrid_serve_path(dev, card)
+    kda_serve = kda_serve_path(dev, card)
     print(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 3c. slice 8: streamed, sharded, resumed; probe; MoEStream -------
@@ -3616,6 +3747,7 @@ def main() -> int:
     t0 = time.perf_counter()
     s4_t = slice4_times(s4, serve["cfg"], card)
     k5_mimo = k5_mimo_times(dev, card)
+    k5_kimi = k5_kimi_times(dev, card)
     s4_launches = s4["launches"]
     s4_errs = (s4["k5"]["err"], s4["k6"]["err"], s4["k5w"]["err"],
                s4["k5p"]["err"])
@@ -3756,9 +3888,10 @@ def main() -> int:
         "library": "scaled_dot_product_attention(enable_gqa=True) on the "
                    "K/V gathered beforehand (gather not timed)",
         "ctx4096": k4_t["ctx4096"],
-        "mla_cell": k4_t["mla_cell"],
+        "mla_cell": k4_t["mla_cell"], "kimi_cell": k4_t["kimi_cell"],
         "hybrid_cell": {k: k4_t[f"hybrid_{k}"] for k in ("full", "window")},
         "hybrid_serve": hybrid_serve,
+        "kda_serve": kda_serve,
         "decode_attention_launches": serve["launches"]["decode_attention"],
         "decode_attention": dense_t,
         "slice10_serves": {a: v["k4"] for a, v in s10["serve"].items()},
@@ -3785,7 +3918,7 @@ def main() -> int:
         "library": s4_t["causal"]["library"],
         "library_backend": s4_t["causal"]["library_backend"],
         "windowed": s4_t["windowed"], "prefill": s4_t["prefill"],
-        "mimo_prefill": k5_mimo}, {
+        "mimo_prefill": k5_mimo, "kimi_prefill": k5_kimi}, {
         "name": "cache_sim", "route": "cuda",
         "launches_by_path": by_path("cache_sim"),
         "source": "src/repro_torch/kernels/csrc/cache_sim.cu",

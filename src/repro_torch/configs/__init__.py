@@ -25,6 +25,7 @@ ARCHS = tuple(_MODULES)
 # architectures of the port alone (not in the JAX package)
 _PORT_MODULES = {
     "mimo-v2-flash-309b": "mimo_v2_flash_309b",
+    "kimi-linear-48b-a3b": "kimi_linear_48b_a3b",
 }
 
 #: every architecture the port builds: ARCHS, then the port's own

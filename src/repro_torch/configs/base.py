@@ -5,7 +5,10 @@ plus the reduced smoke variants.  `block_pattern` drives the transformer
 assembly: a cycle of block kinds over the depth, e.g. ``("attn",)`` for dense
 LMs, ``("rec", "rec", "attn")`` for recurrentgemma's 2:1 hybrid,
 ``("rwkv",)`` for RWKV6, ``("moe",)`` / ``("dense*3", "moe*rest")`` via
-`first_dense` for the MoE archs.
+`first_dense` for the MoE archs.  A block kind fixes the feed-forward
+(``attn``: a dense MLP, ``moe``: experts); the mixer of layer i is that of
+``cfg.layer(i)`` (its ``attn_kind``), so Kimi-Linear's KDA and MLA layers
+share the kinds ``attn`` and ``moe``.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ BlockKind = str  # 'attn' | 'moe' | 'rwkv' | 'rec'
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
-    """DeepSeek-V3 Multi-head Latent Attention."""
-    q_lora_rank: int = 1536
+    """DeepSeek-V3 Multi-head Latent Attention; `q_lora_rank` None: the
+    query projected directly (Kimi-Linear)."""
+    q_lora_rank: Optional[int] = 1536
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
@@ -50,6 +54,21 @@ class HybridAttention:
     n_kv_heads: int = 8
     rope_theta: float = 10_000.0
     sinks: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class KDAConfig:
+    """Kimi Delta Attention (Kimi-Linear's ``linear_attn_config``): the
+    layers in `layers` (0-indexed) are gated delta-rule linear attention,
+    `n_heads` heads whose keys and values are `head_dim` wide, a causal
+    depthwise convolution of `conv` taps on q, k and v, the decay's and the
+    output gate's low-rank projections through `head_dim`, and the
+    chunkwise prefill in chunks of `chunk` positions (a power of two)."""
+    layers: Tuple[int, ...]
+    n_heads: int = 32
+    head_dim: int = 128
+    conv: int = 4
+    chunk: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +116,11 @@ class ModelConfig:
     block_pattern: Tuple[BlockKind, ...] = ("attn",)
 
     # attention flavour
-    attn_kind: str = "full"        # 'full' | 'swa' | 'mla'
+    attn_kind: str = "full"        # 'full' | 'swa' | 'mla' | 'kda' (a KDA
+                                   # layer's own, :meth:`layer`)
     window: Optional[int] = None   # SWA / local-attn window
     rope: str = "rope"             # 'rope' | 'mrope' | 'none' (sinusoidal)
+                                   # | 'nope' (no positions at all)
     rope_theta: float = 10_000.0
     rope_scaling: Optional[YarnConfig] = None
     mrope_sections: Tuple[int, ...] = (16, 24, 24)
@@ -114,6 +135,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     # multi-head latent attention
     mla: Optional[MLAConfig] = None
+    # gated delta-rule linear attention in some layers (Kimi-Linear)
+    kda: Optional[KDAConfig] = None
 
     # rwkv6 / rg-lru
     rwkv_head_dim: int = 64
@@ -166,11 +189,18 @@ class ModelConfig:
         """Whether layer `i` is a window layer of a hybrid model."""
         return self.hybrid is not None and self.hybrid.pattern[i] == 1
 
+    def is_kda_layer(self, i: int) -> bool:
+        """Whether layer `i` is a KDA layer."""
+        return self.kda is not None and i in self.kda.layers
+
     def layer(self, i: int) -> "ModelConfig":
         """Layer `i`'s configuration: a hybrid model's window layer with
         its window, KV heads, rope theta and sinks put in (and no
-        ``hybrid``); every other layer's is this one."""
-        return _layer_config(self, i) if self.is_window_layer(i) else self
+        ``hybrid``); a KDA layer with ``attn_kind`` "kda"; every other
+        layer's is this one."""
+        if self.is_window_layer(i) or self.is_kda_layer(i):
+            return _layer_config(self, i)
+        return self
 
     def layer_kinds(self) -> Tuple[BlockKind, ...]:
         """Expand block_pattern over depth (+ first_dense override for MoE)."""
@@ -195,11 +225,19 @@ class ModelConfig:
             n_q = lc.n_heads * hd
             n_kv = lc.n_kv_heads * hd
             if k in ("attn", "moe"):
-                if self.attn_kind == "mla" and self.mla:
+                if lc.attn_kind == "kda":
+                    a = self.kda
+                    w = a.n_heads * a.head_dim
+                    total += (d * 3 * w + a.conv * 3 * w + d * a.n_heads
+                              + 2 * (d * a.head_dim + a.head_dim * w)
+                              + w * d + a.n_heads + w + a.head_dim)
+                elif self.attn_kind == "mla" and self.mla:
                     m = self.mla
                     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-                    total += (d * m.q_lora_rank
-                              + m.q_lora_rank * self.n_heads * qk
+                    q = (d * self.n_heads * qk if m.q_lora_rank is None
+                         else d * m.q_lora_rank
+                         + m.q_lora_rank * self.n_heads * qk)
+                    total += (q
                               + d * (m.kv_lora_rank + m.qk_rope_head_dim)
                               + m.kv_lora_rank * self.n_heads *
                               (m.qk_nope_head_dim + m.v_head_dim)
@@ -243,6 +281,8 @@ class ModelConfig:
 
 @functools.lru_cache(maxsize=None)
 def _layer_config(cfg: ModelConfig, i: int) -> ModelConfig:
+    if cfg.is_kda_layer(i):
+        return dataclasses.replace(cfg, attn_kind="kda")
     h = cfg.hybrid
     return dataclasses.replace(cfg, window=h.window, n_kv_heads=h.n_kv_heads,
                                rope_theta=h.rope_theta, attn_sinks=h.sinks,

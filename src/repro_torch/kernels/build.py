@@ -50,6 +50,9 @@ KERNELS = ("mesi_segment", "mesi_dyn_segment", "paged_attention",
            "cache_sim", "stream_triad", "flash_attention",
            "decode_attention", "attention_sinks", "flash_attention_sinks")
 LAUNCHES: Dict[str, int] = {k + s: 0 for k in KERNELS for s in ("", "_ref")}
+# the KDA mixer's chunks scanned in prefill and decode steps run, counted
+# beside the kernels (it runs in PyTorch operations)
+LAUNCHES.update(kda_chunks=0, kda_steps=0)
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 

@@ -32,6 +32,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.memory.kvcache import PagedKVCache, pool_kinds
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import kda as kda_mod
 from repro_torch.models import transformer as tf
 from repro_torch.runtime.trace import span
 
@@ -53,9 +54,15 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
     pool holds its first full layer's pages and its first window layer's
     rings: the window kind's K4 launch takes that layer's sinks and at most
     a window of positions, inside a ``serve.window_pool`` span, and its
-    query is drawn after the full kind's.  Where the step can be captured
+    query is drawn after the full kind's.  A model with KDA layers keeps
+    its first KDA layer's recurrent state and convolution window in one
+    slot a sequence, resident in HBM and outside the page budget: the
+    slot is that layer's entry of the sequence's dense cache, which the
+    prefill writes and each decode step reads and rewrites in place.
+    Where the step can be captured
     (:func:`~repro_torch.models.transformer.graphable`: the CUDA card,
-    attention blocks, RoPE or M-RoPE), each sequence's caches are a
+    attention or KDA blocks, RoPE, M-RoPE or no positions), each
+    sequence's caches are a
     :class:`~repro_torch.models.transformer.StepGraph`: its first step
     runs eagerly, the second captures the step as a CUDA graph
     (``serve.capture#<sid>``) and every step from then on replays it;
@@ -72,12 +79,16 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
 
     Returns a dict: ``tokens`` ({seq: [token, ...]}), ``kv_stats`` (:class:`KVStats` as a
     dict, summed over the kinds), ``kv_kinds`` (per kind: its live
-    ``pages`` and its counters), ``tier_histogram``, ``attn_out`` (every
+    ``pages`` and its counters; with KDA layers also ``state``: the slots
+    held, each one's bytes (:func:`~repro_torch.models.kda.state_bytes`),
+    and the slots read and written back with their bytes),
+    ``tier_histogram``, ``attn_out`` (every
     step's K4 output over the first kind), ``kind_attn_out`` (per kind, the
     same), ``last_attn_inputs`` (q, k_pool, v_pool, block_table,
     context_lens of the first kind's last launch), ``logits_finite``,
     ``n_params``, ``prefill_s`` and
-    ``decode_s`` (host wall time, synchronized), ``kv`` (the cache) and
+    ``decode_s`` (host wall time, synchronized), ``kv`` (the cache),
+    ``caches`` (each sequence's dense caches after its last step) and
     ``decode_graph`` (the steps ``captured``, ``replayed`` and run
     ``eager``, summed over the sequences).
     """
@@ -184,8 +195,16 @@ def run(cfg, *, requests: int = 8, prefill: int = 48, decode: int = 16,
            "logits_finite": bool(finite),
            "n_params": tf.n_param_elements(params),
            "prefill_s": prefill_s, "decode_s": decode_s, "kv": kv,
+           "caches": dense_caches,
            "decode_graph": {"captured": captured, "replayed": replayed,
                             "eager": len(seqs) * decode - replayed}}
+    if cfg.kda is not None:   # each prefill writes a slot, each step
+        slot = kda_mod.state_bytes(cfg)     # reads and rewrites every one
+        out["kv_kinds"]["state"] = dict(
+            slots=requests, slot_bytes=slot, held_bytes=requests * slot,
+            reads=requests * decode, writes=requests * (1 + decode),
+            read_bytes=requests * decode * slot,
+            written_bytes=requests * (1 + decode) * slot)
     if decode:
         out["last_attn_inputs"] = last
     return out

@@ -74,13 +74,15 @@ class PoolKind:
 
 
 def pool_kinds(cfg, page_size: int) -> Tuple[PoolKind, ...]:
-    """The kinds of page `cfg`'s serving pool holds: MLA's latent rows;
-    GQA's keys and values of layer 0; for a hybrid model, its first full
-    layer's and its first window layer's (a ring of ``window /
-    page_size`` pages)."""
+    """The kinds of page `cfg`'s serving pool holds: MLA's latent rows of
+    its first MLA layer (KDA layers keep no pages); GQA's keys and values
+    of layer 0; for a hybrid model, its first full layer's and its first
+    window layer's (a ring of ``window / page_size`` pages)."""
     if cfg.attn_kind == "mla":
         m = cfg.mla
-        return (PoolKind("latent", 0, 1,
+        first = next(i for i in range(cfg.n_layers)
+                     if cfg.layer(i).attn_kind == "mla")
+        return (PoolKind("latent", first, 1,
                          m.kv_lora_rank + m.qk_rope_head_dim, 0),)
     windows = [i for i in range(cfg.n_layers) if cfg.is_window_layer(i)]
     if not windows:

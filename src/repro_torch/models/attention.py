@@ -7,8 +7,9 @@ in plain PyTorch (the reference computes it outside any Pallas kernel), and
 GQA prefill on the card runs its attention on K5 instead
 (:func:`prefill_attention`, :func:`gqa_flash_attention`) where the inputs
 are what one of K5's tensor-core forms takes (MiMo-V2-Flash's hd 192 /
-v 128 layers and sinks among them); training, the dry run's fake tensors,
-MLA and every other type or width keep the loop.  A GQA decode step on
+v 128 layers and sinks among them, and Kimi-Linear's MLA at its plain
+softmax scale); training, the dry run's fake tensors, MLA under YaRN and
+every other type or width keep the loop.  A GQA decode step on
 the card runs its attention on K4 over the dense cache as it lies
 (:func:`decode_attention`); elsewhere it keeps the einsums.  Multi-head latent
 attention (DeepSeek-V3's MLA) expands its latent to per-head K/V for
@@ -395,14 +396,21 @@ def attention_decode(params: Dict, x: torch.Tensor, cfg, cache: Dict,
 # Multi-head Latent Attention (DeepSeek-V3)
 # ---------------------------------------------------------------------------
 def mla_init(gen: torch.Generator, cfg) -> Dict:
+    """An MLA layer: the query through its LoRA (``wq_a``, ``q_norm``,
+    ``wq_b``), or with ``q_lora_rank`` None directly (``wq``); the latent
+    and the rope key, its norm, its expansion and the output."""
     m = cfg.mla
     d, n = cfg.d_model, cfg.n_heads
     dt = pdtype(cfg)
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank is None:
+        query = {"wq": dense_init(gen, (d, n * qk), dtype=dt)}
+    else:
+        query = {"wq_a": dense_init(gen, (d, m.q_lora_rank), dtype=dt),
+                 "q_norm": rmsnorm_init(m.q_lora_rank, gen.device),
+                 "wq_b": dense_init(gen, (m.q_lora_rank, n * qk), dtype=dt)}
     return {
-        "wq_a": dense_init(gen, (d, m.q_lora_rank), dtype=dt),
-        "q_norm": rmsnorm_init(m.q_lora_rank, gen.device),
-        "wq_b": dense_init(gen, (m.q_lora_rank, n * qk), dtype=dt),
+        **query,
         "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
                             dtype=dt),
         "kv_norm": rmsnorm_init(m.kv_lora_rank, gen.device),
@@ -462,18 +470,26 @@ def pool_kernel_kwargs(cfg, attn: Optional[Dict] = None) -> Dict:
 
 
 def _mla_qkv(params: Dict, x: torch.Tensor, cfg, positions):
-    """Shared projections. Returns q_nope, q_rope, ckv (normed), k_rope."""
+    """Shared projections. Returns q_nope, q_rope, ckv (normed), k_rope;
+    the query through its LoRA or directly, as the layer holds it; with
+    ``cfg.rope`` "nope" the rope parts as projected, unrotated."""
     m = cfg.mla
     b, s, _ = x.shape
     n = cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    q = matmul(rmsnorm(params["q_norm"], matmul(x, params["wq_a"]),
-                       cfg.norm_eps), params["wq_b"]).reshape(b, s, n, qk)
+    if "wq" in params:
+        q = matmul(x, params["wq"]).reshape(b, s, n, qk)
+    else:
+        q = matmul(rmsnorm(params["q_norm"], matmul(x, params["wq_a"]),
+                           cfg.norm_eps), params["wq_b"]).reshape(b, s, n, qk)
     q_nope = q[..., :m.qk_nope_head_dim]
-    q_rope = rope_mod.apply_rope(q[..., m.qk_nope_head_dim:], positions,
-                                 cfg.rope_theta, cfg.rope_scaling)
     kv = matmul(x, params["wkv_a"])
     ckv = rmsnorm(params["kv_norm"], kv[..., :m.kv_lora_rank], cfg.norm_eps)
+    if cfg.rope == "nope":
+        return q_nope, q[..., m.qk_nope_head_dim:], ckv, \
+            kv[..., m.kv_lora_rank:]
+    q_rope = rope_mod.apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                                 cfg.rope_theta, cfg.rope_scaling)
     k_rope = rope_mod.apply_rope(
         kv[..., m.kv_lora_rank:][:, :, None, :], positions,
         cfg.rope_theta, cfg.rope_scaling)[:, :, 0, :]       # shared head
@@ -518,12 +534,20 @@ def mla_attention(params: Dict, x: torch.Tensor, cfg, positions
 
 def mla_prefill(params: Dict, x: torch.Tensor, cfg, positions
                 ) -> Tuple[torch.Tensor, Dict]:
-    """MLA prefill: returns output and the latent {ckv, krope} cache (the
-    attention with ``cfg.kv_chunk``, as the reference's prefill)."""
+    """MLA prefill: returns output and the latent {ckv, krope} cache.  At
+    the plain softmax scale ``(nope + rope) ** -0.5`` (no YaRN) the
+    attention is :func:`prefill_attention`'s, on K5 where it takes the
+    inputs (Kimi-Linear's q / k 192, v 128); else, as under DeepSeek-V3's
+    YaRN, the blockwise loop with ``cfg.kv_chunk``, as the reference's
+    prefill."""
     b, s, _ = x.shape
     q, k, v, ckv, k_rope = _mla_expand(params, x, cfg, positions)
-    o = blockwise_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk,
-                            scale=mla_softmax_scale(cfg))
+    scale = mla_softmax_scale(cfg)
+    if scale == q.shape[-1] ** -0.5:
+        o = prefill_attention(q, k, v, kv_chunk=cfg.kv_chunk)
+    else:
+        o = blockwise_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk,
+                                scale=scale)
     y = shard(matmul(o.reshape(b, s, cfg.n_heads * cfg.mla.v_head_dim),
                      params["wo"], reduce_dtype=_reduce(x, cfg)),
               BATCH, None, None)

@@ -14,6 +14,7 @@ model_params` unstacks the period axis).  Caches follow the same layout,
 
     attn / moe, GQA:  {"k", "v": (B, S, K, hd)}
     attn / moe, MLA:  {"ckv": (B, S, r), "krope": (B, S, rope)}
+    attn / moe, KDA:  {"S": (B, H, dk, dv) f32, "conv": (B, conv - 1, 3 H dk)}
     rwkv:             {"tm_shift", "cm_shift": (B, d), "S": (B, H, hd, hd)}
     rec:              {"h": (B, W) f32, "conv": (B, cw - 1, W)}
 
@@ -34,6 +35,7 @@ from torch.utils import checkpoint as ckpt_mod
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import kda as kda_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -120,11 +122,13 @@ def _attn_init(gen: torch.Generator, cfg) -> Dict:
 
 
 def block_init(gen: torch.Generator, kind: str, cfg) -> Dict:
-    """One block's parameters: ``ln1``, its mixer (``attn``, ``tm`` or
-    ``rec``), ``ln2`` and its feed-forward (``mlp``, ``moe`` or ``cm``)."""
+    """One block's parameters: ``ln1``, its mixer (``attn``, ``kda``, ``tm``
+    or ``rec``), ``ln2`` and its feed-forward (``mlp``, ``moe`` or
+    ``cm``)."""
     d = cfg.d_model
     if kind in ("attn", "moe"):
-        mixer = "attn", _attn_init(gen, cfg)
+        mixer = (("kda", kda_mod.kda_init(gen, cfg))
+                 if cfg.attn_kind == "kda" else ("attn", _attn_init(gen, cfg)))
         ffn = (("moe", moe_mod.moe_init(gen, cfg)) if kind == "moe" else
                ("mlp", mlp_init(gen, d, _dense_ff(cfg), dtype=pdtype(cfg))))
     elif kind == "rwkv":
@@ -151,7 +155,11 @@ def _ffn(kind: str, p: Dict, h: torch.Tensor, cfg, decode: bool = False
 
 def _attn_seq(p: Dict, h: torch.Tensor, cfg, positions, want_cache: bool
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """The attention half over a sequence: (y, cache entry or None)."""
+    """The attention (or KDA) half over a sequence: (y, cache entry or
+    None)."""
+    if cfg.attn_kind == "kda":
+        y, cache = kda_mod.kda_prefill(p["kda"], h, cfg)
+        return y, (cache if want_cache else None)
     if cfg.attn_kind == "mla":
         if want_cache:
             return attn_mod.mla_prefill(p["attn"], h, cfg, positions)
@@ -205,6 +213,8 @@ def _block_decode(kind: str, p: Dict, x: torch.Tensor, cfg, cache: Dict,
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         y, cache = rglru_mod.recurrent_block_step(p["rec"], h, cache, cfg)
+    elif cfg.attn_kind == "kda":
+        y, cache = kda_mod.kda_decode(p["kda"], h, cfg, cache)
     elif cfg.attn_kind == "mla":
         y, cache = attn_mod.mla_decode(p["attn"], h, cfg, cache, ctx_len)
     else:
@@ -469,22 +479,26 @@ def _decode(params: Dict, cfg, token: torch.Tensor, caches: List,
 
 def graphable(cfg, device) -> bool:
     """Whether :func:`decode_step` of `cfg` on `device` can be captured as
-    CUDA graphs: a CUDA device, every block attention (GQA or MLA, whose
-    decode reads nothing back to the host) with a dense MLP or an MoE FFN
-    (whose decode has static shapes), and RoPE or M-RoPE positions."""
+    CUDA graphs: a CUDA device, every block attention or KDA (GQA, MLA or
+    KDA, whose decode reads nothing back to the host and updates its cache
+    in place) with a dense MLP or an MoE FFN (whose decode has static
+    shapes), and RoPE, M-RoPE or no positions."""
     return (torch.device(device).type == "cuda"
-            and cfg.rope in ("rope", "mrope")
+            and cfg.rope in ("rope", "mrope", "nope")
             and all(kind in ("attn", "moe") for seg in segments(cfg)
                     for kind in seg.pattern))
 
 
-def _has_moe(cfg) -> bool:
-    return any(kind == "moe" for seg in segments(cfg) for kind in seg.pattern)
+def _opens_spans(cfg) -> bool:
+    """Whether a decode step opens spans: an MoE FFN or a KDA layer."""
+    return cfg.kda is not None or any(
+        kind == "moe" for seg in segments(cfg) for kind in seg.pattern)
 
 
 class _Pieces:
     """A decode step captured as CUDA graphs in one memory pool, cut at the
-    spans it opens (a held MoE layer's ``moe.route`` and ``moe.experts``):
+    spans it opens (a held MoE layer's ``moe.route`` and ``moe.experts``, a
+    KDA layer's ``kda.step``):
     :meth:`replay` replays the graphs in turn, each span's inside its span,
     so that a profiler sees the spans of a replayed step."""
 
@@ -530,9 +544,10 @@ class StepGraph(list):
     what the capture records; :meth:`capture` then records the step on
     those inputs, and every later step copies its token and length in,
     replays the graph and returns a clone of the graph's logits.  A step
-    with MoE FFNs is captured as :class:`_Pieces`, cut at the spans of its
-    held layers.  The caches are updated in place, as by the eager step,
-    so the list's tensors stay the ones the graph reads and writes;
+    with MoE FFNs or KDA layers is captured as :class:`_Pieces`, cut at
+    the spans of its held MoE and its KDA layers.  The caches are updated
+    in place, as by the eager step, so the list's tensors stay the ones
+    the graph reads and writes;
     ``params`` and ``cfg`` are those the graph was made for (a call with
     others runs eagerly).  ``replayed`` counts the replays.
     """
@@ -573,7 +588,7 @@ class StepGraph(list):
 
     def capture(self) -> None:
         """Record the step on the static inputs; nothing runs."""
-        if _has_moe(self.cfg):
+        if _opens_spans(self.cfg):
             self.graph = self._capture_pieces()
             return
         graph = torch.cuda.CUDAGraph()
@@ -613,6 +628,8 @@ def init_cache(cfg, batch: int, s_cache: int, device=None) -> List:
 
     def entry(kind: str, lc) -> Dict:
         if kind in ("attn", "moe"):
+            if lc.attn_kind == "kda":
+                return kda_mod.kda_state_init(lc, batch, dev)
             if lc.attn_kind == "mla":
                 m = lc.mla
                 return {"ckv": zeros(batch, s_cache, m.kv_lora_rank),

@@ -46,6 +46,8 @@ SPANS = (
     "kv.append_tokens",    # pages walked, evicted, the pools written
     "moe.route",           # a held MoE layer's gate, group top-k and sort
     "moe.experts",         # its held experts' products and the combine
+    "kda.scan",            # a KDA layer's chunk loop in prefill
+    "kda.step",            # a KDA layer's recurrent decode step
 )
 
 _OFF = contextlib.nullcontext()

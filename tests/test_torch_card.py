@@ -986,13 +986,14 @@ def test_paged_attention_mla_shape_matches_plain_version(card, split, dtype,
 def test_mla_serve_runs_on_the_card(card):
     """deepseek's smoke serve on the card: one K4 launch a step over the
     latent pool, held against the plain version; the pool's counters as
-    on the CPU."""
+    on the CPU.  Without YaRN its softmax scale is K5's own, so each
+    layer's prefill attention runs on K5's second form (q / k 24, v 16)."""
     cfg = get_smoke("deepseek-v3-671b")
     tops.reset_launches()
     r = tserve.run(cfg, requests=3, prefill=20, decode=3, page_size=4,
                    hbm_pages=5)
     assert tops.LAUNCHES["paged_attention"] == 3
-    assert tops.LAUNCHES["flash_attention"] == 0
+    assert tops.LAUNCHES["flash_attention"] == cfg.n_layers * 3
     q, kp, vp, bt, cl = r["last_attn_inputs"]
     assert vp is kp and kp.shape[2:] == (1, 24)
     torch.testing.assert_close(
@@ -1173,17 +1174,22 @@ def test_serve_runs_the_new_kinds_on_the_card(card, arch):
 #: smoke configs whose decode step serve.run replays from a CUDA graph:
 #: a rolled 16-token window, M-RoPE, qk-norm
 GRAPHED = ("h2o-danube-3-4b", "qwen2-vl-2b", "stablelm-12b",
-           "deepseek-v3-671b", "qwen3-moe-235b-a22b", "deepseek-v3-671b:held")
+           "deepseek-v3-671b", "qwen3-moe-235b-a22b", "deepseek-v3-671b:held",
+           "kimi-linear-48b-a3b:held")
 
 
 def _graphed_config(arch):
     """The smoke config of `arch`; with ``:held``, its MoE layers hold
     experts 2-5 of 8 behind DeepSeek-V3's gate (sigmoid scores, a bias, 4
-    groups of which 2 are kept), the benchmark cell's path."""
+    groups of which 2 are kept), the benchmark cell's path; Kimi-Linear's
+    behind its own gate (one group), its KDA steps cut at ``kda.step``."""
     name, _, held = arch.partition(":")
     cfg = get_smoke(name)
     if not held:
         return cfg
+    if cfg.kda is not None:
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, held=(2, 4)))
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, scoring="sigmoid", n_group=4, topk_group=2,
         routed_scale=2.5, score_bias=True, held=(2, 4)))

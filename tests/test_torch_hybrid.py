@@ -260,12 +260,12 @@ def test_pool_counters_match_the_reference_accounting(shape):
 def test_archs_mirror_the_jax_registry():
     """``ARCHS`` is the JAX package's registry, in its order, so the JAX
     parity tests' parameter sets are unchanged; the port's own
-    architecture lies beside it, resolved by ``get_config``, and its
-    parameters at the cut (meta tensors) are the configuration file's
-    count."""
+    architectures (MiMo-V2-Flash, Kimi-Linear) lie beside it, MiMo's
+    resolved by ``get_config``, and its parameters at the cut (meta
+    tensors) are the configuration file's count."""
     from repro.configs import ARCHS as JAX_ARCHS
     assert ARCHS == tuple(JAX_ARCHS)
-    assert PORT_ARCHS == ARCHS + ("mimo-v2-flash-309b",)
+    assert PORT_ARCHS == ARCHS + ("mimo-v2-flash-309b", "kimi-linear-48b-a3b")
     assert get_config("mimo-v2-flash-309b").arch == "mimo-v2-flash-309b"
     m = Cell("mimo-v2-flash-309b.serve-4k").config
     shapes = ttf.param_shapes(GEN.program_config(m))

@@ -204,12 +204,15 @@ def test_prefill_attention_keeps_the_loop_off_the_card(monkeypatch):
 @pytest.mark.parametrize("arch,want", [
     ("h2o-danube-3-4b", {"kernel": 0, "blockwise": 2 * 3}),
     ("h2o-danube-3-4b:f32", {"kernel": 0, "blockwise": 2 * 3}),
-    ("deepseek-v3-671b", {"kernel": 0, "blockwise": 0}),
-    ("mimo-v2-flash-309b", {"kernel": 0, "blockwise": 4 * 3})])
+    ("deepseek-v3-671b", {"kernel": 0, "blockwise": 3 * 3}),
+    ("mimo-v2-flash-309b", {"kernel": 0, "blockwise": 4 * 3}),
+    ("kimi-linear-48b-a3b", {"kernel": 0, "blockwise": 1 * 3})])
 def test_serve_run_counts_its_prefill_attentions(monkeypatch, arch, want):
     """On the CPU every GQA prefill keeps the loop (2 layers x 3 requests
-    at danube's smoke size, 4 at MiMo's); MLA's prefill is not a GQA
-    one."""
+    at danube's smoke size, 4 at MiMo's), and so does an MLA prefill at
+    the plain softmax scale, which takes the same dispatch (deepseek's
+    smoke config, without YaRN: 3 layers; Kimi-Linear's: its one MLA
+    layer; its KDA layers have no attention)."""
     name, _, f32 = arch.partition(":")
     cfg = get_smoke(name)
     if f32:

@@ -318,7 +318,8 @@ def test_serve_main_runs_on_the_cpu(monkeypatch, capsys):
 #: the port's configuration fields that the JAX package's lacks, with their
 #: defaults: YaRN, and the gate and held share of an expert-parallel MoE layer
 PORT_ONLY = {"rope_scaling": None, "v_head_dim": 0, "rotary_dim": 0,
-             "value_scale": 1.0, "attn_sinks": False, "hybrid": None}
+             "value_scale": 1.0, "attn_sinks": False, "hybrid": None,
+             "kda": None}
 PORT_ONLY_MOE = {"scoring": "softmax", "n_group": 1, "topk_group": 1,
                  "routed_scale": 1.0, "score_bias": False, "held": None}
 

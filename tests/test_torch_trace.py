@@ -126,9 +126,21 @@ def _serve_hybrid():
             "attn_out": out["kind_attn_out"], "kv_kinds": out["kv_kinds"]}
 
 
+def _serve_kda():
+    """kimi-linear-48b-a3b's smoke config: KDA layers 0, 1 and 3 beside an
+    MLA layer, over held-share MoE FFNs; the pool holds the latent
+    pages."""
+    cfg = get_smoke("kimi-linear-48b-a3b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           held=(2, 4)))
+    out = tserve.run(cfg, device="cpu", **SERVE)
+    return {"tokens": out["tokens"], "kv_stats": out["kv_stats"],
+            "attn_out": out["attn_out"], "kv_kinds": out["kv_kinds"]}
+
+
 RUNS = {"static": _static, "tiering": _tiering, "serve": _serve,
         "serve_graphed": _serve_graphed, "serve_moe": _serve_moe,
-        "serve_hybrid": _serve_hybrid}
+        "serve_hybrid": _serve_hybrid, "serve_kda": _serve_kda}
 STAGES = {
     "static": {"sweep", "engine.build", "engine.traces", "engine.simulate",
                "machine.time_batch", "engine.rows"},
@@ -140,6 +152,7 @@ STAGES["tiering"] = STAGES["static"]
 STAGES["serve_graphed"] = STAGES["serve"] | {"serve.capture"}
 STAGES["serve_moe"] = STAGES["serve"] | {"moe.route", "moe.experts"}
 STAGES["serve_hybrid"] = STAGES["serve_moe"] | {"serve.window_pool"}
+STAGES["serve_kda"] = STAGES["serve_moe"] | {"kda.scan", "kda.step"}
 
 
 def _spans(events):
@@ -274,13 +287,20 @@ def test_spans_nest_as_the_stages_call_each_other(runs, kind):
             assert parents["serve.capture"] == {"serve.step"}
             for sid in range(n):
                 assert count["serve.capture", sid] == 1
-        if kind in ("serve_moe", "serve_hybrid"):
-            # each of the 2 (hybrid: 3) MoE layers in every prefill and
-            # decode_step
-            layers = 3 if kind == "serve_hybrid" else 2
+        if kind in ("serve_moe", "serve_hybrid", "serve_kda"):
+            # each of the 2 (hybrid, kda: 3) MoE layers in every prefill
+            # and decode_step
+            layers = 2 if kind == "serve_moe" else 3
             for name in ("moe.route", "moe.experts"):
                 assert parents[name] == {"serve.prefill", "serve.model"}
                 assert count[name, None] == layers * (n + n * d)
+        if kind == "serve_kda":
+            # the 3 KDA layers' chunk loops in every prefill (one chunk of
+            # 8), their steps in every decode_step
+            assert parents["kda.scan"] == {"serve.prefill"}
+            assert count["kda.scan", None] == 3 * n
+            assert parents["kda.step"] == {"serve.model"}
+            assert count["kda.step", None] == 3 * n * d
         return
     assert parents["sweep"] == {None} and count["sweep", None] == 1
     assert parents["engine.traces"] == {"engine.build"}
